@@ -1,0 +1,648 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py              # full run, ~2 min on one H100
+    python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
+
+Phases, each printing its own lines:
+
+1. device  — the card as nvidia-smi and torch name it;
+2. build   — compiles the CUDA kernels of ``src/repro_torch/csrc`` with nvcc
+             for sm_90a (one nvcc per source, started together);
+3. reference — llama3_1b SMOKE served through the kernels on the card vs
+             through the plain versions on the CPU (logits within 1e-3);
+4. main path — the launcher's entry point (``repro_torch.launch.serve.main``,
+             i.e. ``python -m repro_torch.launch.serve --continuous``) on
+             llama3_1b at full width and depth: random init from a seeded
+             torch.Generator, calibration on seeded numpy tokens, COALA
+             compression (ratio 0.6, λ = 4, μ from Eq. 5), then the dense and
+             the compressed model each serve the same trace of staggered
+             requests through the continuous engine (batched paged prefill,
+             paged decode, at least one preemption). Launch counts are zeroed
+             just before and read just after; every kernel must have
+             launched. The shapes of the kernel calls are noted on the way;
+5. kernels — each kernel against its plain PyTorch version on the card, in
+             fp32 and bf16, at the main path's shapes (plus window / softcap
+             / zero-length / starts > 0 cases), with its time, the plain
+             version's time, one PyTorch library call's time and the least
+             time the card could take (the bound);
+6. profile — only with ``--profile N``: wall and per-kernel device time of
+             N decode steps per model (torch.profiler), and the host cost
+             of one wrapper call and of two eager model ops.
+
+It then prints one JSON line of per-kernel results, the nvidia-smi line, and
+as its last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero without that line. Without CUDA, or when ``src/repro_torch`` is not
+beside this file, it exits 2 and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+LOWRANK_SHAPES = {          # llama3_1b projections at ratio 0.6: (d_in, r, d_out)
+    "wq": (2048, 614, 2048), "wk": (2048, 245, 512), "wv": (2048, 245, 512),
+    "wo": (2048, 614, 2048), "gate": (2048, 983, 8192), "up": (2048, 983, 8192),
+    "down": (8192, 983, 2048)}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # max|err| <= tol * max(1, max|ref|)
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
+SEED = 0
+ITERS = 20                  # timed launches per kernel and variant
+
+# The main path's traffic: 8 requests, one every 2 engine steps, prompts of
+# 16-200 tokens, 32 new tokens each. The launcher calibrates on 2 batches of
+# --requests x --prompt-len seeded tokens (2 x 8 x 256). The trace needs 81
+# pages of 16 tokens at its peak; a pool of 72 (one reserved for trash)
+# makes the engine preempt once.
+REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW_TOKENS = 8, 16, 200, 32
+LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6",
+                 "--requests", str(REQUESTS), "--prompt-len", "256",
+                 "--new-tokens", str(NEW_TOKENS), "--block-size", "16",
+                 "--num-blocks", "72", "--max-running", "8",
+                 "--seed", str(SEED), "--device", "cuda"]
+
+
+class Failure(Exception):
+    pass
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(torch, fn, flush) -> float:
+    """Device milliseconds of one call of ``fn`` with a cold L2 (as a layer's
+    weights are at each decode step): CUDA events around ``ITERS`` calls
+    launched back to back, each after a rewrite of the 256 MB ``flush``
+    buffer, minus the same loop of rewrites alone. The ~0.1 ms rewrite
+    keeps the host ahead of the card, so the host's launch overhead is not
+    counted."""
+    def loop(with_fn: bool) -> float:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(ITERS):
+            flush.zero_()
+            if with_fn:
+                fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+    for _ in range(2):
+        fn()
+    loop(False)
+    return max(loop(True) - loop(False), 0.0) / ITERS
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def compare(name, got, want, tol) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    lim = tol * max(1.0, want.float().abs().max().item())
+    ok = math.isfinite(err) and err <= lim
+    log(f"  {name}: max_abs_err={err:.3e} tol={lim:.3e} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise Failure(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: small reference — kernels on the card vs plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+def reference_check(torch, dev):
+    import copy
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("llama3_1b")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 32)))
+               for _ in range(2)]
+    cal = calibrate_model(cpu, batches)
+    ccpu, _ = compress_model(cpu, cal, CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    for name, m_cpu in (("dense", cpu), ("coala", ccpu)):
+        m_gpu = copy.deepcopy(m_cpu).to(dev)
+        bs, nbk = 16, 16
+        lens = [23, 9, 1]
+        tok = np.zeros((4, 32), np.int32)
+        for i, n in enumerate(lens):
+            tok[i, :n] = rng.randint(0, cfg.vocab_size, n)
+        tables = np.zeros((4, 4), np.int32)
+        tables[0, :2], tables[1, :1], tables[2, :1] = [1, 2], [3], [4]
+        ln = np.array(lens + [1], np.int32)
+        outs = []
+        for m, d in ((m_cpu, torch.device("cpu")), (m_gpu, dev)):
+            cache = m.init_cache(nbk, bs)
+            t = lambda a: torch.as_tensor(a, device=d)   # noqa: E731
+            lg = [m.prefill_chunk(t(tok), cache, t(np.zeros(4, np.int32)), t(ln),
+                                  t(tables))]
+            pos = np.array(lens + [0], np.int32)
+            nxt = np.array([[5], [7], [11], [0]], np.int32)
+            for _ in range(2):
+                lg.append(m.decode_step(t(nxt), cache, t(pos), t(tables)))
+                pos[:3] += 1
+            outs.append([x[:3].cpu() for x in lg])
+        for i, (a, b) in enumerate(zip(*outs)):
+            compare(f"reference {name} step {i} (card kernels vs CPU plain)", b, a, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at full width, through the launcher
+# ---------------------------------------------------------------------------
+
+class KernelCalls:
+    """Notes the shapes of the kernel calls made inside the ``with`` block
+    by wrapping the ``ops`` entry points the models call through. Holds
+    references only: nothing is read back from the card while the path
+    runs. Phase 5 checks and times each kernel at these shapes."""
+
+    NAMES = ("lowrank_linear", "paged_attention", "chunked_prefill")
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.lowrank_m = collections.Counter()   # rows M -> calls
+        self.paged = None      # (B, tables, lengths) of the last largest-batch call
+        self.chunked = None    # (B, L, tables, starts, lens) of the largest call
+
+    def __enter__(self):
+        self._orig = {k: getattr(self.ops, k) for k in self.NAMES}
+        ll, pa, cp = (self._orig[k] for k in self.NAMES)
+
+        def lowrank(x, b_t, a_t):
+            self.lowrank_m[x.numel() // x.shape[-1]] += 1
+            return ll(x, b_t, a_t)
+
+        def paged(q, kp, vp, tables, lengths, **kw):
+            if self.paged is None or q.shape[0] >= self.paged[0]:
+                self.paged = (q.shape[0], tables, lengths)
+            return pa(q, kp, vp, tables, lengths, **kw)
+
+        def chunked(q, kp, vp, tables, starts, lens, **kw):
+            if self.chunked is None or q.shape[0] * q.shape[1] > math.prod(self.chunked[:2]):
+                self.chunked = (q.shape[0], q.shape[1], tables, starts, lens)
+            return cp(q, kp, vp, tables, starts, lens, **kw)
+
+        self.ops.lowrank_linear = lowrank
+        self.ops.paged_attention = paged
+        self.ops.chunked_prefill = chunked
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._orig.items():
+            setattr(self.ops, k, fn)
+
+    def shapes(self) -> dict:
+        """Plain-int description of the noted calls (padding rows are the
+        rows whose block table is all trash page 0)."""
+        _, pt, pl = self.paged
+        _, l_pad, ct, cs, cl = self.chunked
+        return {"lowrank_m_decode": self.lowrank_m.most_common(1)[0][0],
+                "lowrank_m_max": max(self.lowrank_m),
+                "paged_lengths": pl.tolist(),
+                "paged_pad_rows": (pt == 0).all(dim=1).tolist(),
+                "chunked_l": l_pad, "chunked_starts": cs.tolist(),
+                "chunked_lens": cl.tolist(),
+                "chunked_pad_rows": (ct == 0).all(dim=1).tolist()}
+
+
+def main_path(torch, ops):
+    """``repro_torch.launch.serve.main`` with ``LAUNCHER_ARGS`` on the
+    main path's trace; checks what comes out. Returns (summary, launcher
+    result, noted kernel shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import compression_summary
+    from repro_torch.launch import serve as launcher
+
+    vocab = get_config("llama3_1b").vocab_size
+    trace = launcher.synthetic_trace(REQUESTS, vocab, seed=SEED,
+                                     min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                                     min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    with KernelCalls(ops) as calls:
+        res = launcher.main(LAUNCHER_ARGS, trace=trace)
+    torch.cuda.synchronize()
+
+    reports = res["reports"]
+    summary = compression_summary(reports)
+    for r in reports:
+        vals = (r.mu, r.rel_err_weighted, r.rel_err_bound)
+        if not all(math.isfinite(v) for v in vals):
+            raise Failure(f"compression report not finite: {r}")
+        if r.rel_err_weighted < r.rel_err_bound * (1 - 1e-3):
+            raise Failure(f"{r.path}: error {r.rel_err_weighted} below the optimum "
+                          f"{r.rel_err_bound}")
+    if not summary["kept_ratio"] <= 0.6:
+        raise Failure(f"kept ratio {summary['kept_ratio']} above 0.6")
+
+    out = {"layers": res["models"]["dense"].cfg.n_layers, "seconds": res["seconds"],
+           "compression": summary}
+    tokens = {}
+    for name, eng in res["engines"].items():
+        met = res["metrics"][name]
+        out[f"serve_{name}"] = {k: met[k] for k in (
+            "requests", "new_tokens", "tokens_per_sec", "decode_tok_per_s",
+            "prefill_tok_per_s", "mean_ttft_s", "max_ttft_s", "decode_steps",
+            "prefill_batches", "preemptions", "decode_seconds", "prefill_seconds")}
+        fin = sorted(eng.finished, key=lambda r: r.req_id)
+        if len(fin) != REQUESTS or any(
+                len(r.out_tokens) != NEW_TOKENS
+                or not all(0 <= t < vocab for t in r.out_tokens) for r in fin):
+            raise Failure(f"serve {name}: requests did not all finish with "
+                          f"{NEW_TOKENS} valid tokens")
+        if eng.pool.free_blocks != eng.pool.usable_blocks:
+            raise Failure(f"serve {name}: pages leaked")
+        if met["preemptions"] < 1:
+            raise Failure(f"serve {name}: the trace was meant to preempt")
+        tokens[name] = [r.out_tokens for r in fin]
+    same = sum(a[0] == b[0] for a, b in zip(tokens["dense"], tokens["coala"]))
+    log(f"  first tokens equal between dense and COALA: {same}/{REQUESTS}")
+    return out, res, calls.shapes()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: each kernel against its plain version, at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def check_lowrank(torch, ops, ref, dev, gen, shapes, flush):
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "bound_by": "bytes"}
+    m_dec = shapes["lowrank_m_decode"]
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for m in (m_dec, shapes["lowrank_m_max"]):
+            for name, (d_in, r, d_out) in LOWRANK_SHAPES.items():
+                x = torch.randn((m, d_in), generator=gen, device=dev).to(dt)
+                bt = (torch.randn((d_in, r), generator=gen, device=dev) / d_in ** 0.5).to(dt)
+                at = (torch.randn((r, d_out), generator=gen, device=dev) / r ** 0.5).to(dt)
+                got = ops.lowrank_linear(x, bt, at)
+                err = compare(f"lowrank_linear {dtype} M={m} {name} "
+                              f"({d_in}x{r}x{d_out})", got, ref(x, bt, at), TOL[dtype])
+                if dtype != "float32":
+                    continue
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                ms = timed(torch, lambda: ops.lowrank_linear(x, bt, at), flush)
+                plain = timed(torch, lambda: ref(x, bt, at), flush)
+                lib = timed(torch, lambda: torch.linalg.multi_dot([x, bt, at]), flush)
+                nbytes = 4 * (m * d_in + d_in * r + r * d_out + m * d_out)
+                b_ms, b_by = bound(nbytes, 2 * m * r * (d_in + d_out), dtype)
+                log(f"    M={m} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                    f"multi_dot {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                if m == m_dec:      # the line's numbers: one layer's decode step
+                    res["ms"] += ms
+                    res["plain_ms"] += plain
+                    res["library_ms"] += lib
+                    res["bound_ms"] += b_ms
+                    res["bound_by"] = b_by
+    log(f"  lowrank_linear, one llama3_1b layer at decode (M={m_dec}, 7 projections): "
+        f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms")
+    return res
+
+
+def _pages(torch, dev, gen, rows_tokens, bs, hkv, hd, dt, pad_rows=(), extra=4):
+    """Random page stores + per-row tables covering ``rows_tokens`` tokens;
+    rows flagged in ``pad_rows`` get all-trash tables, as the engine's
+    padding rows do."""
+    import numpy as np
+    nb = max(max(-(-t // bs) for t in rows_tokens), 1)
+    tables = np.zeros((len(rows_tokens), nb), np.int32)
+    nxt = 1
+    for i, t in enumerate(rows_tokens):
+        if i < len(pad_rows) and pad_rows[i]:
+            continue
+        for j in range(-(-t // bs)):
+            tables[i, j] = nxt
+            nxt += 1
+    shape = (nxt + extra, bs, hkv, hd)
+    kp = torch.randn(shape, generator=gen, device=dev).to(dt)
+    vp = torch.randn(shape, generator=gen, device=dev).to(dt)
+    return kp, vp, torch.as_tensor(tables, device=dev)
+
+
+def _sdpa_inputs(torch, q, kp, vp, tables, g):
+    """Contiguous per-row K/V gathered from the pages, heads repeated for
+    GQA, in SDPA's (B, H, T, hd) layout (built outside the timed call)."""
+    b, nb = tables.shape
+    bs, hkv, hd = kp.shape[1], kp.shape[2], kp.shape[3]
+    k = kp[tables.long()].reshape(b, nb * bs, hkv, hd).repeat_interleave(g, dim=2)
+    v = vp[tables.long()].reshape(b, nb * bs, hkv, hd).repeat_interleave(g, dim=2)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+def check_paged(torch, ops, pa_ref, dev, gen, shapes, flush):
+    import torch.nn.functional as F
+    hq, hkv, hd, bs = 32, 8, 64, 16
+    res = {}
+    lengths, pad_rows = shapes["paged_lengths"], shapes["paged_pad_rows"]
+    cases = [("main", lengths, pad_rows, 0.0, 0),
+             ("ragged+zero", [0, 37, 1, 200, 16, 0, 90, 5], (), 0.0, 0),
+             ("window", [0, 37, 1, 200, 16, 0, 90, 5], (), 0.0, 24),
+             ("softcap", [0, 37, 1, 200, 16, 0, 90, 5], (), 50.0, 0),
+             ("window+softcap", lengths, pad_rows, 30.0, 40)]
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, lens, pads, cap, window in cases:
+            kp, vp, tables = _pages(torch, dev, gen, lens, bs, hkv, hd, dt, pads)
+            q = torch.randn((len(lens), hq, hd), generator=gen, device=dev).to(dt)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            args = (q, kp, vp, tables, ln)
+            got = ops.paged_attention(*args, cap=cap, window=window)
+            err = compare(f"paged_attention {dtype} {name} B={len(lens)}", got,
+                          pa_ref(*args, cap=cap, window=window), TOL_ATTN[dtype])
+            if 0 in lens and not torch.all(got[ln == 0] == 0):
+                raise Failure("paged_attention: zero-length rows are not zero")
+            if dtype == "float32":
+                res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+            if dtype != "float32" or name != "main":
+                continue
+            res["ms"] = timed(torch, lambda: ops.paged_attention(*args), flush)
+            res["plain_ms"] = timed(torch, lambda: pa_ref(*args), flush)
+            k, v = _sdpa_inputs(torch, q, kp, vp, tables, hq // hkv)
+            mask = (torch.arange(k.shape[2], device=dev)[None, :]
+                    < ln[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            res["library_ms"] = timed(
+                torch, lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask),
+                flush)
+            # bytes the function needs: q of rows with keys, the whole output,
+            # the K/V of every attended token, the tables and lengths
+            toks = sum(lens)
+            q_rows = sum(1 for n in lens if n > 0)
+            nbytes = 4 * ((q_rows + len(lens)) * hq * hd + 2 * toks * hkv * hd
+                          + tables.numel() + len(lens))
+            res["bound_ms"], res["bound_by"] = bound(nbytes, 4 * toks * hq * hd, dtype)
+            log(f"    main B={len(lens)} lengths={lens}: kernel {res['ms']:.4f} ms, "
+                f"plain {res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms, "
+                f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+    return res
+
+
+def _prefill_pairs(starts, lens, window):
+    """(query, key) pairs the causal/window masks keep."""
+    n = 0
+    for s, ln in zip(starts, lens):
+        for j in range(ln):
+            keys = s + j + 1
+            n += min(keys, window) if window > 0 else keys
+    return n
+
+
+def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
+    import torch.nn.functional as F
+    hq, hkv, hd, bs = 32, 8, 64, 16
+    res = {}
+    odd = ([32, 0, 5, 64, 0, 16, 3, 0], [20, 64, 0, 7, 33, 1, 64, 0])
+    cases = [("main", shapes["chunked_starts"], shapes["chunked_lens"],
+              shapes["chunked_pad_rows"], shapes["chunked_l"], 0.0, 0),
+             ("starts>0+zero", *odd, (), 64, 0.0, 0),
+             ("window", *odd, (), 64, 0.0, 24),
+             ("softcap+window", *odd, (), 64, 30.0, 40)]
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, starts, lens, pads, lq, cap, window in cases:
+            totals = [s + lq for s in starts]
+            kp, vp, tables = _pages(torch, dev, gen, totals, bs, hkv, hd, dt, pads)
+            q = torch.randn((len(lens), lq, hq, hd), generator=gen, device=dev).to(dt)
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            args = (q, kp, vp, tables, st, ln)
+            got = ops.chunked_prefill(*args, cap=cap, window=window)
+            want = cp_ref(*args, cap=cap, window=window)
+            err = compare(f"chunked_prefill {dtype} {name} B={len(lens)} L={lq}",
+                          got, want, TOL_ATTN[dtype])
+            for i, n in enumerate(lens):
+                if not torch.all(got[i, n:] == 0):
+                    raise Failure("chunked_prefill: padded queries are not zero")
+            if dtype == "float32":
+                res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+            if dtype != "float32" or name != "main":
+                continue
+            res["ms"] = timed(torch, lambda: ops.chunked_prefill(*args), flush)
+            res["plain_ms"] = timed(torch, lambda: cp_ref(*args), flush)
+            k, v = _sdpa_inputs(torch, q, kp, vp, tables, hq // hkv)
+            iq = st[:, None] + torch.arange(lq, device=dev)
+            ik = torch.arange(k.shape[2], device=dev)
+            mask = ((ik[None, None, :] <= iq[..., None])
+                    & (iq[..., None] < (st + ln)[:, None, None]))[:, None]
+            q4 = q.transpose(1, 2).contiguous()
+            res["library_ms"] = timed(
+                torch, lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask),
+                flush)
+            # bytes the function needs: q of the real queries only (padded
+            # queries give 0 whatever q holds), the whole output, the K/V of
+            # every written token, the tables, starts and lens
+            real_q = sum(lens)
+            toks = sum(s + n for s, n in zip(starts, lens))
+            nbytes = 4 * ((real_q + q.shape[0] * lq) * hq * hd + 2 * toks * hkv * hd
+                          + tables.numel() + 2 * len(lens))
+            ops_n = 4 * hq * hd * _prefill_pairs(starts, lens, window)
+            res["bound_ms"], res["bound_by"] = bound(nbytes, ops_n, dtype)
+            log(f"    main B={len(lens)} L={lq} starts={starts} lens={lens}: kernel "
+                f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
+                f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+                f"({res['bound_by']})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6 (optional): where a decode step's time goes
+# ---------------------------------------------------------------------------
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (enqueue only: the card runs
+    behind and is synchronised after the timed loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def profile_host(torch, dev) -> None:
+    """Host cost of one call at decode shapes: each wrapper against its
+    plain version, and two eager model ops (the decode step is host-bound)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import lowrank_linear_ref
+    from repro_torch.models.common import apply_rope, rmsnorm, rope_cos_sin
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((8, 2048), generator=gen, device=dev)
+    bt = torch.randn((2048, 983), generator=gen, device=dev) / 2048 ** 0.5
+    at = torch.randn((983, 8192), generator=gen, device=dev) / 983 ** 0.5
+    h = torch.randn((8, 1, 2048), generator=gen, device=dev)
+    scale = torch.zeros(2048, device=dev)
+    q = torch.randn((8, 1, 32, 64), generator=gen, device=dev)
+    cos, sin = rope_cos_sin(torch.arange(8, device=dev)[:, None], 64, 5e5)
+    log(f"  host us per call at decode: lowrank_linear gate "
+        f"{host_us(torch, lambda: ops.lowrank_linear(x, bt, at)):.1f} (plain "
+        f"{host_us(torch, lambda: lowrank_linear_ref(x, bt, at)):.1f}), rmsnorm "
+        f"{host_us(torch, lambda: rmsnorm(scale, h, 1e-5)):.1f}, apply_rope "
+        f"{host_us(torch, lambda: apply_rope(q, cos, sin)):.1f}")
+
+
+def profile_decode(torch, res, steps: int) -> None:
+    """Wall time of ``steps`` steady decode steps of each model (every
+    request of the trace admitted at once, after their prefill), then
+    device time by kernel over ``steps`` more from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import ContinuousEngine
+    trace = res["trace"]
+    pages = 1 + sum(-(-(len(p) + nn) // 16) for _, p, nn in trace)
+    for name, m in res["models"].items():
+        eng = ContinuousEngine(m, block_size=16, num_blocks=pages, max_running=8)
+        for _, p, nn in trace:
+            eng.submit(p, nn)
+        eng.step()                                  # prefill + first decode step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()                    # wall clock, profiler off
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) is not None
+                  and str(e.device_type).endswith("CUDA")]
+        attr = ("self_device_time_total" if events and hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        busy = sum(getattr(e, attr) for e in events) / 1e3 / steps
+        log(f"  profile {name}: {wall:.3f} ms per decode step (wall, profiler off), "
+            f"device busy {busy:.3f} ms per step under the profiler "
+            f"({100 * busy / wall:.1f}% of the wall time)")
+        for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+            log(f"    {getattr(e, attr) / 1e3 / steps:8.4f} ms/step  x{e.count // steps:<4d} "
+                f"{e.key[:90]}")
+
+
+def run(args) -> int:
+    if not (SRC / "repro_torch" / "__init__.py").exists():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
+              "repository root", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (pins TF32 off)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    from repro_torch.kernels.ref import lowrank_linear_ref
+
+    dev = torch.device("cuda:0")
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1 device] nvidia-smi: {smi}; torch: {kind}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.lib()
+    build_s = time.perf_counter() - t0
+    log(f"[2 build] nvcc sm_90a of {len(_build.SOURCES)} sources: {build_s:.2f} s")
+
+    log("[3 reference] llama3_1b SMOKE: kernels on the card vs plain versions on the CPU")
+    reference_check(torch, dev)
+
+    log("[4 main path] python -m repro_torch.launch.serve " + " ".join(LAUNCHER_ARGS)
+        + f" on a trace of {REQUESTS} requests (prompts {MIN_PROMPT}-{MAX_PROMPT}, "
+        f"{NEW_TOKENS} new tokens, one every 2 steps)")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    main, res, shapes = main_path(torch, ops)
+    counts = ops.launch_counts()
+    main["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches on the main path: {counts}; peak memory "
+        f"{main['peak_memory_gb']:.2f} GB")
+    log(f"  phases (s): {main['seconds']}")
+    log(f"  kernel shapes noted on the main path: {shapes}")
+    missing = [k for k, n in counts.items() if n <= 0]
+    if missing:
+        raise Failure(f"kernels never launched on the main path: {missing}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
+    log("[5 kernels] against plain versions on the card, at the main path's shapes")
+    results = {
+        "lowrank_linear": check_lowrank(torch, ops, lowrank_linear_ref, dev, gen,
+                                        shapes, flush),
+        "paged_attention": check_paged(torch, ops, paged_attention_ref, dev, gen,
+                                       shapes, flush),
+        "chunked_prefill": check_chunked(torch, ops, chunked_prefill_ref, dev, gen,
+                                         shapes, flush),
+    }
+    del flush
+    torch.cuda.synchronize()
+    if args.profile:
+        log(f"[6 profile] {args.profile} decode steps per model")
+        profile_decode(torch, res, args.profile)
+        profile_host(torch, dev)
+    del res
+
+    replaces = {"lowrank_linear": "src/repro/kernels/lowrank_linear.py:35",
+                "paged_attention": "src/repro/kernels/paged_attention.py:96",
+                "chunked_prefill": "src/repro/kernels/chunked_prefill.py:121"}
+    kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
+                "replaces": replaces[k], "launches": counts[k],
+                "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
+                "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
+                "bound_by": results[k]["bound_by"],
+                "library_ms": results[k]["library_ms"]} for k in replaces]
+    log(json.dumps({"main_path": main, "build_s": build_s}, default=float))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", type=int, default=0,
+                    help="after the main path, profile this many decode steps "
+                         "per model with torch.profiler (0 = off)")
+    args = ap.parse_args()
+    try:
+        return run(args)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

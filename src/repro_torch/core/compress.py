@@ -1,0 +1,113 @@
+"""Model-wide COALA compression (port of ``repro/core/compress.py:28-193``,
+``:209-288`` and ``:308-316``, for ``method="coala"``).
+
+For every compressible block linear with a calibrated R factor, solve the
+context-aware low-rank problem (Algorithm 1/2 with the per-layer μ of Eq. 5)
+and swap the dense ``w`` for the factored ``b_t``/``a_t`` pair. The
+baselines (svd, svd_llm, svd_llm_v2, asvd), the randomized SVD, explicit
+and adaptive ranks, rank maps and per-expert compression wait for later
+slices.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import CompressConfig
+from repro_torch.core import coala as coala_lib
+from repro_torch.core.calibrate import linear_paths
+from repro_torch.core.theory import optimal_weighted_error
+from repro_torch.models.linear import rank_for_ratio
+
+# layer-name roles eligible for compression (Q,K,V,O,Up,Gate,Down and the
+# other families' projections; embeddings, heads and norms stay)
+COMPRESSIBLE_KEYS = {"wq", "wk", "wv", "wo", "up", "gate", "down",
+                     "in_proj", "out_proj", "ff_up", "ff_down",
+                     "w_dkv", "shared"}
+MIN_DIM = 32
+
+
+def compressible(path: Tuple[str, ...], shape) -> bool:
+    """Is the linear at ``path`` (to its dict or its 'w' leaf) a target?"""
+    names = [str(p) for p in path]
+    if names and names[-1] == "w":
+        names = names[:-1]
+    key = names[-1] if names else ""
+    if key not in COMPRESSIBLE_KEYS - {"shared"}:
+        return False
+    d_in, d_out = shape[-2], shape[-1]
+    return min(d_in, d_out) >= MIN_DIM
+
+
+@dataclasses.dataclass
+class LayerReport:
+    path: str
+    rank: int
+    mu: float
+    rel_err_weighted: float      # ||(W-W')R^T||/||W R^T||
+    params_before: int
+    params_after: int
+    # attainable minimum of the same ratio (Σ-tail of σ(W Rᵀ)) / ||W Rᵀ||
+    rel_err_bound: float = float("nan")
+
+
+def _solve(w_mat, r_factor, rank, ccfg: CompressConfig):
+    if ccfg.method != "coala":
+        raise NotImplementedError(
+            f"compression method {ccfg.method!r} is not ported (coala only)")
+    res = coala_lib.coala_factors(
+        w_mat, r_factor=r_factor, rank=rank,
+        mu=max(ccfg.mu, 0.0) if ccfg.mu >= 0 else 0.0,
+        lam=ccfg.lam if ccfg.mu < 0 else None)
+    return res.a, res.b, res.mu
+
+
+@torch.no_grad()
+def compress_model(model, calibrator, ccfg: CompressConfig):
+    """Calibrator R factors -> (compressed copy of ``model``, reports).
+
+    Paths are the calibrator's ('blocks/2/sub0/mixer/wq'); every rep of the
+    stack is compressed from its own activations, as in the paper."""
+    if ccfg.method != "coala":
+        raise NotImplementedError(
+            f"compression method {ccfg.method!r} is not ported (coala only)")
+    r_factors = calibrator.r_factors()
+    new_model = copy.deepcopy(model)
+    reports: List[LayerReport] = []
+    for p, lin in linear_paths(new_model):
+        if lin.is_factored or p not in r_factors:
+            continue
+        w = lin.w
+        if not compressible(tuple(p.split("/")) + ("w",), w.shape):
+            continue
+        d_in, d_out = w.shape
+        w_mat = w.T.float()                               # (d_out, d_in)
+        rank = min(rank_for_ratio(d_in, d_out, ccfg.ratio), min(d_in, d_out))
+        r_f = r_factors[p].float()
+        a, b, mu = _solve(w_mat, r_f, rank, ccfg)
+        num = torch.linalg.norm((w_mat - a @ b) @ r_f.T)
+        den = torch.clamp(torch.linalg.norm(w_mat @ r_f.T), min=1e-9)
+        bound = optimal_weighted_error(w_mat, r_f.T, rank) / den
+        reports.append(LayerReport(
+            path=p, rank=rank, mu=float(mu),
+            rel_err_weighted=float(num / den),
+            params_before=d_in * d_out,
+            params_after=rank * (d_in + d_out),
+            rel_err_bound=float(bound)))
+        lin.set_factors(b.T.to(w.dtype), a.T.to(w.dtype))
+    return new_model, reports
+
+
+def compression_summary(reports) -> dict:
+    before = sum(r.params_before for r in reports)
+    after = sum(r.params_after for r in reports)
+    errs = [r.rel_err_weighted for r in reports]
+    return {"layers": len(reports),
+            "params_before": before, "params_after": after,
+            "kept_ratio": after / before if before else 1.0,
+            "mean_rel_err": float(np.mean(np.asarray(errs, np.float32))) if errs else 0.0,
+            "max_rel_err": float(np.max(np.asarray(errs, np.float32))) if errs else 0.0}

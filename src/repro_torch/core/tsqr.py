@@ -1,0 +1,93 @@
+"""TSQR: R factors of calibration matrices that never fit in memory (port of
+``repro/core/tsqr.py:30-120``).
+
+Only the R factor of the QR of ``Xᵀ`` (rows = tokens) is needed downstream
+(the paper's Prop. 2). ``RStreamer`` folds activation chunks into a running
+R with the ``[R; chunk] -> QR`` recurrence, so X is never formed. R is
+returned with a non-negative diagonal so it is unique and comparable.
+The distributed butterfly (``distributed_tsqr_r``) waits with ``dist``.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import torch
+
+
+def _fix_sign(r: torch.Tensor) -> torch.Tensor:
+    """Flip row signs so diag(R) >= 0 (makes R unique for full-rank input)."""
+    d = torch.diagonal(r)
+    s = torch.where(d < 0, -1.0, 1.0).to(r.dtype)
+    return r * s[:, None]
+
+
+def qr_r(xt: torch.Tensor, fix_sign: bool = True) -> torch.Tensor:
+    """R factor of the reduced QR of ``xt`` (rows = tokens, cols = n)."""
+    r = torch.linalg.qr(xt, mode="r").R
+    return _fix_sign(r) if fix_sign else r
+
+
+def stack_qr(r_top: torch.Tensor, r_bot: torch.Tensor) -> torch.Tensor:
+    """R factor of qr([R_top; R_bot]) — the TSQR combine step."""
+    return qr_r(torch.cat([r_top, r_bot], dim=0))
+
+
+def tsqr_sequential(chunks: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Streaming TSQR: fold token-chunks (each (k_i, n) rows of Xᵀ)."""
+    r: Optional[torch.Tensor] = None
+    for c in chunks:
+        if c.ndim != 2:
+            raise ValueError(f"chunk must be 2-D (tokens, features), got {tuple(c.shape)}")
+        r = qr_r(c) if r is None else stack_qr(r, c)
+    if r is None:
+        raise ValueError("tsqr_sequential: no chunks")
+    return r
+
+
+class RStreamer:
+    """Streaming R accumulator of the calibration pipeline: ``update``
+    consumes a (tokens, n) activation chunk, ``finish`` returns the final
+    square R (optionally μ-augmented, Prop. 3)."""
+
+    def __init__(self, n: int, dtype=torch.float32):
+        self.n = n
+        self.dtype = dtype
+        self._r: Optional[torch.Tensor] = None
+        self.tokens_seen = 0
+
+    def update(self, chunk: torch.Tensor) -> None:
+        chunk = chunk.reshape(-1, self.n).to(self.dtype)
+        self.tokens_seen += int(chunk.shape[0])
+        self._r = qr_r(chunk) if self._r is None else stack_qr(self._r, chunk)
+
+    @property
+    def r(self) -> torch.Tensor:
+        if self._r is None:
+            raise ValueError("RStreamer: no data seen")
+        return self._r
+
+    def finish(self, mu: float = 0.0) -> torch.Tensor:
+        r = self.r
+        if mu > 0.0:
+            r = augment_r_with_mu(r, mu)
+        return square_r(r)
+
+
+def square_r(r: torch.Tensor) -> torch.Tensor:
+    """Pad/keep R to a square (n, n) upper-triangular matrix."""
+    k, n = r.shape
+    if k == n:
+        return r
+    if k > n:
+        return qr_r(r)
+    out = torch.zeros((n, n), dtype=r.dtype, device=r.device)
+    out[:k] = r
+    return out
+
+
+def augment_r_with_mu(r: torch.Tensor, mu: float) -> torch.Tensor:
+    """R of the μ-augmented matrix X̃ = [X  √μ·I] (Prop. 3): qr([R; √μ I])."""
+    n = r.shape[-1]
+    eye = torch.sqrt(torch.tensor(mu, dtype=r.dtype)).item() * torch.eye(
+        n, dtype=r.dtype, device=r.device)
+    return stack_qr(square_r(r), eye)

@@ -1,0 +1,123 @@
+"""Paged-attention decode: wrapper of ``csrc/paged_attention.cu`` and its
+plain version (port of ``repro/kernels/paged_attention.py``).
+
+One decode step attends a single query token per request against that
+request's KV history, scattered over fixed-size pages of the shared pool
+and addressed through a per-request block table. A CPU tensor runs
+``paged_attention_ref``; a CUDA tensor launches the CUDA kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lowrank_linear import DTYPES
+
+NEG_INF = -1e30
+
+launches = 0          # calls that launched the CUDA kernel
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    scale=None, cap: float = 0.0, window: int = 0):
+    """Decode-step attention over a paged KV cache.
+
+    q: (B, Hq, hd) — one query token per request, already rotary-embedded.
+    k_pages/v_pages: (num_blocks, bs, Hkv, hd) — the shared block pool.
+    block_tables: (B, nb) int32 — page ids per request, padded with page 0.
+    lengths: (B,) int32 — valid positions per request (query at length-1);
+      0 marks a padding row and yields a zero output row.
+
+    Returns (B, Hq, hd) in q.dtype.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                                   scale=scale, cap=cap, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _launch(q, k_pages, v_pages, block_tables, lengths, scale=scale,
+                   cap=cap, window=window)
+
+
+def check_paged_args(name, q, k_pages, v_pages, block_tables, int_args):
+    """Validate the arguments shared by the two paged attention kernels."""
+    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: pages must be (num_blocks, bs, Hkv, hd)")
+    hkv, hd = k_pages.shape[2], k_pages.shape[3]
+    if q.shape[-1] != hd or q.shape[-2] % hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit pages "
+                         f"{tuple(k_pages.shape)}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+    for arg, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, q is {q.dtype}")
+    b = q.shape[0]
+    if block_tables.ndim != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"{name}: block_tables must be (B, nb)")
+    for arg, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                   ("block_tables", block_tables), *int_args):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    for arg, t in (("block_tables", block_tables), *int_args):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
+    for arg, t in int_args:
+        if t.shape != (b,):
+            raise ValueError(f"{name}: {arg} must be ({b},)")
+
+
+def _launch(q, k_pages, v_pages, block_tables, lengths, *, scale, cap, window):
+    global launches
+    if q.ndim != 3:
+        raise ValueError("paged_attention: q must be (B, Hq, hd)")
+    check_paged_args("paged_attention", q, k_pages, v_pages, block_tables,
+                     (("lengths", lengths),))
+    b, hq, hd = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    nb = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    out = torch.empty_like(q)
+    lib = _build.lib()
+    with torch.cuda.device(q.device):
+        err = lib.repro_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, hq, hkv, hd, bs, nb, float(scale), float(cap), int(window),
+            DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_attention")
+    launches += 1
+    return out
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                        scale=None, cap: float = 0.0, window: int = 0):
+    """Plain PyTorch version and test oracle: gathers only the pages named
+    by the block tables and runs a masked softmax in fp32."""
+    b, hq, hd = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    g = hq // hkv
+    nb = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(b, nb * bs, hkv, hd)
+    v = v_pages[tables].reshape(b, nb * bs, hkv, hd)
+    qg = q.reshape(b, hkv, g, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    if cap > 0:
+        s = cap * torch.tanh(s / cap)
+    ik = torch.arange(nb * bs, device=q.device)
+    lens = lengths.long()
+    ok = ik[None] < lens[:, None]
+    if window > 0:
+        ok &= (lens[:, None] - 1 - ik[None]) < window
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))   # all-masked rows -> 0
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30), v.float())
+    return o.reshape(b, hq, hd).to(q.dtype)

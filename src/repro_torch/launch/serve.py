@@ -1,0 +1,188 @@
+"""Serving launcher of the port (counterpart of ``repro/launch/serve.py``):
+calibrate on seeded tokens, COALA-compress, then serve a mixed-length
+synthetic request trace with continuous batching over the paged KV pool,
+for both the dense and the compressed model, reporting per-request TTFT and
+aggregate throughput.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
+      --arch llama3_1b --smoke --requests 4 --new-tokens 8 [--device cpu]
+
+Runs on the GPU by default and raises without one unless ``--device cpu``.
+The fixed-batch engine, temperature sampling, warmup, speculation, the
+prefix cache, recalibration and telemetry wait for later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import CompressConfig
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.calibrate import calibrate_model
+from repro_torch.core.compress import compress_model, compression_summary
+from repro_torch.models import build_model
+from repro_torch.serve import ContinuousEngine
+
+
+def synthetic_trace(n_requests: int, vocab_size: int, *, seed: int = 0,
+                    min_prompt: int = 4, max_prompt: int = 24,
+                    min_new: int = 4, max_new: int = 16,
+                    arrival_every: int = 2):
+    """Mixed-length request trace with staggered arrivals (same numpy
+    stream as the JAX launcher). Returns (arrival_step, prompt, max_new)."""
+    rng = np.random.RandomState(seed)
+    trace = []
+    for i in range(n_requests):
+        t0 = int(rng.randint(min_prompt, max_prompt + 1))
+        nn = int(rng.randint(min_new, max_new + 1))
+        prompt = rng.randint(0, vocab_size, (t0,)).astype(np.int32)
+        trace.append((i * arrival_every, prompt, nn))
+    return trace
+
+
+def serve_trace(engine: ContinuousEngine, trace):
+    """Replay a trace: submissions are keyed to engine steps, so requests
+    join the running decode batch mid-flight."""
+    pending = list(trace)
+    step = 0
+    while pending or engine.has_work():
+        while pending and pending[0][0] <= step:
+            _, prompt, nn = pending.pop(0)
+            engine.submit(prompt, nn)
+        engine.step()
+        step += 1
+    return engine.metrics()
+
+
+def calibration_batches(vocab_size: int, *, n_batches: int, batch: int,
+                        seq_len: int, seed: int, device):
+    """Seeded numpy calibration tokens, (batch, seq_len) per batch."""
+    rng = np.random.RandomState(seed)
+    return [torch.as_tensor(rng.randint(0, vocab_size, (batch, seq_len)),
+                            device=device) for _ in range(n_batches)]
+
+
+def _seconds(device, fn):
+    """(fn(), wall seconds), with the device drained before and after."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _compressed_params(model, batches, ratio: float):
+    """COALA-compress at ``ratio`` with the launcher's settings (λ = 4, μ
+    per layer from Eq. 5). Returns (compressed model, reports, seconds of
+    calibration and of compression)."""
+    cal, cal_s = _seconds(model.device, lambda: calibrate_model(model, batches))
+    ccfg = CompressConfig(method="coala", ratio=ratio, lam=4.0, mu=-1.0)
+    (cmodel, reports), comp_s = _seconds(
+        model.device, lambda: compress_model(model, cal, ccfg))
+    print("compression:", compression_summary(reports))
+    print(f"calibration {cal_s:.2f}s, compression of {len(reports)} "
+          f"linears {comp_s:.2f}s")
+    return cmodel, reports, {"calibrate": cal_s, "compress": comp_s}
+
+
+def _parse_buckets(spec: str):
+    """'1,2,4,8' -> (1, 2, 4, 8); empty -> None (engine default)."""
+    return tuple(int(s) for s in spec.split(",") if s.strip()) or None
+
+
+def run_continuous(args, cfg, model, trace=None):
+    """Calibrate, compress, then serve ``trace`` (default: the launcher's
+    synthetic trace) with the dense and the compressed model. Returns a dict
+    with the compression ``reports`` and, per model name ("dense",
+    "coala"), its ``models``, ``engines`` and ``metrics``, plus the
+    ``seconds`` of each phase."""
+    if args.requests <= 0:
+        print("no requests to serve")
+        return None
+    ratio = args.compress_ratio if args.compress_ratio > 0 else 0.6
+    batches = calibration_batches(cfg.vocab_size, n_batches=2,
+                                  batch=args.requests, seq_len=args.prompt_len,
+                                  seed=args.seed, device=model.device)
+    cmodel, reports, seconds = _compressed_params(model, batches, ratio)
+    if trace is None:
+        trace = synthetic_trace(args.requests, cfg.vocab_size, seed=args.seed,
+                                max_new=args.new_tokens)
+    out = {"reports": reports, "trace": trace, "seconds": seconds,
+           "models": {"dense": model, "coala": cmodel},
+           "engines": {}, "metrics": {}}
+    for name, m in out["models"].items():
+        eng = ContinuousEngine(m, block_size=args.block_size,
+                               num_blocks=args.num_blocks,
+                               max_running=args.max_running,
+                               bucket_sizes=_parse_buckets(args.bucket_sizes),
+                               prefill_bucket_sizes=_parse_buckets(
+                                   args.prefill_bucket_sizes))
+        met, seconds[f"serve_{name}"] = _seconds(
+            m.device, lambda: serve_trace(eng, trace))
+        out["engines"][name], out["metrics"][name] = eng, met
+        print(f"[{name}] per-request TTFT (s):")
+        for r in sorted(eng.finished, key=lambda r: r.req_id):
+            print(f"  req {r.req_id:3d}: prompt={len(r.prompt):3d} "
+                  f"new={len(r.out_tokens):3d} ttft={r.ttft:.3f}s"
+                  + (f" (preempted x{r.preemptions})" if r.preemptions else ""))
+        print(f"[{name}] aggregate (paged, {m.device.type}): "
+              f"{met['requests']} requests in {seconds[f'serve_{name}']:.2f}s, "
+              f"{met['requests_per_sec']:.2f} req/s, "
+              f"{met['tokens_per_sec']:.1f} new tok/s "
+              f"({met['decode_tok_per_s']:.1f} decode tok/s), "
+              f"mean TTFT {met['mean_ttft_s']:.3f}s, "
+              f"{met['decode_steps']} decode steps, "
+              f"{met['prefill_batches']} prefill batches, "
+              f"{met['preemptions']} preemptions")
+    return out
+
+
+def main(argv=None, trace=None):
+    """Command-line entry point; ``trace`` replaces the synthetic trace
+    (see ``run_continuous``, whose result it returns)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over the paged KV cache (the "
+                         "only serving mode ported so far)")
+    ap.add_argument("--compress-ratio", type=float, default=0.0)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="calibration sequence length")
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--block-size", type=int, default=8,
+                    help="paged-cache tokens per block")
+    ap.add_argument("--num-blocks", type=int, default=256)
+    ap.add_argument("--max-running", type=int, default=8)
+    ap.add_argument("--bucket-sizes", default="",
+                    help="comma-separated decode batch buckets, e.g. "
+                         "'1,2,4,8' (default: powers of two up to "
+                         "--max-running)")
+    ap.add_argument("--prefill-bucket-sizes", default="",
+                    help="comma-separated prompt-suffix length buckets for "
+                         "batched prefill (default: powers of two, floor 8)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    args = ap.parse_args(argv)
+    if not args.continuous:
+        ap.error("only --continuous serving is ported so far")
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model, init_s = _seconds(device, lambda: build_model(cfg, device=device).init(gen))
+    out = run_continuous(args, cfg, model, trace=trace)
+    if out is not None:
+        out["seconds"]["init"] = init_s
+    return out
+
+
+if __name__ == "__main__":
+    main()

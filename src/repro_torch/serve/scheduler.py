@@ -1,0 +1,116 @@
+"""Continuous-batching scheduler: request queue + admission control (port of
+``repro/serve/scheduler.py:33-212``, without the metrics registry, tracing
+and flight recorder).
+
+Requests join the running batch as soon as a slot and enough cache blocks
+for their worst case are available (FIFO, no overtaking). When the pool
+runs dry mid-decode the youngest running request is preempted: its pages are
+freed and it goes back to the front of the queue, to be re-prefilled over
+prompt + tokens generated so far (greedy generation resumes on the same
+trajectory).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, List, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request plus its lifecycle metrics."""
+    req_id: int
+    prompt: np.ndarray                       # (T0,) int32
+    max_new_tokens: int
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    cache_len: int = 0                       # logical positions written to cache
+    admit_seq: int = -1                      # order of (latest) admission
+    preemptions: int = 0
+    arrival_time: float = dataclasses.field(default_factory=time.perf_counter)
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return len(self.out_tokens) >= self.max_new_tokens
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.arrival_time
+
+    def prefill_tokens(self) -> np.ndarray:
+        """The prompt, plus — after a preemption — everything generated."""
+        if not self.out_tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out_tokens, np.int32)])
+
+    def cache_budget(self) -> int:
+        """Worst-case cache positions this request may still occupy."""
+        remaining = self.max_new_tokens - len(self.out_tokens)
+        return len(self.prompt) + len(self.out_tokens) + max(remaining, 0)
+
+
+class Scheduler:
+    """FIFO admission against pool capacity and a running-slot cap."""
+
+    def __init__(self, pool, max_running: int = 8):
+        self.pool = pool
+        self.max_running = max_running
+        self.waiting: Deque[Request] = collections.deque()
+        self.running: List[Request] = []
+        self._admit_seq = 0
+        self.preemptions = 0
+
+    def submit(self, req: Request) -> None:
+        self.waiting.append(req)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def admit(self) -> List[Request]:
+        """Move queue heads into the running set while a slot and enough
+        blocks for their worst case are available. Capacity admitted earlier
+        in the same call is held back, so one call never promises the same
+        blocks twice."""
+        admitted: List[Request] = []
+        reserved = 0
+        avail = self.pool.free_blocks
+        while self.waiting and len(self.running) < self.max_running:
+            req = self.waiting[0]
+            need = self.pool.blocks_for(req.cache_budget())
+            if (need + reserved > avail
+                    or len(admitted) + 1 > self.pool.free_slots):
+                break
+            reserved += need
+            self.waiting.popleft()
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self.running.append(req)
+            admitted.append(req)
+        return admitted
+
+    def evict(self, req: Request) -> None:
+        """Finished request: free its blocks and leave the running set."""
+        self.pool.free(req.req_id)
+        self.running.remove(req)
+        req.finish_time = time.perf_counter()
+
+    def preempt_youngest(self) -> Optional[Request]:
+        """Free the most recently admitted request and requeue it at the
+        front; returns it, or None if nothing is running."""
+        if not self.running:
+            return None
+        victim = max(self.running, key=lambda r: r.admit_seq)
+        self.pool.free(victim.req_id)
+        self.running.remove(victim)
+        victim.cache_len = 0
+        victim.preemptions += 1
+        self.preemptions += 1
+        self.waiting.appendleft(victim)
+        return victim

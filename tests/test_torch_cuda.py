@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+These tests need a CUDA card (the kernels are built with nvcc for sm_90a at
+first use) and skip without one. JAX-free, so they run on the GPU machine:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: fp32 attention 2e-5 (softmax over <= 48 keys); fp32 low-rank
+linear 1e-4 relative to max|ref| (sums of up to 2048 products, another
+order than cuBLAS); bf16 2e-2 relative (one bf16 rounding of the
+intermediate may differ).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
+from repro_torch.kernels.paged_attention import paged_attention_ref
+from repro_torch.kernels.ref import lowrank_linear_ref
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def _randn(seed, shape, dev, dtype=torch.float32):
+    a = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+def _close(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,d_in,r,d_out", [(8, 2048, 614, 2048), (3, 512, 245, 96),
+                                            (300, 256, 83, 130)])
+def test_lowrank_linear_cuda(cuda, dtype, tol, m, d_in, r, d_out):
+    x = _randn(0, (m, d_in), cuda, dtype)
+    bt = _randn(1, (d_in, r), cuda, dtype) / d_in ** 0.5
+    at = _randn(2, (r, d_out), cuda, dtype) / r ** 0.5
+    before = ops.launch_counts()["lowrank_linear"]
+    got = ops.lowrank_linear(x, bt.contiguous(), at.contiguous())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_linear"] == before + 1
+    _close(got, lowrank_linear_ref(x, bt, at), tol)
+
+
+def _tables(lengths, bs):
+    nb = max(-(-max(lengths) // bs), 1)
+    t = np.zeros((len(lengths), nb), np.int32)
+    nxt = 1
+    for i, ln in enumerate(lengths):
+        for j in range(-(-ln // bs)):
+            t[i, j] = nxt
+            nxt += 1
+    return t, nxt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,lengths,bs,cap,window", [
+    (4, 2, [5, 12, 1], 4, 0.0, 0), (3, 1, [8, 3], 4, 0.0, 0),
+    (4, 2, [20, 11], 4, 50.0, 0), (4, 2, [20, 6, 13], 4, 0.0, 8),
+    (8, 2, [40, 0, 0, 17], 16, 30.0, 6),
+])
+def test_paged_attention_cuda(cuda, hq, hkv, lengths, bs, cap, window):
+    tables, nxt = _tables(lengths, bs)
+    q = _randn(0, (len(lengths), hq, 64), cuda)
+    kp = _randn(1, (nxt + 2, bs, hkv, 64), cuda)
+    vp = _randn(2, (nxt + 2, bs, hkv, 64), cuda)
+    args = (q, kp, vp, torch.from_numpy(tables).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda))
+    got = ops.paged_attention(*args, cap=cap, window=window)
+    want = paged_attention_ref(*args, cap=cap, window=window)
+    _close(got, want, 2e-5)
+    assert torch.all(got[torch.tensor(lengths, device=cuda) == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,starts,lens,bs,cap,window", [
+    (4, 2, [0, 8, 4], [5, 7, 1], 4, 0.0, 0), (4, 2, [8, 4], [6, 9], 4, 50.0, 0),
+    (4, 2, [16, 0, 8], [5, 11, 3], 4, 0.0, 6), (8, 2, [0, 32, 0], [40, 9, 0], 16, 0.0, 0),
+])
+def test_chunked_prefill_cuda(cuda, hq, hkv, starts, lens, bs, cap, window):
+    tables, nxt = _tables([s + n for s, n in zip(starts, lens)], bs)
+    lq = max(lens)
+    q = _randn(0, (len(lens), lq, hq, 64), cuda)
+    kp = _randn(1, (nxt + 2, bs, hkv, 64), cuda)
+    vp = _randn(2, (nxt + 2, bs, hkv, 64), cuda)
+    args = (q, kp, vp, torch.from_numpy(tables).to(cuda),
+            torch.tensor(starts, dtype=torch.int32, device=cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+    got = ops.chunked_prefill(*args, cap=cap, window=window)
+    want = chunked_prefill_ref(*args, cap=cap, window=window)
+    _close(got, want, 2e-5)
+    for i, n in enumerate(lens):
+        assert torch.all(got[i, n:] == 0)
