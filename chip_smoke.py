@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~2 min on one H100
+    python3 chip_smoke.py              # full run, ~5 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -11,26 +11,40 @@ Phases, each printing its own lines:
 1. device  — the card as nvidia-smi and torch name it;
 2. build   — compiles the CUDA kernels of ``src/repro_torch/csrc`` with nvcc
              for sm_90a (one nvcc per source, started together);
-3. reference — llama3_1b SMOKE served through the kernels on the card vs
-             through the plain versions on the CPU (logits within 1e-3);
-4. main path — the launcher's entry point (``repro_torch.launch.serve.main``,
-             i.e. ``python -m repro_torch.launch.serve --continuous``) on
-             llama3_1b at full width and depth: random init from a seeded
-             torch.Generator, calibration on seeded numpy tokens, COALA
-             compression (ratio 0.6, λ = 4, μ from Eq. 5), then the dense and
-             the compressed model each serve the same trace of staggered
-             requests through the continuous engine (batched paged prefill,
-             paged decode, at least one preemption). Launch counts are zeroed
-             just before and read just after; every kernel must have
-             launched. The shapes of the kernel calls are noted on the way;
-5. kernels — each kernel against its plain PyTorch version on the card, in
-             fp32 and bf16, at the main path's shapes (plus window / softcap
-             / zero-length / starts > 0 cases), with its time, the plain
-             version's time, one PyTorch library call's time and the least
-             time the card could take (the bound);
-6. profile — only with ``--profile N``: wall and per-kernel device time of
+3. reference — llama3_1b SMOKE through the kernels on the card vs through the
+             plain versions on the CPU: served logits (within 1e-3), LM.loss
+             with the flash kernel (1e-4) and the calibration Grams (1e-4);
+4. serve path — the serving launcher's entry point
+             (``repro_torch.launch.serve.main``, i.e. ``python -m
+             repro_torch.launch.serve --continuous``) on llama3_1b at full
+             width and depth: random init from a seeded torch.Generator,
+             calibration on seeded numpy tokens (through the flash kernel),
+             COALA compression (ratio 0.6, λ = 4, μ from Eq. 5), then the
+             dense and the compressed model each serve the same trace of
+             staggered requests through the continuous engine (batched paged
+             prefill, paged decode, at least one preemption);
+5. compress path — the compression launcher's entry point
+             (``repro_torch.launch.compress.main``) at full width with its
+             defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
+             tokens), compress, evaluate, once with COALA and once with
+             SVD-LLM (whose Cholesky fails on the rank-deficient Grams; its
+             non-finite layers are printed, not failed); then svd, svd_llm_v2
+             and asvd on the COALA run's trained model and calibrator (block
+             0's seven linears only, to stay within the time budget);
+6. gram path — ``calibrate_model(collect_gram=True)`` on that trained model
+             and its calibration batches, each Gram held against RᵀR;
+7. kernels — each kernel against its plain PyTorch version on the card, in
+             fp32 and bf16, at the paths' shapes (plus window / softcap /
+             zero-length / starts > 0 / ragged cases), with its time, the
+             plain version's time, one PyTorch library call's time and the
+             least time the card could take (the bound);
+8. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), and the host cost
              of one wrapper call and of two eager model ops.
+
+Launch counts are zeroed just before each of the paths 4-6 and read just
+after; each kernel must have launched on the paths that run it, and the
+shapes of the kernel calls are noted on the way for phase 7.
 
 It then prints one JSON line of per-kernel results, the nvidia-smi line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -60,10 +74,11 @@ LOWRANK_SHAPES = {          # llama3_1b projections at ratio 0.6: (d_in, r, d_ou
     "down": (8192, 983, 2048)}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # max|err| <= tol * max(1, max|ref|)
 TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL_GRAM = 1e-5             # both dtypes: bf16 converts to fp32 exactly
 SEED = 0
 ITERS = 20                  # timed launches per kernel and variant
 
-# The main path's traffic: 8 requests, one every 2 engine steps, prompts of
+# The serve path's traffic: 8 requests, one every 2 engine steps, prompts of
 # 16-200 tokens, 32 new tokens each. The launcher calibrates on 2 batches of
 # --requests x --prompt-len seeded tokens (2 x 8 x 256). The trace needs 81
 # pages of 16 tokens at its peak; a pool of 72 (one reserved for trash)
@@ -74,6 +89,24 @@ LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6
                  "--new-tokens", str(NEW_TOKENS), "--block-size", "16",
                  "--num-blocks", "72", "--max-running", "8",
                  "--seed", str(SEED), "--device", "cuda"]
+# The compression launcher with its own defaults (ratio 0.6, λ 4, 100
+# pretrain steps, 4 calibration batches of 8 x 64 tokens).
+COMPRESS_ARGS = ["--arch", "llama3_1b", "--ratio", "0.6", "--lam", "4",
+                 "--pretrain-steps", "100", "--calib-batches", "4", "--device", "cuda"]
+EXTRA_METHODS = ("svd", "svd_llm_v2", "asvd")
+EXTRA_PREFIX = "blocks/0/"   # the extra methods compress block 0's linears only
+# flash_attention cases (name, B, T, Hq, Hkv, hd, cap, timed): the compress
+# path's evaluation/calibration and the serving calibration first
+FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, True),
+               ("path B8 T256", 8, 256, 32, 8, 64, 0.0, True),
+               ("B1 T4096", 1, 4096, 32, 8, 64, 0.0, True),
+               ("ragged T100", 2, 100, 32, 8, 64, 0.0, False),
+               ("softcap 20", 2, 256, 32, 8, 64, 20.0, False),
+               ("G1", 2, 128, 8, 8, 64, 0.0, False),
+               ("G4 hd128 ragged", 1, 77, 16, 4, 128, 0.0, False)]
+# gram_accum cases (k tokens, n): the calibration records, then ragged
+GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
+GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
 
 
 class Failure(Exception):
@@ -176,27 +209,67 @@ def reference_check(torch, dev):
             compare(f"reference {name} step {i} (card kernels vs CPU plain)", b, a, 1e-3)
 
 
+def reference_loss_grams(torch, dev):
+    """SMOKE LM.loss and calibration Grams with the kernel ctx: flash and
+    gram_accum on the card against their plain versions on the CPU (T 40 is
+    ragged for the kernel's 64-query tile)."""
+    import copy
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ParallelCtx
+
+    cfg = get_smoke_config("llama3_1b")
+    kctx = ParallelCtx(use_pallas=True)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.RandomState(SEED + 1)
+    toks = [rng.randint(0, cfg.vocab_size, (4, 40)) for _ in range(2)]
+    with torch.no_grad():
+        for i, t in enumerate(toks):
+            want = cpu.loss(torch.as_tensor(t), ctx=kctx, compute_dtype=torch.float32)[0]
+            got = gpu.loss(torch.as_tensor(t, device=dev), ctx=kctx,
+                           compute_dtype=torch.float32)[0]
+            compare(f"reference LM.loss batch {i} (card kernels vs CPU plain)",
+                    got.cpu().reshape(1), want.reshape(1), 1e-4)
+    cals = [calibrate_model(m, [torch.as_tensor(t, device=d) for t in toks],
+                            collect_gram=True, ctx=kctx)
+            for m, d in ((cpu, "cpu"), (gpu, dev))]
+    worst = max(((cals[1].grams[p].cpu() - g).abs().max() / g.abs().max()).item()
+                for p, g in cals[0].grams.items())
+    ok = len(cals[1].grams) == len(cals[0].grams) == 14 and worst <= 1e-4
+    log(f"  reference Grams ({len(cals[1].grams)} paths, card kernel vs CPU plain): "
+        f"max |G - G_ref| / max|G_ref| = {worst:.3e} tol=1.000e-04 "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise Failure("gram_accum: SMOKE Grams on the card disagree with the CPU")
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width, through the launcher
+# phase 4: the serving path at full width, through its launcher
 # ---------------------------------------------------------------------------
 
 class KernelCalls:
     """Notes the shapes of the kernel calls made inside the ``with`` block
     by wrapping the ``ops`` entry points the models call through. Holds
     references only: nothing is read back from the card while the path
-    runs. Phase 5 checks and times each kernel at these shapes."""
+    runs. Phase 7 checks and times each kernel at these shapes."""
 
-    NAMES = ("lowrank_linear", "paged_attention", "chunked_prefill")
+    NAMES = ("lowrank_linear", "paged_attention", "chunked_prefill",
+             "flash_attention", "gram_accum")
 
     def __init__(self, ops):
         self.ops = ops
         self.lowrank_m = collections.Counter()   # rows M -> calls
         self.paged = None      # (B, tables, lengths) of the last largest-batch call
         self.chunked = None    # (B, L, tables, starts, lens) of the largest call
+        self.flash = collections.Counter()       # (B, T, Hq, Hkv, hd) -> calls
+        self.gram = collections.Counter()        # (k, n) -> calls
 
     def __enter__(self):
         self._orig = {k: getattr(self.ops, k) for k in self.NAMES}
-        ll, pa, cp = (self._orig[k] for k in self.NAMES)
+        ll, pa, cp, fa, ga = (self._orig[k] for k in self.NAMES)
 
         def lowrank(x, b_t, a_t):
             self.lowrank_m[x.numel() // x.shape[-1]] += 1
@@ -212,9 +285,19 @@ class KernelCalls:
                 self.chunked = (q.shape[0], q.shape[1], tables, starts, lens)
             return cp(q, kp, vp, tables, starts, lens, **kw)
 
+        def flash(q, k, v, **kw):
+            self.flash[(*q.shape[:3], k.shape[2], q.shape[3])] += 1
+            return fa(q, k, v, **kw)
+
+        def gram(a):
+            self.gram[tuple(a.shape)] += 1
+            return ga(a)
+
         self.ops.lowrank_linear = lowrank
         self.ops.paged_attention = paged
         self.ops.chunked_prefill = chunked
+        self.ops.flash_attention = flash
+        self.ops.gram_accum = gram
         return self
 
     def __exit__(self, *exc):
@@ -224,20 +307,26 @@ class KernelCalls:
     def shapes(self) -> dict:
         """Plain-int description of the noted calls (padding rows are the
         rows whose block table is all trash page 0)."""
-        _, pt, pl = self.paged
-        _, l_pad, ct, cs, cl = self.chunked
-        return {"lowrank_m_decode": self.lowrank_m.most_common(1)[0][0],
-                "lowrank_m_max": max(self.lowrank_m),
-                "paged_lengths": pl.tolist(),
-                "paged_pad_rows": (pt == 0).all(dim=1).tolist(),
-                "chunked_l": l_pad, "chunked_starts": cs.tolist(),
-                "chunked_lens": cl.tolist(),
-                "chunked_pad_rows": (ct == 0).all(dim=1).tolist()}
+        out = {"flash": {str(k): n for k, n in self.flash.items()},
+               "gram": {str(k): n for k, n in self.gram.items()}}
+        if self.lowrank_m:
+            out.update(lowrank_m_decode=self.lowrank_m.most_common(1)[0][0],
+                       lowrank_m_max=max(self.lowrank_m))
+        if self.paged is not None:
+            _, pt, pl = self.paged
+            out.update(paged_lengths=pl.tolist(),
+                       paged_pad_rows=(pt == 0).all(dim=1).tolist())
+        if self.chunked is not None:
+            _, l_pad, ct, cs, cl = self.chunked
+            out.update(chunked_l=l_pad, chunked_starts=cs.tolist(),
+                       chunked_lens=cl.tolist(),
+                       chunked_pad_rows=(ct == 0).all(dim=1).tolist())
+        return out
 
 
-def main_path(torch, ops):
+def serve_path(torch, ops):
     """``repro_torch.launch.serve.main`` with ``LAUNCHER_ARGS`` on the
-    main path's trace; checks what comes out. Returns (summary, launcher
+    serve path's trace; checks what comes out. Returns (summary, launcher
     result, noted kernel shapes)."""
     from repro_torch.configs import get_config
     from repro_torch.core.compress import compression_summary
@@ -289,7 +378,126 @@ def main_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: each kernel against its plain version, at the main path's shapes
+# phase 5: the compression path at full width, through its launcher
+# ---------------------------------------------------------------------------
+
+def _nonfinite(reports):
+    return [r.path for r in reports
+            if not all(math.isfinite(v) for v in (r.rel_err_weighted, r.mu))]
+
+
+def compress_path(torch, ops):
+    """``repro_torch.launch.compress.main`` with ``COMPRESS_ARGS``, once with
+    COALA and once with SVD-LLM, inside one launch-count window. Checks
+    COALA's result; records SVD-LLM's non-finite layers (the paper's claim:
+    its Cholesky breaks down on the rank-deficient Grams of 2048 tokens).
+    Returns (summary, the COALA run's result, noted kernel shapes)."""
+    from repro_torch.launch import compress as launcher
+
+    out = {"seconds": {}, "summaries": {}, "nonfinite": {}}
+    with KernelCalls(ops) as calls:
+        runs = {}
+        for method in ("coala", "svd_llm"):
+            t0 = time.perf_counter()
+            res = launcher.main(COMPRESS_ARGS + ["--method", method])
+            torch.cuda.synchronize()
+            out["seconds"][method] = dict(res["seconds"],
+                                          total=time.perf_counter() - t0)
+            runs[method] = res
+            if method != "coala":
+                # keep the reports, free the models of this run
+                runs[method] = {k: res[k] for k in ("summary", "reports")}
+            del res
+    coala, svd_llm = runs["coala"], runs["svd_llm"]
+    s = coala["summary"]
+    for r in coala["reports"]:
+        vals = (r.mu, r.rel_err_weighted, r.rel_err_bound)
+        if not all(math.isfinite(v) for v in vals):
+            raise Failure(f"coala report not finite: {r}")
+        if r.rel_err_weighted < r.rel_err_bound * (1 - 1e-3):
+            raise Failure(f"{r.path}: error {r.rel_err_weighted} below the optimum "
+                          f"{r.rel_err_bound}")
+    if not s["kept_ratio"] <= 0.6:
+        raise Failure(f"kept ratio {s['kept_ratio']} above 0.6")
+    if not (math.isfinite(s["base_ce"]) and math.isfinite(s["compressed_ce"])):
+        raise Failure(f"coala CE not finite: {s}")
+    for method, res in runs.items():
+        bad = _nonfinite(res["reports"])
+        out["summaries"][method], out["nonfinite"][method] = res["summary"], len(bad)
+        log(f"  {method}: {json.dumps(res['summary'])}")
+        log(f"  {method}: {len(bad)} of {len(res['reports'])} layers non-finite"
+            + (f": {bad}" if bad else ""))
+    log(f"  svd_llm compressed CE finite: {math.isfinite(svd_llm['summary']['compressed_ce'])}")
+    return out, coala, calls.shapes()
+
+
+def extra_methods(torch, coala):
+    """svd, svd_llm_v2 and asvd through ``core.compress.compress_model`` on
+    the COALA run's trained model and calibrator, each evaluated as the
+    launcher evaluates. Only block 0's seven linears are compressed: at
+    full depth svd_llm_v2 alone takes ~265 s (16 SVDs of the 8192² Gram),
+    which would take the script past its time budget."""
+    from repro_torch.config import CompressConfig
+    from repro_torch.core.calibrate import Calibrator
+    from repro_torch.core.compress import compress_model, compression_summary
+    from repro_torch.launch import compress as launcher
+
+    model = coala["model"]
+    cal = Calibrator()
+    cal.streams = {p: st for p, st in coala["calibrator"].streams.items()
+                   if p.startswith(EXTRA_PREFIX)}
+    pipe = launcher.make_pipeline(model.cfg, model.device)
+    out = {"seconds": {}, "summaries": {}, "nonfinite": {}}
+    for method in EXTRA_METHODS:
+        t0 = time.perf_counter()
+        cm, reports = compress_model(model, cal, CompressConfig(
+            method=method, ratio=0.6, lam=4.0, mu=-1.0))
+        torch.cuda.synchronize()
+        out["seconds"][method] = time.perf_counter() - t0
+        s = compression_summary(reports)
+        s.update(method=method, base_ce=coala["summary"]["base_ce"],
+                 compressed_ce=launcher.eval_ce(cm, pipe))
+        del cm
+        bad = _nonfinite(reports)
+        out["summaries"][method], out["nonfinite"][method] = s, len(bad)
+        log(f"  {method} ({out['seconds'][method]:.1f} s): {json.dumps(s)}")
+        log(f"  {method}: {len(bad)} of {len(reports)} layers non-finite")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Gram calibration at full width
+# ---------------------------------------------------------------------------
+
+def gram_path(torch, ops, coala):
+    """``calibrate_model(collect_gram=True)`` with the kernel ctx on the COALA
+    run's trained model and calibration batches; each Gram against RᵀR of
+    the same run. Returns (summary, noted kernel shapes)."""
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.launch.compress import KERNEL_CTX
+
+    with KernelCalls(ops) as calls:
+        t0 = time.perf_counter()
+        cal = calibrate_model(coala["model"], coala["calib_batches"],
+                              collect_gram=True, ctx=KERNEL_CTX)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    rf = cal.r_factors()
+    worst, worst_path = 0.0, ""
+    for p, g in cal.grams.items():
+        rel = (torch.linalg.norm(g - rf[p].T @ rf[p]) / torch.linalg.norm(g)).item()
+        if not rel <= worst:
+            worst, worst_path = rel, p
+    n_paths = len(cal.grams)
+    log(f"  {n_paths} Grams in {secs:.2f} s; max ||G - RᵀR||_F / ||G||_F = "
+        f"{worst:.3e} ({worst_path})")
+    if n_paths != 112 or not worst <= 1e-4:
+        raise Failure(f"gram path: {n_paths} Grams, max relative gap {worst}")
+    return {"seconds": secs, "paths": n_paths, "max_rel_gap_to_rtr": worst}, calls.shapes()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: each kernel against its plain version, at the paths' shapes
 # ---------------------------------------------------------------------------
 
 def check_lowrank(torch, ops, ref, dev, gen, shapes, flush):
@@ -473,8 +681,82 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
     return res
 
 
+def check_flash(torch, ops, ref, dev, gen, flush):
+    """flash_attention in fp32 and bf16; the line's numbers are the compress
+    path's fp32 call (B8 T64, Hq 32 / Hkv 8, hd 64)."""
+    import torch.nn.functional as F
+    res = {"max_abs_err": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, b, t, hq, hkv, hd, cap, timed_case in FLASH_CASES:
+            q = torch.randn((b, t, hq, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, t, hkv, hd), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, t, hkv, hd), generator=gen, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v, cap=cap)
+            err = compare(f"flash_attention {dtype} {name} (B{b} T{t} Hq{hq} Hkv{hkv} "
+                          f"hd{hd} cap{cap:g})", got, ref(q, k, v, cap=cap),
+                          TOL_ATTN[dtype])
+            if dtype == "float32":
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+            if not timed_case:
+                continue
+            ms = timed(torch, lambda: ops.flash_attention(q, k, v), flush)
+            plain = timed(torch, lambda: ref(q, k, v), flush)
+            q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = timed(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True), flush)
+            # q, k, v read and o written once; 4*hd FLOPs per causal pair
+            nbytes = q.element_size() * 2 * b * t * hd * (hq + hkv)
+            b_ms, b_by = bound(nbytes, 2 * b * hq * hd * t * (t + 1), dtype)
+            log(f"    {dtype} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if dtype == "float32" and name == "path B8 T64":
+                res.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                           bound_by=b_by)
+    return res
+
+
+def check_gram(torch, ops, ref, dev, gen, flush):
+    """gram_accum in fp32 and bf16; the line's numbers are one llama3_1b
+    layer's seven fp32 Grams of one calibration record (6 x (512, 2048) and
+    1 x (512, 8192))."""
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "bound_by": "operations"}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for k, n, timed_case in GRAM_CASES:
+            a = torch.randn((k, n), generator=gen, device=dev).to(dt)
+            got = ops.gram_accum(a)
+            want = ref([a])
+            err = compare(f"gram_accum {dtype} ({k}, {n})", got, want, TOL_GRAM)
+            if not torch.equal(got, got.T):
+                raise Failure("gram_accum: G is not exactly symmetric")
+            if dtype == "float32":
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+            if not timed_case:
+                continue
+            ms = timed(torch, lambda: ops.gram_accum(a), flush)
+            plain = timed(torch, lambda: ref([a]), flush)
+            lib = timed(torch, lambda: a.T @ a, flush) if dtype == "float32" else None
+            b_ms, b_by = bound(a.element_size() * k * n + 4 * n * n, k * n * (n + 1),
+                               dtype)
+            log(f"    {dtype} ({k}, {n}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"a.T @ a {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            if dtype == "float32":
+                w = GRAM_LAYER[(k, n)]
+                res["ms"] += w * ms
+                res["plain_ms"] += w * plain
+                res["library_ms"] += w * lib
+                res["bound_ms"] += w * b_ms
+    log(f"  gram_accum, one llama3_1b layer's 7 Grams of a 512-token record: "
+        f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, a.T @ a "
+        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms")
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phase 6 (optional): where a decode step's time goes
+# phase 8 (optional): where a decode step's time goes
 # ---------------------------------------------------------------------------
 
 def host_us(torch, fn, n: int = 200) -> float:
@@ -562,7 +844,8 @@ def run(args) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
     from repro_torch.kernels.paged_attention import paged_attention_ref
-    from repro_torch.kernels.ref import lowrank_linear_ref
+    from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
+                                         lowrank_linear_ref)
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
@@ -578,25 +861,59 @@ def run(args) -> int:
 
     log("[3 reference] llama3_1b SMOKE: kernels on the card vs plain versions on the CPU")
     reference_check(torch, dev)
+    reference_loss_grams(torch, dev)
 
-    log("[4 main path] python -m repro_torch.launch.serve " + " ".join(LAUNCHER_ARGS)
+    def path_window(name, kernels, fn):
+        """Run one path with the launch counts zeroed just before and read
+        just after; every kernel in ``kernels`` must have launched."""
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = fn()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  launches on the {name} path: {counts}; peak memory {peak:.2f} GB")
+        missing = [k for k in kernels if counts[k] <= 0]
+        if missing:
+            raise Failure(f"kernels never launched on the {name} path: {missing}")
+        return out, counts, peak
+
+    log("[4 serve path] python -m repro_torch.launch.serve " + " ".join(LAUNCHER_ARGS)
         + f" on a trace of {REQUESTS} requests (prompts {MIN_PROMPT}-{MAX_PROMPT}, "
         f"{NEW_TOKENS} new tokens, one every 2 steps)")
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    main, res, shapes = main_path(torch, ops)
-    counts = ops.launch_counts()
-    main["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  launches on the main path: {counts}; peak memory "
-        f"{main['peak_memory_gb']:.2f} GB")
-    log(f"  phases (s): {main['seconds']}")
-    log(f"  kernel shapes noted on the main path: {shapes}")
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise Failure(f"kernels never launched on the main path: {missing}")
+    (serve, res, shapes), serve_counts, peak = path_window(
+        "serve", ("lowrank_linear", "paged_attention", "chunked_prefill",
+                  "flash_attention"), lambda: serve_path(torch, ops))
+    serve["peak_memory_gb"] = peak
+    log(f"  phases (s): {serve['seconds']}")
+    log(f"  kernel shapes noted on the serve path: {shapes}")
+    if not args.profile:
+        del res
+        torch.cuda.empty_cache()
+
+    log("[5 compress path] python -m repro_torch.launch.compress "
+        + " ".join(COMPRESS_ARGS) + " --method coala, then --method svd_llm")
+    (comp, coala, comp_shapes), comp_counts, peak = path_window(
+        "compress", ("lowrank_linear", "flash_attention"),
+        lambda: compress_path(torch, ops))
+    comp["peak_memory_gb"] = peak
+    log(f"  phases (s): {comp['seconds']}")
+    log(f"  kernel shapes noted on the compress path: {comp_shapes}")
+    log(f"  {', '.join(EXTRA_METHODS)} on the coala run's trained model and calibrator "
+        f"({EXTRA_PREFIX} linears only)")
+    comp["extra"] = extra_methods(torch, coala)
+
+    log("[6 gram path] calibrate_model(collect_gram=True) on the trained model, "
+        "4 x 8 x 64 tokens")
+    (gram, gram_shapes), gram_counts, peak = path_window(
+        "gram", ("gram_accum", "flash_attention"), lambda: gram_path(torch, ops, coala))
+    gram["peak_memory_gb"] = peak
+    log(f"  kernel shapes noted on the gram path: {gram_shapes}")
+    del coala
+    torch.cuda.empty_cache()
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
-    log("[5 kernels] against plain versions on the card, at the main path's shapes")
+    log("[7 kernels] against plain versions on the card, at the paths' shapes")
     results = {
         "lowrank_linear": check_lowrank(torch, ops, lowrank_linear_ref, dev, gen,
                                         shapes, flush),
@@ -604,25 +921,33 @@ def run(args) -> int:
                                        shapes, flush),
         "chunked_prefill": check_chunked(torch, ops, chunked_prefill_ref, dev, gen,
                                          shapes, flush),
+        "flash_attention": check_flash(torch, ops, flash_attention_ref, dev, gen, flush),
+        "gram_accum": check_gram(torch, ops, gram_accum_ref, dev, gen, flush),
     }
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[6 profile] {args.profile} decode steps per model")
+        log(f"[8 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
-    del res
+        del res
 
     replaces = {"lowrank_linear": "src/repro/kernels/lowrank_linear.py:35",
                 "paged_attention": "src/repro/kernels/paged_attention.py:96",
-                "chunked_prefill": "src/repro/kernels/chunked_prefill.py:121"}
+                "chunked_prefill": "src/repro/kernels/chunked_prefill.py:121",
+                "flash_attention": "src/repro/kernels/flash_attention.py:69",
+                "gram_accum": "src/repro/kernels/gram_accum.py:37"}
+    launches = {k: serve_counts[k] + comp_counts[k] + gram_counts[k] for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
-                "replaces": replaces[k], "launches": counts[k],
+                "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
                 "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
                 "bound_by": results[k]["bound_by"],
                 "library_ms": results[k]["library_ms"]} for k in replaces]
-    log(json.dumps({"main_path": main, "build_s": build_s}, default=float))
+    log(json.dumps({"main_path": {"serve": serve, "compress": comp, "gram": gram},
+                    "launches": {"serve": serve_counts, "compress": comp_counts,
+                                 "gram": gram_counts},
+                    "build_s": build_s}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -634,8 +959,9 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=int, default=0,
-                    help="after the main path, profile this many decode steps "
-                         "per model with torch.profiler (0 = off)")
+                    help="after the kernel checks, profile this many decode "
+                         "steps per model of the serve path with torch.profiler "
+                         "(0 = off)")
     args = ap.parse_args()
     try:
         return run(args)

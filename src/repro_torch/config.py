@@ -1,8 +1,9 @@
 """Configuration dataclasses of the port (copy of ``repro/config.py``).
 
-Only the fields this slice reads are kept: the dense GQA decoder of
-``ModelConfig`` and the COALA settings of ``CompressConfig``. The family
-knobs of MoE, SSM, MLA, enc-dec and VLM models wait with those families.
+Only the fields the port reads are kept: the dense GQA decoder of
+``ModelConfig``, ``TrainConfig`` and the COALA / baseline settings of
+``CompressConfig``. The family knobs of MoE, SSM, MLA, enc-dec and VLM
+models wait with those families.
 """
 from __future__ import annotations
 
@@ -41,9 +42,39 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """AdamW + schedule settings (copy of ``repro/config.py:167-184``).
+
+    ``remat`` and ``grad_compress_pods`` are kept so that configs carry over,
+    but the port reads neither: it trains eagerly without activation
+    rematerialization and on one device, so there is no cross-pod reduce to
+    compress."""
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"          # cosine | wsd | const
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    decay_frac: float = 0.1           # WSD decay fraction
+    microbatches: int = 1             # grad accumulation
+    remat: str = "dots"               # none | dots | full (not acted on)
+    grad_compress_pods: bool = False  # not acted on (single device)
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class CompressConfig:
-    """COALA compression settings (the full-SVD path of the paper)."""
-    method: str = "coala"
+    """COALA / baseline compression settings."""
+    method: str = "coala"             # coala | svd_llm | svd_llm_v2 | asvd | svd
     ratio: float = 0.7                # kept parameter fraction of compressed layers
     lam: float = 4.0                  # λ in Eq.(5)
     mu: float = -1.0                  # explicit μ; -1 = per-layer Eq.(5)
+    rank: int = 0                     # explicit rank overrides ratio when >0
+    use_rsvd: bool = False            # beyond-paper randomized SVD path
+    rsvd_oversample: int = 8
+    rsvd_power_iters: int = 2

@@ -5,7 +5,8 @@ Each target linear owns an ``RStreamer``; every captured activation chunk
 folds into a running n×n R via TSQR, so the calibration matrix X is never
 materialized. Capture is a forward pre-hook on every ``Linear`` of the
 decoder blocks, keyed by the JAX parameter path ('blocks/3/sub0/mixer/wq').
-The Gram accumulator (``collect_gram``) waits with the ``gram_accum`` kernel.
+With ``collect_gram`` each record also adds its Gram contribution aᵀa
+(``ops.gram_accum``, the CUDA kernel on the card) for the SVD-LLM family.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Dict, Iterable
 import torch
 
 from repro_torch.core.tsqr import RStreamer, square_r
+from repro_torch.kernels import ops
+from repro_torch.models.common import CPU_CTX, ParallelCtx
 from repro_torch.models.linear import Linear
 
 
@@ -29,10 +32,13 @@ MAX_TOKENS_PER_RECORD = 8192     # rows folded per QR (bounds the QR stack)
 
 
 class Calibrator:
-    """Capture sink + R accumulator (fp32). Use via ``model.capture_forward``."""
+    """Capture sink + R accumulator (fp32), and with ``collect_gram`` a Gram
+    accumulator XXᵀ per path. Use via ``model.capture_forward``."""
 
-    def __init__(self):
+    def __init__(self, *, collect_gram: bool = False):
         self.streams: Dict[str, RStreamer] = {}
+        self.grams: Dict[str, torch.Tensor] = {}
+        self.collect_gram = collect_gram
 
     @contextlib.contextmanager
     def capture(self, model):
@@ -56,6 +62,14 @@ class Calibrator:
             self.streams[path] = RStreamer(n)
         for i in range(0, flat.shape[0], MAX_TOKENS_PER_RECORD):
             self.streams[path].update(flat[i:i + MAX_TOKENS_PER_RECORD])
+        if self.collect_gram:
+            g = ops.gram_accum(flat.contiguous())
+            self.grams[path] = g if path not in self.grams else self.grams[path] + g
+
+    def reset(self) -> None:
+        """Drop every accumulated stream and Gram, keeping the instance."""
+        self.streams.clear()
+        self.grams.clear()
 
     def r_factors(self) -> Dict[str, torch.Tensor]:
         return {p: square_r(s.r) for p, s in self.streams.items()}
@@ -64,10 +78,14 @@ class Calibrator:
         return {p: s.tokens_seen for p, s in self.streams.items()}
 
 
-def calibrate_model(model, batches: Iterable[torch.Tensor]) -> Calibrator:
+def calibrate_model(model, batches: Iterable[torch.Tensor], *,
+                    collect_gram: bool = False,
+                    ctx: ParallelCtx = CPU_CTX) -> Calibrator:
     """Run capture over calibration token batches (each (B, T) ints on the
-    model's device); returns the filled Calibrator."""
-    cal = Calibrator()
+    model's device); returns the filled Calibrator. ``ctx`` picks the
+    attention path of the forward (the flash kernel with ``use_pallas``);
+    it changes no result beyond rounding."""
+    cal = Calibrator(collect_gram=collect_gram)
     for tokens in batches:
-        model.capture_forward(tokens, cal)
+        model.capture_forward(tokens, cal, ctx=ctx)
     return cal

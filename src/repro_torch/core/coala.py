@@ -1,16 +1,19 @@
 """COALA: inversion-free, regularized context-aware low-rank approximation
-(port of ``repro/core/coala.py:33-36`` and ``:79-160``, full-SVD path).
+(port of ``repro/core/coala.py:33-160``).
 
   * Prop. 1/2 — ``W' = U_r U_rᵀ W`` with U_r the top-r left singular vectors
     of ``W Rᵀ`` where ``QR = Xᵀ`` (Algorithm 1). No Gram matrix, no inverse.
   * Prop. 3 — the μ-regularized problem is the unregularized one with
     X̃ = [X √μ I] (Algorithm 2), μ per layer from the paper's Eq. (5).
+  * Beyond the paper: a randomized range finder (``rsvd_left_singvecs``)
+    that computes only the top-r subspace with matmuls and thin QRs.
 
-The randomized SVD and the α-family (Prop. 4) wait for later slices.
+The α-family (Prop. 4) waits for a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -22,6 +25,24 @@ def _topk_left_singvecs(m: torch.Tensor, r: int) -> torch.Tensor:
     """Top-r left singular vectors of m via full SVD (paper-faithful path)."""
     u, _, _ = torch.linalg.svd(m, full_matrices=False)
     return u[:, :r]
+
+
+def rsvd_left_singvecs(m: torch.Tensor, r: int, *, oversample: int = 8,
+                       power_iters: int = 2, seed: int = 0) -> torch.Tensor:
+    """Randomized range finder for the top-r left subspace of ``m``
+    (Halko–Martinsson–Tropp with QR-stabilized power iterations). The
+    Gaussian sketch comes from a ``torch.Generator`` seeded with ``seed`` on
+    ``m``'s device, so it differs from jax.random's: compare subspaces."""
+    mm, nn = m.shape
+    l = min(r + oversample, nn)
+    gen = torch.Generator(device=m.device).manual_seed(seed)
+    omega = torch.randn((nn, l), generator=gen, device=m.device, dtype=m.dtype)
+    q, _ = torch.linalg.qr(m @ omega)
+    for _ in range(power_iters):
+        z, _ = torch.linalg.qr(m.T @ q)
+        q, _ = torch.linalg.qr(m @ z)
+    ub, _, _ = torch.linalg.svd(q.T @ m, full_matrices=False)
+    return (q @ ub)[:, :r]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +75,19 @@ def _factor_from_r(w: torch.Tensor, r_factor: torch.Tensor, r: int
     return u_r, u_r.T @ w
 
 
+def _factor_from_r_rsvd(w: torch.Tensor, r_factor: torch.Tensor, r: int, *,
+                        oversample: int, power_iters: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    u_r = rsvd_left_singvecs(w @ r_factor.T, r, oversample=oversample,
+                             power_iters=power_iters)
+    return u_r, u_r.T @ w
+
+
 def coala_factors(w: torch.Tensor, x: Optional[torch.Tensor] = None, *,
                   r_factor: Optional[torch.Tensor] = None, rank: int,
                   mu: float = 0.0, lam: Optional[float] = None,
+                  use_rsvd: bool = False, rsvd_oversample: int = 8,
+                  rsvd_power_iters: int = 2,
                   chunk_tokens: int = 0) -> CoalaResult:
     """COALA Algorithm 1/2. Provide either ``x`` (n, k) or a precomputed
     ``r_factor`` (n, n) from the calibration pipeline.
@@ -69,11 +100,14 @@ def coala_factors(w: torch.Tensor, x: Optional[torch.Tensor] = None, *,
     if r_factor is None:
         r_factor = r_from_x(x, chunk_tokens)
     r_factor = tsqr_lib.square_r(r_factor)
+    solve = (partial(_factor_from_r_rsvd, oversample=rsvd_oversample,
+                     power_iters=rsvd_power_iters)
+             if use_rsvd else _factor_from_r)
     if lam is not None:
-        a0, b0 = _factor_from_r(w, r_factor, rank)
+        a0, b0 = solve(w, r_factor, rank)
         mu = float(mu_from_lambda(w, a0 @ b0, r_factor, lam))
     r_used = tsqr_lib.augment_r_with_mu(r_factor, mu) if mu > 0.0 else r_factor
-    a, b = _factor_from_r(w, r_used, rank)
+    a, b = solve(w, r_used, rank)
     return CoalaResult(a=a, b=b, mu=float(mu), r_factor=r_used)
 
 

@@ -1,11 +1,11 @@
-"""Model-wide COALA compression (port of ``repro/core/compress.py:28-193``,
-``:209-288`` and ``:308-316``, for ``method="coala"``).
+"""Model-wide compression (port of ``repro/core/compress.py:28-193``,
+``:209-288`` and ``:308-316``).
 
 For every compressible block linear with a calibrated R factor, solve the
-context-aware low-rank problem (Algorithm 1/2 with the per-layer μ of Eq. 5)
-and swap the dense ``w`` for the factored ``b_t``/``a_t`` pair. The
-baselines (svd, svd_llm, svd_llm_v2, asvd), the randomized SVD, explicit
-and adaptive ranks, rank maps and per-expert compression wait for later
+context-aware low-rank problem — COALA (Algorithm 1/2 with the per-layer μ
+of Eq. 5, full or randomized SVD) or one of the baselines (svd, svd_llm,
+svd_llm_v2, asvd) — and swap the dense ``w`` for the factored ``b_t``/``a_t``
+pair. Adaptive ranks, rank maps and per-expert compression wait for later
 slices.
 """
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import CompressConfig
+from repro_torch.core import baselines as bl
 from repro_torch.core import coala as coala_lib
 from repro_torch.core.calibrate import linear_paths
 from repro_torch.core.theory import optimal_weighted_error
@@ -56,14 +57,30 @@ class LayerReport:
 
 
 def _solve(w_mat, r_factor, rank, ccfg: CompressConfig):
-    if ccfg.method != "coala":
-        raise NotImplementedError(
-            f"compression method {ccfg.method!r} is not ported (coala only)")
-    res = coala_lib.coala_factors(
-        w_mat, r_factor=r_factor, rank=rank,
-        mu=max(ccfg.mu, 0.0) if ccfg.mu >= 0 else 0.0,
-        lam=ccfg.lam if ccfg.mu < 0 else None)
-    return res.a, res.b, res.mu
+    """Dispatch on method. w_mat: (d_out, d_in) matrix view. The Gram-based
+    baselines take XXᵀ = RᵀR; asvd takes Rᵀ as its activation proxy."""
+    if ccfg.method == "coala":
+        res = coala_lib.coala_factors(
+            w_mat, r_factor=r_factor, rank=rank,
+            mu=max(ccfg.mu, 0.0) if ccfg.mu >= 0 else 0.0,
+            lam=ccfg.lam if ccfg.mu < 0 else None,
+            use_rsvd=ccfg.use_rsvd, rsvd_oversample=ccfg.rsvd_oversample,
+            rsvd_power_iters=ccfg.rsvd_power_iters)
+        return res.a, res.b, res.mu
+    if ccfg.method == "svd":
+        a, b = bl.plain_svd(w_mat, rank)
+        return a, b, 0.0
+    if ccfg.method == "svd_llm":
+        a, b = bl.svd_llm(w_mat, r_factor.T @ r_factor, rank)
+        return a, b, 0.0
+    if ccfg.method == "svd_llm_v2":
+        a, b = bl.svd_llm_v2(w_mat, r_factor.T @ r_factor, rank)
+        return a, b, 0.0
+    if ccfg.method == "asvd":
+        # diagonal scale from R (mean |col| proxy for mean |activation|)
+        a, b = bl.asvd(w_mat, r_factor.T, rank)
+        return a, b, 0.0
+    raise ValueError(f"unknown method {ccfg.method}")
 
 
 @torch.no_grad()
@@ -72,9 +89,6 @@ def compress_model(model, calibrator, ccfg: CompressConfig):
 
     Paths are the calibrator's ('blocks/2/sub0/mixer/wq'); every rep of the
     stack is compressed from its own activations, as in the paper."""
-    if ccfg.method != "coala":
-        raise NotImplementedError(
-            f"compression method {ccfg.method!r} is not ported (coala only)")
     r_factors = calibrator.r_factors()
     new_model = copy.deepcopy(model)
     reports: List[LayerReport] = []
@@ -86,7 +100,9 @@ def compress_model(model, calibrator, ccfg: CompressConfig):
             continue
         d_in, d_out = w.shape
         w_mat = w.T.float()                               # (d_out, d_in)
-        rank = min(rank_for_ratio(d_in, d_out, ccfg.ratio), min(d_in, d_out))
+        rank = (ccfg.rank if ccfg.rank > 0
+                else rank_for_ratio(d_in, d_out, ccfg.ratio))
+        rank = min(rank, min(d_in, d_out))
         r_f = r_factors[p].float()
         a, b, mu = _solve(w_mat, r_f, rank, ccfg)
         num = torch.linalg.norm((w_mat - a @ b) @ r_f.T)

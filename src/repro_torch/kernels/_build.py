@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("lowrank_linear.cu", "paged_attention.cu", "chunked_prefill.cu")
+SOURCES = ("lowrank_linear.cu", "paged_attention.cu", "chunked_prefill.cu",
+           "flash_attention.cu", "gram_accum.cu")
 HEADERS = ("common.cuh",)       # included by the sources
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +37,8 @@ SIGNATURES = {
                                    _F, _F, _I, _I, _P]),
     "repro_chunked_prefill": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _I, _I, _P]),
+    "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+    "repro_gram_accum": (_I, [_P, _P, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -27,6 +27,9 @@ def lowrank_linear(x, b_t, a_t):
 
 def _launch(x, b_t, a_t):
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, b_t, a_t)):
+        raise RuntimeError("lowrank_linear's CUDA kernel has no backward: call "
+                           "it under torch.no_grad()")
     if b_t.ndim != 2 or a_t.ndim != 2:
         raise ValueError("lowrank_linear: b_t and a_t must be 2-D")
     d_in, r = b_t.shape

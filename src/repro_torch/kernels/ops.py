@@ -10,15 +10,20 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import chunked_prefill as _cp
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gram_accum as _ga
 from repro_torch.kernels import lowrank_linear as _ll
 from repro_torch.kernels import paged_attention as _pa
 
 lowrank_linear = _ll.lowrank_linear
 paged_attention = _pa.paged_attention
 chunked_prefill = _cp.chunked_prefill
+flash_attention = _fa.flash_attention
+gram_accum = _ga.gram_accum
 
 _MODULES = {"lowrank_linear": _ll, "paged_attention": _pa,
-            "chunked_prefill": _cp}
+            "chunked_prefill": _cp, "flash_attention": _fa,
+            "gram_accum": _ga}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.calibrate import calibrate_model
 from repro_torch.core.compress import compress_model, compression_summary
 from repro_torch.models import build_model
+from repro_torch.models.common import ParallelCtx
 from repro_torch.serve import ContinuousEngine
 
 
@@ -79,9 +80,11 @@ def _seconds(device, fn):
 
 def _compressed_params(model, batches, ratio: float):
     """COALA-compress at ``ratio`` with the launcher's settings (λ = 4, μ
-    per layer from Eq. 5). Returns (compressed model, reports, seconds of
+    per layer from Eq. 5). The calibration forward takes the flash kernel
+    (``use_pallas``). Returns (compressed model, reports, seconds of
     calibration and of compression)."""
-    cal, cal_s = _seconds(model.device, lambda: calibrate_model(model, batches))
+    cal, cal_s = _seconds(model.device, lambda: calibrate_model(
+        model, batches, ctx=ParallelCtx(use_pallas=True)))
     ccfg = CompressConfig(method="coala", ratio=ratio, lam=4.0, mu=-1.0)
     (cmodel, reports), comp_s = _seconds(
         model.device, lambda: compress_model(model, cal, ccfg))

@@ -1,8 +1,10 @@
 """GQA attention (port of ``repro/models/attention.py:196-294``, GQA only).
 
 Two execution paths:
-  * dense — one einsum over a contiguous sequence, causal; the calibration
-    forward (``LM.capture_forward``) runs it;
+  * contiguous — ``sdpa`` over the whole sequence, causal: the training
+    loss, evaluation and the calibration forward (``LM.capture_forward``).
+    With ``ctx.use_pallas`` it runs ``ops.flash_attention`` (the CUDA flash
+    kernel on a CUDA tensor), else the masked einsum ``dense_sdpa``;
   * paged — serving: the cache is the pool's page stores (num_blocks, bs,
     Hkv, hd). The new K/V are written into their pages in place
     (``index_put_`` where the JAX package uses ``.at[blk, p % bs].set`` on
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, softcap
+from repro_torch.models.common import CPU_CTX, ParallelCtx, apply_rope, softcap
 from repro_torch.models.linear import Linear
 
 NEG_INF = -1e30
@@ -43,6 +45,20 @@ def dense_sdpa(q, k, v, *, causal: bool, window: int, cap: float, scale):
     return o.reshape(b, tq, hq, hd)
 
 
+def sdpa(q, k, v, *, ctx: ParallelCtx, causal: bool = True, window: int = 0,
+         cap: float = 0.0, scale=None):
+    """Attention over a contiguous sequence: the flash kernel under exactly
+    the JAX package's condition (``ctx.use_pallas``, causal, Tq == Tk, no
+    window; ``repro/models/attention.py:201-204``), else ``dense_sdpa``."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if ctx.use_pallas and causal and q.shape[1] == k.shape[1] and window == 0:
+        return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), scale=scale, cap=cap)
+    return dense_sdpa(q, k, v, causal=causal, window=window, cap=cap,
+                      scale=scale)
+
+
 class GQA(torch.nn.Module):
     def __init__(self, cfg, *, device=None, dtype=torch.float32):
         super().__init__()
@@ -55,7 +71,8 @@ class GQA(torch.nn.Module):
         self.wo = Linear(cfg.n_heads * hd, d, **kw)
 
     def forward(self, x, cos_sin, *, local: bool = False, cache=None,
-                pos=None, paged_tables=None, lens=None):
+                pos=None, paged_tables=None, lens=None,
+                ctx: ParallelCtx = CPU_CTX):
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -68,8 +85,8 @@ class GQA(torch.nn.Module):
         window = cfg.local_window if local else 0
         scale = cfg.query_scale if cfg.query_scale > 0 else 1.0 / (hd ** 0.5)
         if paged_tables is None:
-            o = dense_sdpa(q, k, v, causal=True, window=window,
-                           cap=cfg.attn_logit_softcap, scale=scale)
+            o = sdpa(q, k, v, ctx=ctx, causal=True, window=window,
+                     cap=cfg.attn_logit_softcap, scale=scale)
         else:
             # paged serving: write row i's t tokens at positions pos[i] + j
             # into their pages (padded tail tokens land in the row's last

@@ -1,11 +1,28 @@
-"""Shared model building blocks: norms, RoPE, softcap, activations, init
-(port of ``repro/models/common.py:84-185``)."""
+"""Shared model building blocks: parallel context, norms, RoPE, softcap,
+activations, init (port of ``repro/models/common.py:11-36`` and ``:84-185``)."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Runtime context threaded through the model's forward passes.
+
+    Of the JAX package's fields only ``use_pallas`` is read by the port: it
+    sends a causal full-sequence attention (no window, Tq == Tk) through
+    ``kernels.ops.flash_attention``, which on a CUDA tensor launches the
+    hand-written CUDA flash kernel (``csrc/flash_attention.cu``) where the
+    JAX package runs its TPU Pallas kernel. The name is the JAX one, so a
+    parity test hands the same settings to both packages."""
+    use_pallas: bool = False
+
+
+CPU_CTX = ParallelCtx()
 
 
 # ---------------------------------------------------------------------------
@@ -28,7 +45,7 @@ class RMSNorm(torch.nn.Module):
         super().__init__()
         self.eps = eps
         self.scale = torch.nn.Parameter(
-            torch.zeros(d, device=device, dtype=dtype), requires_grad=False)
+            torch.zeros(d, device=device, dtype=dtype))
 
     def forward(self, x):
         return rmsnorm(self.scale, x, self.eps)

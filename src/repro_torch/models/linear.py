@@ -25,8 +25,7 @@ class Linear(torch.nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.w = torch.nn.Parameter(
-            torch.zeros((d_in, d_out), device=device, dtype=dtype),
-            requires_grad=False)
+            torch.zeros((d_in, d_out), device=device, dtype=dtype))
 
     @property
     def is_factored(self) -> bool:
@@ -35,12 +34,12 @@ class Linear(torch.nn.Module):
     def set_dense(self, w: torch.Tensor) -> None:
         for name in ("b_t", "a_t"):
             self._parameters.pop(name, None)
-        self.w = torch.nn.Parameter(w, requires_grad=False)
+        self.w = torch.nn.Parameter(w)
 
     def set_factors(self, b_t: torch.Tensor, a_t: torch.Tensor) -> None:
         self._parameters.pop("w", None)
-        self.b_t = torch.nn.Parameter(b_t.contiguous(), requires_grad=False)
-        self.a_t = torch.nn.Parameter(a_t.contiguous(), requires_grad=False)
+        self.b_t = torch.nn.Parameter(b_t.contiguous())
+        self.a_t = torch.nn.Parameter(a_t.contiguous())
 
     def forward(self, x):
         if self.is_factored:
@@ -50,10 +49,11 @@ class Linear(torch.nn.Module):
 
 
 def linear_weight_matrix(lin: Linear) -> torch.Tensor:
-    """The (d_out, d_in) matrix view W_mat for compression (COALA's W)."""
+    """The (d_out, d_in) matrix view W_mat for compression (COALA's W),
+    detached from autograd."""
     if lin.is_factored:
-        return (lin.b_t @ lin.a_t).T
-    return lin.w.T
+        return (lin.b_t @ lin.a_t).T.detach()
+    return lin.w.T.detach()
 
 
 def rank_for_ratio(d_in: int, d_out: int, ratio: float) -> int:

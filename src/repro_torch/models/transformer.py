@@ -1,5 +1,5 @@
 """Decoder-only LM for the dense GQA families (port of
-``repro/models/transformer.py:208-504``).
+``repro/models/transformer.py:32-60`` and ``:208-504``).
 
 ``LM`` is an ``nn.Module`` whose ``blocks`` is a ``ModuleList`` over the
 ``n_rep`` repetitions of the layer period, each a ``ModuleDict`` of
@@ -8,20 +8,52 @@
 ``.`` (``blocks/3/sub0/mixer/wq/w`` -> ``blocks.3.sub0.mixer.wq.w``), which
 keeps ``convert.py`` mechanical. The serving cache is a list with one
 ``{"k", "v"}`` page-store pair (num_blocks, bs, Hkv, hd) per layer.
+
+Every parameter is trainable (``LM.loss`` under autograd); the inference
+entry points run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import GQA
-from repro_torch.models.common import (dense_init, make_norm, rope_cos_sin,
-                                       softcap)
+from repro_torch.models.common import (CPU_CTX, ParallelCtx, dense_init,
+                                       make_norm, rope_cos_sin, softcap)
 from repro_torch.models.ffn import MLP
 from repro_torch.models.linear import Linear
+
+
+def chunked_ce(h, targets, head_w, *, transform: Optional[Callable] = None,
+               chunk: int = 512):
+    """Mean next-token cross-entropy without materializing (B, T, vocab)
+    logits: the sequence is cut into ``chunk``-token pieces (the tail padded
+    and masked, so any T works), each piece's fp32 logits against the head
+    reduced to scalars at once."""
+    b, t, _ = h.shape
+    ck = min(chunk, t)
+    pad = (-t) % ck
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+    mask = (torch.arange(t + pad, device=h.device) < t).float()
+    w = head_w.to(h.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, t + pad, ck):
+        logits = (h[:, c0:c0 + ck] @ w).float()
+        if transform is not None:
+            logits = transform(logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        y = targets[:, c0:c0 + ck].long()
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        m_c = mask[c0:c0 + ck]
+        tot = tot + torch.sum((lse - gold) * m_c[None, :])
+        cnt = cnt + b * torch.sum(m_c)
+    return tot / cnt
 
 
 def period_specs(cfg: ModelConfig) -> Tuple[List[bool], int]:
@@ -64,8 +96,7 @@ class LM(torch.nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed = torch.nn.Parameter(
-            torch.zeros((cfg.vocab_size, cfg.d_model), **kw),
-            requires_grad=False)
+            torch.zeros((cfg.vocab_size, cfg.d_model), **kw))
         self.final_norm = make_norm(cfg, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab_size, **kw)
@@ -110,37 +141,59 @@ class LM(torch.nn.Module):
                 for _ in range(cfg.n_layers)]
 
     # ---------------- backbone ----------------------------------------------
-    def _backbone(self, tokens, *, cache=None, pos=None, paged_tables=None,
+    def _backbone(self, tokens, *, ctx: ParallelCtx = CPU_CTX,
+                  compute_dtype=None, cache=None, pos=None, paged_tables=None,
                   lens=None):
         cfg = self.cfg
         x = self.embed[tokens.long()]
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         t = tokens.shape[1]
         ar = torch.arange(t, device=self.device)
         positions = ar if pos is None else pos.long()[:, None] + ar
         cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         for i, blk in enumerate(self.layers()):
             x = blk(x, cos_sin, cache=None if cache is None else cache[i],
-                    pos=pos, paged_tables=paged_tables, lens=lens)
+                    pos=pos, paged_tables=paged_tables, lens=lens, ctx=ctx)
         return self.final_norm(x)
 
+    def _head_w(self):
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head.w
+
     def _logits(self, h):
-        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head.w
-        logits = (h @ w.to(h.dtype)).float()
+        logits = (h @ self._head_w().to(h.dtype)).float()
         return softcap(logits, self.cfg.final_logit_softcap)
 
-    # ---------------- public -------------------------------------------------
+    # ---------------- public: train loss ------------------------------------
+    def loss(self, tokens, *, ctx: ParallelCtx = CPU_CTX, loss_chunk: int = 512,
+             compute_dtype=torch.bfloat16
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token CE of ``tokens`` (B, T) with activations in
+        ``compute_dtype``; returns ``(ce + aux, {"ce", "aux"})`` (aux is 0
+        for dense models). Differentiable unless ``ctx`` selects the flash
+        kernel, which has no backward: evaluate that under ``no_grad``."""
+        h = self._backbone(tokens, ctx=ctx, compute_dtype=compute_dtype)
+        cap = self.cfg.final_logit_softcap
+        ce = chunked_ce(h[:, :-1], tokens[:, 1:], self._head_w(),
+                        transform=lambda lg: softcap(lg, cap),
+                        chunk=loss_chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    # ---------------- public: inference --------------------------------------
     @torch.no_grad()
     def logits(self, tokens):
         """Full-sequence causal logits (B, T, vocab) without a cache."""
         return self._logits(self._backbone(tokens))
 
     @torch.no_grad()
-    def capture_forward(self, tokens, calibrator):
+    def capture_forward(self, tokens, calibrator, *,
+                        ctx: ParallelCtx = CPU_CTX):
         """Forward that streams every target linear's input activations into
         ``calibrator`` (per-layer R factors, never X). Returns the final
         hidden states."""
         with calibrator.capture(self):
-            return self._backbone(tokens)
+            return self._backbone(tokens, ctx=ctx)
 
     @torch.no_grad()
     def prefill_chunk(self, tokens, cache, pos, lens, block_tables):

@@ -5,10 +5,12 @@ first use) and skip without one. JAX-free, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 attention 2e-5 (softmax over <= 48 keys); fp32 low-rank
+Tolerances: fp32 attention 2e-5 (softmax over <= 200 keys); fp32 low-rank
 linear 1e-4 relative to max|ref| (sums of up to 2048 products, another
 order than cuBLAS); bf16 2e-2 relative (one bf16 rounding of the
-intermediate may differ).
+intermediate or the output may differ); gram_accum 1e-5 relative to max|G|
+in both dtypes (bf16 inputs convert to fp32 exactly, then fp32 sums of
+<= 512 products in another order).
 """
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
 from repro_torch.kernels.paged_attention import paged_attention_ref
-from repro_torch.kernels.ref import lowrank_linear_ref
+from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
+                                     lowrank_linear_ref)
 
 torch.set_num_threads(1)
 
@@ -104,3 +107,43 @@ def test_chunked_prefill_cuda(cuda, hq, hkv, starts, lens, bs, cap, window):
     _close(got, want, 2e-5)
     for i, n in enumerate(lens):
         assert torch.all(got[i, n:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,t,hq,hkv,hd,cap", [
+    (2, 64, 4, 2, 64, 0.0), (1, 100, 8, 2, 64, 0.0), (2, 37, 4, 1, 16, 20.0),
+    (1, 200, 4, 4, 128, 30.0), (1, 130, 4, 2, 32, 0.0)])
+def test_flash_attention_cuda(cuda, dtype, tol, b, t, hq, hkv, hd, cap):
+    q = _randn(0, (b, t, hq, hd), cuda, dtype)
+    k = _randn(1, (b, t, hkv, hd), cuda, dtype)
+    v = _randn(2, (b, t, hkv, hd), cuda, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, flash_attention_ref(q, k, v, cap=cap), tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_refuses_autograd(cuda):
+    q = _randn(0, (1, 8, 2, 16), cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, q.detach(), q.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(512, 256), (300, 1000), (7, 130), (64, 2048)])
+def test_gram_accum_cuda(cuda, dtype, k, n):
+    a = _randn(3, (k, n), cuda, dtype)
+    before = ops.launch_counts()["gram_accum"]
+    got = ops.gram_accum(a)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gram_accum"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, n)
+    want = gram_accum_ref([a])
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    assert torch.equal(got, got.T)

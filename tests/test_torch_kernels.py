@@ -9,7 +9,9 @@ GPU: tests/test_torch_cuda.py compares each with its plain version there.
 
 Tolerances: lowrank_linear rtol/atol 1e-4 (fp32, as tests/test_kernels.py);
 paged/chunked attention rtol/atol 2e-5 (fp32 softmax over <= 32 keys, as the
-JAX package's own oracle tests).
+JAX package's own oracle tests); flash attention rtol/atol 2e-5 (fp32
+softmax over <= 100 keys); gram_accum rtol 1e-5 with atol 1e-5·max|G| (fp32
+sums of <= 300 products, taken in another order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ from repro.kernels.paged_attention import paged_attention_ref as j_pa_ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
 from repro_torch.kernels.paged_attention import paged_attention_ref
-from repro_torch.kernels.ref import lowrank_linear_ref
+from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
+                                     lowrank_linear_ref)
 
 torch.set_num_threads(1)
 
@@ -63,14 +66,18 @@ def test_cpu_dispatch_is_plain_version():
 
 
 @pytest.mark.parametrize("fn", ["lowrank_linear", "paged_attention",
-                                "chunked_prefill"])
+                                "chunked_prefill", "flash_attention",
+                                "gram_accum"])
 def test_unsupported_device_raises(fn):
     """Dispatch goes by device: anything but cpu/cuda raises, never falls back."""
     m = torch.empty((4, 2, 8), device="meta")
+    m4 = torch.empty((1, 4, 2, 16), device="meta")
     args = {"lowrank_linear": (m, torch.empty((8, 4), device="meta"),
                                torch.empty((4, 8), device="meta")),
             "paged_attention": (m, m, m, m, m),
-            "chunked_prefill": (m, m, m, m, m, m)}[fn]
+            "chunked_prefill": (m, m, m, m, m, m),
+            "flash_attention": (m4, m4, m4),
+            "gram_accum": (torch.empty((16, 8), device="meta"),)}[fn]
     with pytest.raises(ValueError):
         getattr(tops, fn)(*args)
 
@@ -208,3 +215,96 @@ def test_chunked_prefill_trash_page_poison():
                                  (q, kp2, vp2, tables, st, ln))).numpy()
     for i, n in enumerate(ln):
         np.testing.assert_allclose(a[i, :n], b[i, :n], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (b, t, hq, hkv, hd, cap, block) — tests/test_kernels.py:63-98 at small T
+    (1, 64, 4, 4, 16, 0.0, 32),          # MHA, 2 x 2 blocks
+    (2, 64, 4, 2, 16, 0.0, 16),          # GQA 2:1, 4 x 4 blocks
+    (1, 64, 4, 1, 32, 0.0, 32),          # MQA
+    (1, 48, 4, 2, 16, 20.0, 16),         # softcap
+    (2, 100, 4, 2, 16, 0.0, 32),         # ragged T: JAX falls back to its oracle
+    (1, 37, 8, 2, 16, 30.0, 16),         # ragged T, G 4, softcap
+]
+
+
+@pytest.mark.parametrize("b,t,hq,hkv,hd,cap,block", FLASH_CASES)
+def test_flash_attention_matches_jax(b, t, hq, hkv, hd, cap, block):
+    q, k, v = (_randn(8, (b, t, hq, hd)), _randn(9, (b, t, hkv, hd)),
+               _randn(10, (b, t, hkv, hd)))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, cap=cap, block_q=block,
+                                           block_k=block))
+    want_ref = np.asarray(jref.flash_attention_ref(jq, jk, jv, cap=cap))
+    got = tops.flash_attention(*map(torch.from_numpy, (q, k, v)), cap=cap)
+    assert tuple(got.shape) == (b, t, hq, hd)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want_ref, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_is_causal_and_scaled():
+    """Row i ignores keys after i; an explicit scale is honoured."""
+    q, k, v = (torch.from_numpy(_randn(s, (1, 12, 2, 16))) for s in (1, 2, 3))
+    a = flash_attention_ref(q, k, v, scale=0.3)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 6:], v2[:, 6:] = 100.0, -100.0
+    b = flash_attention_ref(q, k2, v2, scale=0.3)
+    torch.testing.assert_close(a[:, :6], b[:, :6], rtol=0, atol=0)
+    want = np.asarray(jref.flash_attention_ref(*map(jnp.asarray, (q.numpy(),
+                                                                   k.numpy(),
+                                                                   v.numpy())),
+                                               scale=0.3))
+    np.testing.assert_allclose(a.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_refuses_autograd():
+    """The kernel has no backward: inputs that need a gradient raise, on
+    every device, instead of taking a silent wrong gradient."""
+    q = torch.from_numpy(_randn(1, (1, 8, 2, 16))).requires_grad_()
+    k = torch.from_numpy(_randn(2, (1, 8, 2, 16)))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tops.flash_attention(q, k, k)
+    with torch.no_grad():
+        out = tops.flash_attention(q, k, k)
+    assert not out.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# gram_accum
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n,bi,bk", [
+    (256, 64, 32, 64),        # tiled: 2 x 2 x 4 grid
+    (128, 96, 32, 128),
+    (100, 96, 32, 64),        # ragged k: JAX falls back to a.T @ a
+    (300, 40, 32, 128),       # ragged k and n
+])
+def test_gram_accum_matches_jax(k, n, bi, bk):
+    a = _randn(6, (k, n))
+    want = np.asarray(jops.gram_accum(jnp.asarray(a), block_i=bi, block_j=bi,
+                                      block_k=bk))
+    got = tops.gram_accum(torch.from_numpy(a))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, n)
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=tol)
+    np.testing.assert_allclose(got.numpy(), got.numpy().T, rtol=0, atol=tol)
+
+
+def test_gram_accum_chunked_sum_matches_jax():
+    """Summing per-chunk Grams (what Calibrator.record does across records)
+    equals the Gram of the whole matrix, as in tests/test_kernels.py:54-59."""
+    a = _randn(7, (1024, 64))
+    got = sum(tops.gram_accum(torch.from_numpy(a[i:i + 256]))
+              for i in range(0, 1024, 256))
+    want = np.asarray(sum(jops.gram_accum(jnp.asarray(a[i:i + 256]), block_k=128)
+                          for i in range(0, 1024, 256)))
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=tol)
+    whole = gram_accum_ref([torch.from_numpy(a)]).numpy()
+    np.testing.assert_allclose(got.numpy(), whole, rtol=1e-5, atol=tol)
+    want_ref = np.asarray(jref.gram_accum_ref([jnp.asarray(a)]))
+    np.testing.assert_allclose(whole, want_ref, rtol=1e-5, atol=tol)
