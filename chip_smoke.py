@@ -37,7 +37,9 @@ Phases, each printing its own lines:
              fp32 and bf16, at the paths' shapes (plus window / softcap /
              zero-length / starts > 0 / ragged cases), with its time, the
              plain version's time, one PyTorch library call's time and the
-             least time the card could take (the bound);
+             least time the card could take (the bound); lowrank_linear is
+             summed per layer at decode and at the largest prefill, and
+             chunked_prefill is also timed at B 4 with cached prefixes;
 8. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), and the host cost
              of one wrapper call and of two eager model ops.
@@ -501,12 +503,18 @@ def gram_path(torch, ops, coala):
 # ---------------------------------------------------------------------------
 
 def check_lowrank(torch, ops, ref, dev, gen, shapes, flush):
+    """lowrank_linear in fp32 and bf16 on one llama3_1b layer's seven
+    projections at the serve path's decode and largest prefill rows; the
+    line's numbers are one layer at decode, fp32."""
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "bound_by": "bytes"}
-    m_dec = shapes["lowrank_m_decode"]
+    m_dec, m_max = shapes["lowrank_m_decode"], shapes["lowrank_m_max"]
+    rows = list(dict.fromkeys((m_dec, m_max)))
+    layer = {m: {"m": m, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+             for m in rows}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for m in (m_dec, shapes["lowrank_m_max"]):
+        for m in rows:
             for name, (d_in, r, d_out) in LOWRANK_SHAPES.items():
                 x = torch.randn((m, d_in), generator=gen, device=dev).to(dt)
                 bt = (torch.randn((d_in, r), generator=gen, device=dev) / d_in ** 0.5).to(dt)
@@ -524,15 +532,20 @@ def check_lowrank(torch, ops, ref, dev, gen, shapes, flush):
                 b_ms, b_by = bound(nbytes, 2 * m * r * (d_in + d_out), dtype)
                 log(f"    M={m} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                     f"multi_dot {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-                if m == m_dec:      # the line's numbers: one layer's decode step
-                    res["ms"] += ms
-                    res["plain_ms"] += plain
-                    res["library_ms"] += lib
-                    res["bound_ms"] += b_ms
-                    res["bound_by"] = b_by
-    log(f"  lowrank_linear, one llama3_1b layer at decode (M={m_dec}, 7 projections): "
-        f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-        f"bound {res['bound_ms']:.4f} ms")
+                fig = layer[m]
+                fig["ms"] += ms
+                fig["plain_ms"] += plain
+                fig["library_ms"] += lib
+                fig["bound_ms"] += b_ms
+                fig["bound_by"] = b_by
+    for m, fig in layer.items():
+        what = "decode" if m == m_dec else "prefill"
+        log(f"  lowrank_linear, one llama3_1b layer at {what} (M={m}, 7 projections): "
+            f"kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, multi_dot "
+            f"{fig['library_ms']:.4f} ms, bound {fig['bound_ms']:.4f} ms ({fig['bound_by']})")
+    res.update({k: layer[m_dec][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")})
+    res["prefill"] = [layer[m] for m in rows if m != m_dec]
     return res
 
 
@@ -631,6 +644,8 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
     odd = ([32, 0, 5, 64, 0, 16, 3, 0], [20, 64, 0, 7, 33, 1, 64, 0])
     cases = [("main", shapes["chunked_starts"], shapes["chunked_lens"],
               shapes["chunked_pad_rows"], shapes["chunked_l"], 0.0, 0),
+             # B 4 with cached prefixes: the split balance across rows
+             ("B4", [0, 48, 0, 96], [128, 90, 33, 128], (), 128, 0.0, 0),
              ("starts>0+zero", *odd, (), 64, 0.0, 0),
              ("window", *odd, (), 64, 0.0, 24),
              ("softcap+window", *odd, (), 64, 30.0, 40)]
@@ -652,17 +667,17 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
                     raise Failure("chunked_prefill: padded queries are not zero")
             if dtype == "float32":
                 res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
-            if dtype != "float32" or name != "main":
+            if dtype != "float32" or name not in ("main", "B4"):
                 continue
-            res["ms"] = timed(torch, lambda: ops.chunked_prefill(*args), flush)
-            res["plain_ms"] = timed(torch, lambda: cp_ref(*args), flush)
+            ms = timed(torch, lambda: ops.chunked_prefill(*args), flush)
+            plain = timed(torch, lambda: cp_ref(*args), flush)
             k, v = _sdpa_inputs(torch, q, kp, vp, tables, hq // hkv)
             iq = st[:, None] + torch.arange(lq, device=dev)
             ik = torch.arange(k.shape[2], device=dev)
             mask = ((ik[None, None, :] <= iq[..., None])
                     & (iq[..., None] < (st + ln)[:, None, None]))[:, None]
             q4 = q.transpose(1, 2).contiguous()
-            res["library_ms"] = timed(
+            lib = timed(
                 torch, lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask),
                 flush)
             # bytes the function needs: q of the real queries only (padded
@@ -673,11 +688,15 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
             nbytes = 4 * ((real_q + q.shape[0] * lq) * hq * hd + 2 * toks * hkv * hd
                           + tables.numel() + 2 * len(lens))
             ops_n = 4 * hq * hd * _prefill_pairs(starts, lens, window)
-            res["bound_ms"], res["bound_by"] = bound(nbytes, ops_n, dtype)
-            log(f"    main B={len(lens)} L={lq} starts={starts} lens={lens}: kernel "
-                f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
-                f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
-                f"({res['bound_by']})")
+            b_ms, b_by = bound(nbytes, ops_n, dtype)
+            log(f"    {name} B={len(lens)} L={lq} starts={starts} lens={lens}: kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
+            fig = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            if name == "main":      # the line's numbers: the serve path's call
+                res.update(fig)
+            else:
+                res[name] = fig
     return res
 
 
@@ -857,7 +876,8 @@ def run(args) -> int:
     _build.build(verbose=True)
     _build.lib()
     build_s = time.perf_counter() - t0
-    log(f"[2 build] nvcc sm_90a of {len(_build.SOURCES)} sources: {build_s:.2f} s")
+    log(f"[2 build] nvcc sm_90a of {len(_build.SOURCES)} sources: {build_s:.2f} s "
+        f"({_build.library_path().name}, named by a digest of the sources)")
 
     log("[3 reference] llama3_1b SMOKE: kernels on the card vs plain versions on the CPU")
     reference_check(torch, dev)
@@ -947,6 +967,8 @@ def run(args) -> int:
     log(json.dumps({"main_path": {"serve": serve, "compress": comp, "gram": gram},
                     "launches": {"serve": serve_counts, "compress": comp_counts,
                                  "gram": gram_counts},
+                    "lowrank_prefill": results["lowrank_linear"]["prefill"],
+                    "chunked_b4": results["chunked_prefill"]["B4"],
                     "build_s": build_s}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -4,167 +4,402 @@
 // (`_kernel` / `chunked_prefill`): grid (B, Hkv, q_chunks, pages) with the
 // page axis sequential and (m, l, acc) for block_q x G queries in VMEM.
 //
-// What bounds it on the H100: per (row, KV head, query chunk) the live K/V
-// pages are read once and 4*hd FLOPs are spent per (query, key) pair; at the
-// main path's prompt lengths (16-256 tokens) the work is small and the
-// kernel is bound by its fp32 FLOPs on CUDA cores and by latency, not by
-// device memory.
+// What bounds it on the H100: 4*hd fp32 FLOPs per live (query, key) pair and
+// one read of the live K/V rows. At the serve path's prefills (B 1-8, 16-256
+// tokens, hd 64) that is a few MFLOP to a few hundred, microseconds of work
+// for the whole card, so what bounds it in practice is latency and how many
+// of the 132 SMs the work reaches: the first cut ran one serial page walk
+// per (row, KV head, 16 queries) and filled under one block per SM at B = 1.
 //
-// Design: one block per (row, KV head, chunk of 16 queries x G heads), with
-// the page loop inside the block. Query j of row b sits at global position
-// starts[b] + j. The live-page test is the one of chunked_prefill.py:72-79
-// (chunk holds a valid query, page below the written length, not wholly
-// above the chunk's causal diagonal, not wholly below its window). The
-// chunk's queries, one staged K/V page, the scores and the fp32 (m, l, acc)
-// live in shared memory. Fully masked query rows take the maximum(m,
-// NEG_INF/2) exponent shift (chunked_prefill.py:103) so they contribute
-// p = 0; padded queries (j >= lens[b]) and rows with lens == 0 give exact
-// zeros. Not yet used: tensor cores for the two small products, TMA.
+// Design (the tile of flash_attention.cu plus paging):
+// - A block owns 64 query rows of one (row b, KV head h): rows are the flat
+//   (query j, head g) pairs r = j*G + g of that KV head, so any G works.
+//   256 threads as 16 x 16; each thread holds a 4 x 4 block of scores (rows
+//   ty*4+i, keys tx+16c) and a 4 x hd/16 block of the fp32 accumulator in
+//   registers; row max and row sum go through warp shuffles.
+// - Key tiles of 64 keys are gathered through the block table (key p sits in
+//   page tables[b][p / bs] at slot p % bs, so any bs works), each K/V row of
+//   one head copied as 16-byte cp.async chunks into shared memory, two tiles
+//   in flight: the next tile loads while the current one is computed. Keys
+//   at or past the row's written length are zero-filled, never read, so the
+//   trash page 0 cannot reach a real query.
+// - Key-range splits (flash-decoding): the plan (kernels/chunked_prefill.py)
+//   cuts the key tiles into `splits` ranges of `per` tiles. Each (row tile,
+//   split) block walks only the key tiles of its range that the row tile's
+//   live range (causal diagonal, window, valid queries) reaches; a block with
+//   none returns at once. With splits > 1 each live block writes its fp32
+//   (m, l, acc) partial and a second launch combines, per output element,
+//   exactly the live splits in split order (deterministic). Row tiles are
+//   walked from the last (the longest diagonal) down.
+// - Masks and shifts as in chunked_prefill.py: softcap before the mask,
+//   offset causal (query j of row b at global position starts[b] + j), the
+//   window, masked scores NEG_INF = -1e30, the maximum(m, NEG_INF/2) exponent
+//   shift for fully masked rows, output acc / max(l, 1e-30); padded queries
+//   (j >= lens[b]), rows with lens == 0 and dead row tiles give exact zeros.
+// Scores and P.V are fp32 FMAs on the CUDA cores in both dtypes (bf16 K/V
+// are converted as they are read from shared memory).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BQ = 16;   // queries per block (times G heads)
+constexpr int THREADS = 256;   // 16 x 16
+constexpr int BR = 64;         // query rows (query, head) per block
+constexpr int BKEYS = 64;      // keys per key tile
+constexpr int PP = BKEYS + 1;  // padded probability row
 
-size_t smem_floats(int G, int hd, int bs) {
-  const size_t R = (size_t)BQ * G;
-  // q rows (padded), K page (padded), V page, scores, acc, m, l, corr
-  return R * (hd + 1) + (size_t)bs * (hd + 1) + (size_t)bs * hd + R * bs + R * hd + 3 * R;
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
+template <typename T, int HD>
+struct Tile {
+  static constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte chunk
+  static constexpr int CPR = HD / VEC;          // chunks per K/V/q row
+  static constexpr int LD = HD + VEC;           // shared row stride (elements)
+  static constexpr size_t bytes() {
+    return (size_t)(BR + 4 * BKEYS) * LD * sizeof(T) + (size_t)BR * PP * sizeof(float);
+  }
+};
+
+// Key tiles [lo, hi] that row tile rt of a row (start, len) can attend:
+// lo > hi when the tile holds no valid query or no key is in reach.
+__device__ __forceinline__ void live_key_tiles(int rt, int start, int len, int L, int G,
+                                               int window, int keys, int& lo, int& hi) {
+  const int r0 = rt * BR;
+  const int j0 = r0 / G;
+  const int j1 = min(min(L, len) - 1, (r0 + BR - 1) / G);
+  const int kmax = min(start + j1, keys - 1);
+  const int kmin = window > 0 ? max(0, start + j0 - window + 1) : 0;
+  if (j1 < j0 || kmax < kmin) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  lo = kmin / BKEYS;
+  hi = kmax / BKEYS;
+}
+
+// One 16-byte chunk into shared memory: zeros when !ok, cp.async when the
+// source is 16-byte aligned, element by element otherwise.
 template <typename T>
+__device__ __forceinline__ void copy16(T* dst, const T* src, bool ok, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (!ok) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  } else if (vec) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
+  }
+}
+
+// grid: row tiles x B x Hkv x splits (row tile slowest, last tile first).
+// work (splits > 1): ml [splits][B][Hkv][nrt*BR][2] then acc [..][HD].
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ tables,
                        const int* __restrict__ starts, const int* __restrict__ lens,
-                       T* __restrict__ out, int L, int Hq, int Hkv, int hd, int bs, int nb,
-                       float scale, float cap, int window) {
-  extern __shared__ float smem[];
+                       T* __restrict__ out, float* __restrict__ work, int B, int L, int Hq,
+                       int Hkv, int bs, int nb, float scale, float cap, int window,
+                       int splits, int per, int vec) {
+  using TL = Tile<T, HD>;
+  constexpr int LD = TL::LD, CPR = TL::CPR, VEC = TL::VEC;
+  constexpr int CO = HD / 16;            // accumulator columns per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);            // [BR][LD]
+  T* ks = qs + BR * LD;                               // [2][BKEYS][LD]
+  T* vs = ks + 2 * BKEYS * LD;                        // [2][BKEYS][LD]
+  float* ps = reinterpret_cast<float*>(vs + 2 * BKEYS * LD);   // [BR][PP]
+
   const int G = Hq / Hkv;
-  const int R = BQ * G;                 // query rows of this block: r = qi * G + g
-  const int nch = (L + BQ - 1) / BQ;
-  const int c = blockIdx.x % nch;
-  const int bh = blockIdx.x / nch;
-  const int h = bh % Hkv;
-  const int b = bh / Hkv;
-  const int hdp = hd + 1;
-  float* qs = smem;                     // (R, hd + 1)
-  float* ks = qs + R * hdp;             // (bs, hd + 1)
-  float* vs = ks + bs * hdp;            // (bs, hd)
-  float* sc = vs + bs * hd;             // (R, bs)
-  float* acc = sc + R * bs;             // (R, hd)
-  float* m_s = acc + R * hd;            // (R,)
-  float* l_s = m_s + R;
-  float* corr = l_s + R;
-  const int tid = threadIdx.x;
+  const int rows = L * G;                // query rows of one (b, h)
+  const int nrt = (rows + BR - 1) / BR;
+  int idx = blockIdx.x;
+  const int s = idx % splits;
+  idx /= splits;
+  const int h = idx % Hkv;
+  idx /= Hkv;
+  const int b = idx % B;
+  const int rt = nrt - 1 - idx / B;
+  const int r0 = rt * BR;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int start = starts[b], len = lens[b];
+  const int keys = nb * bs;
+  const int total = min(start + len, keys);  // keys that can be loaded
 
-  for (int e = tid; e < R * hd; e += THREADS) {
-    const int r = e / hd, d = e % hd;
-    const int j = c * BQ + r / G, g = r % G;
-    qs[r * hdp + d] =
-        j < L ? to_f(q[(((size_t)b * L + j) * Hq + (size_t)h * G + g) * hd + d]) : 0.f;
-    acc[e] = 0.f;
+  int lo, hi;
+  live_key_tiles(rt, start, len, L, G, window, keys, lo, hi);
+  const int kt_a = max(lo, s * per), kt_b = min(hi, (s + 1) * per - 1);
+  const size_t q_tok = (size_t)Hq * HD;
+  if (kt_a > kt_b) {
+    if (splits > 1) return;              // the combine skips this split
+    for (int e = tid; e < BR * HD; e += THREADS) {   // dead row tile: zeros
+      const int gr = r0 + e / HD;
+      if (gr < rows)
+        out[((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD + e % HD] =
+            from_f<T>(0.f);
+    }
+    return;
   }
-  for (int r = tid; r < R; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
 
-  const int start = starts[b];
-  const int total = start + lens[b];    // row's written length (prefix + suffix)
-  const int q_lo = start + c * BQ;      // global position of the chunk's first query
+  // the query tile and the first key tile: commit group 0
+  for (int e = tid; e < BR * CPR; e += THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const int gr = r0 + r;
+    const T* src = q + ((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD + c * VEC;
+    copy16<T>(qs + r * LD + c * VEC, gr < rows ? src : q, gr < rows, vec);
+  }
   const int* trow = tables + (size_t)b * nb;
-  for (int i = 0; i < nb; ++i) {
-    bool live = q_lo < total;           // chunk holds at least one valid query
-    live = live && i * bs < total;      // page not past the written length
-    live = live && i * bs <= q_lo + BQ - 1;   // page not wholly above the diagonal
-    if (window > 0) live = live && (i + 1) * bs > q_lo + 1 - window;
-    if (!live) continue;                // uniform across the block
-    const size_t blk = (size_t)trow[i];
-    for (int e = tid; e < bs * hd; e += THREADS) {
-      const int j = e / hd, d = e % hd;
-      const size_t src = ((blk * bs + j) * Hkv + h) * hd + d;
-      ks[j * hdp + d] = to_f(kp[src]);
-      vs[j * hd + d] = to_f(vp[src]);
+  auto issue = [&](int kt, int buf) {
+    for (int e = tid; e < BKEYS * CPR; e += THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      const int p = kt * BKEYS + r;
+      const bool ok = p < total;
+      size_t off = 0;
+      if (ok) off = (((size_t)trow[p / bs] * bs + p % bs) * Hkv + h) * HD + c * VEC;
+      copy16<T>(ks + (buf * BKEYS + r) * LD + c * VEC, kp + off, ok, vec);
+      copy16<T>(vs + (buf * BKEYS + r) * LD + c * VEC, vp + off, ok, vec);
     }
-    __syncthreads();
-    for (int e = tid; e < R * bs; e += THREADS) {
-      const int r = e / bs, jj = e % bs;
-      const int qi = r / G;
-      const float* qr = qs + r * hdp;
-      const float* kr = ks + jj * hdp;
-      float dot = 0.f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      float s = dot * scale;
-      if (cap > 0.f) s = cap * tanhf(s / cap);
-      const int iq = q_lo + qi;
-      const int ik = i * bs + jj;
-      bool ok = iq < total && c * BQ + qi < L;   // padded queries -> 0 rows
-      ok = ok && ik <= iq;                       // causal, offset by the prefix
-      if (window > 0) ok = ok && (iq - ik) < window;
-      sc[e] = ok ? s : NEG_INF;
+  };
+  issue(kt_a, 0);
+  cp_async_commit();
+
+  float m[4], l[4], acc[4][CO];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CO; ++c) acc[i][c] = 0.f;
+  }
+  // per-row constants of this thread's four rows
+  int iq[4];
+  bool rv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gr = r0 + ty * 4 + i;
+    const int j = gr / G;
+    rv[i] = gr < rows && j < len;        // valid (not padded) query
+    iq[i] = start + j;
+  }
+
+  for (int kt = kt_a; kt <= kt_b; ++kt) {
+    const int cur = (kt - kt_a) & 1;
+    if (kt < kt_b) issue(kt + 1, cur ^ 1);   // next tile in flight during compute
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                     // q and tile kt are in shared memory
+
+    const T* kb = ks + cur * BKEYS * LD;
+    const T* vb = vs + cur * BKEYS * LD;
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = load4<T>(qs + (ty * 4 + i) * LD + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = load4<T>(kb + (tx + 16 * c) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float a = sc[i][c];
+          a = fmaf(qv[i].x, kv[c].x, a);
+          a = fmaf(qv[i].y, kv[c].y, a);
+          a = fmaf(qv[i].z, kv[c].z, a);
+          a = fmaf(qv[i].w, kv[c].w, a);
+          sc[i][c] = a;
+        }
     }
-    __syncthreads();
-    for (int r = tid; r < R; r += THREADS) {
-      float* sr = sc + r * bs;
-      const float m_prev = m_s[r];
-      float mx = m_prev;
-      for (int jj = 0; jj < bs; ++jj) mx = fmaxf(mx, sr[jj]);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int ik = kt * BKEYS + tx + 16 * c;
+        float x = sc[i][c] * scale;
+        if (cap > 0.f) x = cap * tanhf(x / cap);
+        bool ok = rv[i] && ik <= iq[i] && ik < keys;   // causal, offset by the prefix
+        if (window > 0) ok = ok && iq[i] - ik < window;
+        x = ok ? x : NEG_INF;
+        sc[i][c] = x;
+        mx = fmaxf(mx, x);
+      }
+      // the 16 threads of a row are lanes 16*(ty%2) + tx of one warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
       // fully masked rows keep m == NEG_INF; the shift makes them add p = 0
-      const float shift = fmaxf(mx, NEG_INF / 2);
+      const float shift = fmaxf(m_new, NEG_INF / 2);
+      const float corr = expf(m[i] - m_new);
       float sum = 0.f;
-      for (int jj = 0; jj < bs; ++jj) {
-        const float p = expf(sr[jj] - shift);
-        sr[jj] = p;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(sc[i][c] - shift);
+        ps[(ty * 4 + i) * PP + tx + 16 * c] = p;
         sum += p;
       }
-      const float cr = expf(m_prev - mx);
-      l_s[r] = l_s[r] * cr + sum;
-      corr[r] = cr;
-      m_s[r] = mx;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CO; ++c) acc[i][c] *= corr;
     }
-    __syncthreads();
-    for (int e = tid; e < R * hd; e += THREADS) {
-      const int r = e / hd, d = e % hd;
-      const float* pr = sc + r * bs;
-      float a = acc[e] * corr[r];
-      for (int jj = 0; jj < bs; ++jj) a = fmaf(pr[jj], vs[jj * hd + d], a);
-      acc[e] = a;
+    __syncthreads();                     // probabilities visible
+
+#pragma unroll 4
+    for (int kk = 0; kk < BKEYS; ++kk) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * PP + kk];
+#pragma unroll
+      for (int c = 0; c < CO; ++c) {
+        const float vv = to_f(vb[kk * LD + tx + 16 * c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      }
     }
-    __syncthreads();
+    __syncthreads();                     // tile buffers free for the next issue
   }
 
-  for (int e = tid; e < R * hd; e += THREADS) {
-    const int r = e / hd, d = e % hd;
-    const int j = c * BQ + r / G, g = r % G;
-    if (j >= L) continue;
-    out[(((size_t)b * L + j) * Hq + (size_t)h * G + g) * hd + d] =
-        from_f<T>(acc[e] / fmaxf(l_s[r], 1e-30f));
+  if (splits == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = r0 + ty * 4 + i;
+      if (gr >= rows) continue;
+      T* orow = out + ((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD;
+      const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < CO; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / den);
+    }
+    return;
   }
+  const size_t rp = (size_t)nrt * BR;
+  const size_t slot = (((size_t)s * B + b) * Hkv + h) * rp + r0;   // row r0 of this split
+  float* ml = work + 2 * slot;
+  float* pacc = work + (size_t)splits * B * Hkv * rp * 2 + slot * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (tx == 0) {
+      ml[2 * r] = m[i];
+      ml[2 * r + 1] = l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < CO; ++c) pacc[(size_t)r * HD + tx + 16 * c] = acc[i][c];
+  }
+}
+
+// out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max m),
+// over exactly the splits that the row's tile reaches, in split order.
+template <typename T, int HD>
+__global__ void combine_kernel(const float* __restrict__ work, const int* __restrict__ starts,
+                               const int* __restrict__ lens, T* __restrict__ out, int B, int L,
+                               int Hq, int Hkv, int bs, int nb, int window, int splits,
+                               int per) {
+  const int G = Hq / Hkv;
+  const int rows = L * G;
+  const size_t rp = (size_t)((rows + BR - 1) / BR) * BR;
+  const float* pacc = work + (size_t)splits * B * Hkv * rp * 2;
+  const size_t n = (size_t)B * Hkv * rows * HD;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int d = (int)(e % HD);
+    size_t rest = e / HD;
+    const int gr = (int)(rest % rows);
+    rest /= rows;
+    const int h = (int)(rest % Hkv);
+    const int b = (int)(rest / Hkv);
+    int lo, hi;
+    live_key_tiles(gr / BR, starts[b], lens[b], L, G, window, nb * bs, lo, hi);
+    float o = 0.f;
+    if (lo <= hi) {
+      const int s0 = lo / per, s1 = hi / per;
+      float mx = NEG_INF;
+      for (int s = s0; s <= s1; ++s)
+        mx = fmaxf(mx, work[2 * ((((size_t)s * B + b) * Hkv + h) * rp + gr)]);
+      float lsum = 0.f, a = 0.f;
+      for (int s = s0; s <= s1; ++s) {
+        const size_t slot = (((size_t)s * B + b) * Hkv + h) * rp + gr;
+        const float w = expf(work[2 * slot] - mx);
+        lsum = fmaf(w, work[2 * slot + 1], lsum);
+        a = fmaf(w, pacc[slot * HD + d], a);
+      }
+      o = a / fmaxf(lsum, 1e-30f);
+    }
+    out[((size_t)b * L + gr / G) * ((size_t)Hq * HD) + (size_t)(h * G + gr % G) * HD + d] =
+        from_f<T>(o);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_hd(const T* q, const T* kp, const T* vp, const int* tables, const int* starts,
+                      const int* lens, T* out, float* work, int B, int L, int Hq, int Hkv,
+                      int bs, int nb, float scale, float cap, int window, int splits, int per,
+                      cudaStream_t stream) {
+  const size_t bytes = Tile<T, HD>::bytes();
+  static bool configured[MAX_DEVICES] = {};
+  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(chunked_prefill_kernel<T, HD>),
+                                    (int)bytes, configured);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  const long long nrt = ((long long)L * G + BR - 1) / BR;
+  const long long blocks = nrt * B * Hkv * splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int vec = aligned16(q) && aligned16(kp) && aligned16(vp);
+  chunked_prefill_kernel<T, HD><<<(unsigned)blocks, THREADS, bytes, stream>>>(
+      q, kp, vp, tables, starts, lens, out, work, B, L, Hq, Hkv, bs, nb, scale, cap, window,
+      splits, per, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = (long long)B * Hkv * L * G * HD;
+  long long grid = (n + 255) / 256;
+  if (grid > 8192) grid = 8192;
+  combine_kernel<T, HD><<<(unsigned)grid, 256, 0, stream>>>(work, starts, lens, out, B, L, Hq,
+                                                            Hkv, bs, nb, window, splits, per);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
-                   const int* starts, const int* lens, void* out, int B, int L, int Hq,
-                   int Hkv, int hd, int bs, int nb, float scale, float cap, int window,
-                   cudaStream_t stream) {
-  const size_t bytes = smem_floats(Hq / Hkv, hd, bs) * sizeof(float);
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(chunked_prefill_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)bytes);
-    if (err != cudaSuccess) return err;
+                   const int* starts, const int* lens, void* out, float* work, int B, int L,
+                   int Hq, int Hkv, int hd, int bs, int nb, float scale, float cap, int window,
+                   int splits, int per, cudaStream_t stream) {
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(kp);
+  const T* vv = static_cast<const T*>(vp);
+  T* o = static_cast<T*>(out);
+#define REPRO_CP_HD(H)                                                                      \
+  case H:                                                                                   \
+    return launch_hd<T, H>(qq, kk, vv, tables, starts, lens, o, work, B, L, Hq, Hkv, bs, nb, \
+                           scale, cap, window, splits, per, stream);
+  switch (hd) {
+    REPRO_CP_HD(16)
+    REPRO_CP_HD(32)
+    REPRO_CP_HD(64)
+    REPRO_CP_HD(128)
+    default: return cudaErrorInvalidValue;
   }
-  const int nch = (L + BQ - 1) / BQ;
-  chunked_prefill_kernel<T><<<B * Hkv * nch, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      tables, starts, lens, static_cast<T*>(out), L, Hq, Hkv, hd, bs, nb, scale, cap,
-      window);
-  return cudaGetLastError();
+#undef REPRO_CP_HD
 }
 
 }  // namespace
@@ -172,23 +407,32 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
 extern "C" {
 
 // q (B, L, Hq, hd); k/v pages (num_blocks, bs, Hkv, hd); tables (B, nb),
-// starts (B,), lens (B,) int32; out (B, L, Hq, hd). dtype: 0 = f32, 1 = bf16.
+// starts (B,), lens (B,) int32; out (B, L, Hq, hd); work: the plan's fp32
+// partials (unused when splits == 1). The plan (kernels/chunked_prefill.py)
+// cuts the ceil(nb*bs/64) key tiles into `splits` ranges of `per` tiles.
+// hd in {16, 32, 64, 128}. dtype: 0 = f32, 1 = bf16.
 int repro_chunked_prefill(const void* q, const void* kp, const void* vp, const void* tables,
-                          const void* starts, const void* lens, void* out, int B, int L,
-                          int Hq, int Hkv, int hd, int bs, int nb, float scale, float cap,
-                          int window, int dtype, void* stream) {
+                          const void* starts, const void* lens, void* out, void* work, int B,
+                          int L, int Hq, int Hkv, int hd, int bs, int nb, float scale,
+                          float cap, int window, int splits, int per, int dtype,
+                          void* stream) {
   if (B <= 0 || L <= 0 || Hkv <= 0 || Hq % Hkv != 0 || hd <= 0 || bs <= 0 || nb <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long nkt = ((long long)nb * bs + BKEYS - 1) / BKEYS;
+  if (splits < 1 || per < 1 || (long long)(splits - 1) * per >= nkt ||
+      (long long)splits * per < nkt || (splits > 1 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* st = static_cast<const int*>(starts);
   const int* ln = static_cast<const int*>(lens);
+  float* w = static_cast<float*>(work);
   if (dtype == 0)
-    return (int)launch<float>(q, kp, vp, t, st, ln, out, B, L, Hq, Hkv, hd, bs, nb, scale,
-                              cap, window, s);
+    return (int)launch<float>(q, kp, vp, t, st, ln, out, w, B, L, Hq, Hkv, hd, bs, nb, scale,
+                              cap, window, splits, per, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, kp, vp, t, st, ln, out, B, L, Hq, Hkv, hd, bs, nb,
-                                      scale, cap, window, s);
+    return (int)launch<__nv_bfloat16>(q, kp, vp, t, st, ln, out, w, B, L, Hq, Hkv, hd, bs, nb,
+                                      scale, cap, window, splits, per, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,8 @@
 // Shared by the port's kernel sources: fp32 <-> storage-type conversions
-// (every kernel loads fp32 or bf16 and accumulates in fp32) and the masked
-// score value of the two attention kernels (the Pallas kernels' NEG_INF).
+// (every kernel loads fp32 or bf16 and accumulates in fp32), the masked
+// score value of the attention kernels (the Pallas kernels' NEG_INF), and
+// the asynchronous 16-byte global -> shared copies (cp.async) of the
+// pipelined kernels, and the per-device dynamic shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +22,41 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// 16-byte asynchronous copy global -> shared; both addresses 16-byte
+// aligned. Completion is tracked per thread in commit groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` the first time it
+// launches on the current device (the attribute is per device); `done` is
+// that kernel's own per-device flags.
+inline cudaError_t smem_limit_once(const void* kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
 }
 
 }  // namespace

@@ -28,15 +28,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points: name -> (restype, argtypes)
 SIGNATURES = {
-    "repro_lowrank_linear_workspace": (_LL, [_I, _I, _I, _I]),
-    "repro_lowrank_linear": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "repro_lowrank_linear": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P]),
     "repro_paged_attention": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _F, _F, _I, _I, _P]),
-    "repro_chunked_prefill": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _F, _I, _I, _P]),
+    "repro_chunked_prefill": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _F, _I, _I, _I, _I, _P]),
     "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "repro_gram_accum": (_I, [_P, _P, _I, _I, _I, _P]),
 }

@@ -2,9 +2,19 @@
 
 Port of ``repro/kernels/lowrank_linear.py``. A CPU tensor runs the plain
 version (``ref.lowrank_linear_ref``); a CUDA tensor launches the CUDA kernel
-(two tiled GEMMs, the intermediate cast to x's dtype in between) or raises.
+(two GEMMs, the intermediate cast to x's dtype in between) or raises.
+
+The launch plan lives here, in Python, so that the CPU tests reach it: which
+kernel each of the two products takes (``decode`` for M <= 16 rows, a
+``prefill`` tile above), how K is split across blocks and how much fp32
+workspace the split needs. The CUDA source checks that a plan it is given
+fits its tiles and refuses one that does not.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -14,6 +24,96 @@ from repro_torch.kernels.ref import lowrank_linear_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # calls that launched the CUDA kernel
+
+SMALL_M = 16          # rows up to which a product takes the decode kernel
+_BIG = 1 << 30
+# Per kernel, as in csrc/lowrank_linear.cu: (BM, BN, BK, least k per split,
+# most k per split, most splits, blocks wanted); BM is also the tile code the
+# CUDA side is given. The fp32 decode kernel keeps x's K slice in shared
+# memory (hence its cap of 512 k). The split-K sum of a tile is read by one
+# block, so splits x tile stays <= 256 KB of partials (512 KB at decode). The
+# fp32 prefill tile is 64 x 64 (two warps), eight blocks to an SM.
+TILES = {
+    ("decode", torch.float32): (16, 128, 16, 48, 512, 64, 264),
+    ("prefill", torch.float32): (64, 64, 8, 64, _BIG, 8, 528),
+    ("decode", torch.bfloat16): (16, 128, 32, 64, _BIG, 64, 264),
+    ("prefill", torch.bfloat16): (128, 128, 32, 128, _BIG, 4, 264),
+}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One product C (m, n) = A (m, k) @ B (k, n): block (x, y, z) computes
+    output tile (y, x) over k in [z * kchunk, min(k, (z + 1) * kchunk))."""
+    m: int
+    n: int
+    k: int
+    kind: str             # "decode" or "prefill"
+    tile: int             # the kernel's code for the C side: its BM
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    kchunk: int
+
+    @property
+    def workspace(self) -> int:
+        """fp32 elements of split-K partials (0 when K is not split)."""
+        return self.splits * self.m * self.n if self.splits > 1 else 0
+
+    @property
+    def counters(self) -> int:
+        """int32 arrival counters, one per output tile (0 when unsplit)."""
+        return self.tiles_m * self.tiles_n if self.splits > 1 else 0
+
+    def k_ranges(self):
+        return [(z * self.kchunk, min(self.k, (z + 1) * self.kchunk))
+                for z in range(self.splits)]
+
+
+def gemm_plan(m: int, n: int, k: int, dtype=torch.float32) -> GemmPlan:
+    """Split K across blocks until the kernel's wanted block count is in
+    flight, within its bounds on k per split and on splits; every split is
+    non-empty."""
+    kind = "decode" if m <= SMALL_M else "prefill"
+    bm, bn, bk, k_min, k_max, s_max, blocks = TILES[(kind, dtype)]
+    tiles_m, tiles_n = _cdiv(m, bm), _cdiv(n, bn)
+    splits = min(_cdiv(blocks, tiles_m * tiles_n), k // k_min, s_max)
+    splits = max(1, splits, _cdiv(k, k_max))
+    kchunk = _cdiv(_cdiv(k, splits), bk) * bk
+    return GemmPlan(m, n, k, kind, bm, tiles_m, tiles_n, _cdiv(k, kchunk), kchunk)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, d_in: int, r: int, d_out: int,
+         dtype=torch.float32) -> Tuple[GemmPlan, GemmPlan]:
+    """The two products of one call: t = x @ b_t, then y = t @ a_t."""
+    return gemm_plan(m, r, d_in, dtype), gemm_plan(m, d_out, r, dtype)
+
+
+# scratch kept per (device, stream): one fp32 buffer holding the split-K
+# partials and, after them at a 16-byte boundary, the intermediate t in x's
+# dtype; and the int32 arrival counters. Both are needed only between the
+# two launches of one call, so calls on one stream reuse them in stream
+# order. The kernel's last block of a tile resets its counter to 0, so the
+# counters are zeroed once, when the buffer is made.
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _call_scratch(device, stream: int, work: int, counters: int):
+    key = (device, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf[0].numel() < work or buf[1].numel() < counters:
+        old_w, old_c = buf if buf is not None else (None, None)
+        w = max(work, 1 if old_w is None else old_w.numel())
+        c = max(counters, 1 if old_c is None else old_c.numel())
+        buf = (torch.empty(w, dtype=torch.float32, device=device),
+               torch.zeros(c, dtype=torch.int32, device=device))
+        _scratch[key] = buf
+    return buf
 
 
 def lowrank_linear(x, b_t, a_t):
@@ -50,16 +150,20 @@ def _launch(x, b_t, a_t):
     m = xm.shape[0]
     if m == 0:
         raise ValueError("lowrank_linear: empty input")
-    lib = _build.lib()
+    p1, p2 = plan(m, d_in, r, d_out, x.dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    work_n = _cdiv(max(p1.workspace, p2.workspace), 4) * 4
+    t_n = _cdiv(m * r * x.element_size(), 4)
+    work, counters = _call_scratch(x.device, stream, work_n + t_n,
+                                   max(p1.counters, p2.counters))
+    t = work[work_n:work_n + t_n].view(x.dtype)
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
-    t = torch.empty((m, r), dtype=x.dtype, device=x.device)
-    ws = int(lib.repro_lowrank_linear_workspace(m, d_in, r, d_out))
-    work = torch.empty((max(ws, 1),), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.repro_lowrank_linear(
+        err = _build.lib().repro_lowrank_linear(
             xm.data_ptr(), b_t.data_ptr(), a_t.data_ptr(), y.data_ptr(),
-            t.data_ptr(), work.data_ptr(), m, d_in, r, d_out, DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            t.data_ptr(), work.data_ptr(), counters.data_ptr(), m, d_in, r, d_out,
+            p1.splits, p1.kchunk, p1.tile, p2.splits, p2.kchunk, p2.tile,
+            DTYPES[x.dtype], stream)
     _build.check(err, "lowrank_linear")
     launches += 1
-    return y.reshape(*x.shape[:-1], d_out)
+    return y.view(*x.shape[:-1], d_out)

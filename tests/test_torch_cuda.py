@@ -5,7 +5,7 @@ first use) and skip without one. JAX-free, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 attention 2e-5 (softmax over <= 200 keys); fp32 low-rank
+Tolerances: fp32 attention 2e-5 (softmax over <= 260 keys); fp32 low-rank
 linear 1e-4 relative to max|ref| (sums of up to 2048 products, another
 order than cuBLAS); bf16 2e-2 relative (one bf16 rounding of the
 intermediate or the output may differ); gram_accum 1e-5 relative to max|G|
@@ -43,10 +43,20 @@ def _close(got, want, tol):
     assert err <= tol * scale, (err, tol * scale)
 
 
+# the kernels' edges: M across the decode (<= 16) / prefill switch and the
+# prefill tiles (64 rows fp32, 128 bf16); ranks whose rows are not 16-byte aligned (245, 614, 983);
+# d_in = 1000, a multiple of neither K step (16 / 8 / 32); d_out not a
+# multiple of the 128-column tile (2050 not even of 4)
+LOWRANK_EDGES = [(m, 1000, r, {245: 512, 614: 2050, 983: 1000}[r])
+                 for m in (1, 8, 16, 17, 128, 256, 300) for r in (245, 614, 983)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("m,d_in,r,d_out", [(8, 2048, 614, 2048), (3, 512, 245, 96),
-                                            (300, 256, 83, 130)])
+                                            (300, 256, 83, 130),
+                                            (1100, 1000, 245, 8202)]   # many tiles
+                         + LOWRANK_EDGES)
 def test_lowrank_linear_cuda(cuda, dtype, tol, m, d_in, r, d_out):
     x = _randn(0, (m, d_in), cuda, dtype)
     bt = _randn(1, (d_in, r), cuda, dtype) / d_in ** 0.5
@@ -56,6 +66,8 @@ def test_lowrank_linear_cuda(cuda, dtype, tol, m, d_in, r, d_out):
     torch.cuda.synchronize()
     assert ops.launch_counts()["lowrank_linear"] == before + 1
     _close(got, lowrank_linear_ref(x, bt, at), tol)
+    # split-K sums in a fixed order: a second call gives the same bits
+    assert torch.equal(ops.lowrank_linear(x, bt.contiguous(), at.contiguous()), got)
 
 
 def _tables(lengths, bs):
@@ -88,25 +100,59 @@ def test_paged_attention_cuda(cuda, hq, hkv, lengths, bs, cap, window):
     assert torch.all(got[torch.tensor(lengths, device=cuda) == 0] == 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,starts,lens,bs,cap,window", [
-    (4, 2, [0, 8, 4], [5, 7, 1], 4, 0.0, 0), (4, 2, [8, 4], [6, 9], 4, 50.0, 0),
-    (4, 2, [16, 0, 8], [5, 11, 3], 4, 0.0, 6), (8, 2, [0, 32, 0], [40, 9, 0], 16, 0.0, 0),
-])
-def test_chunked_prefill_cuda(cuda, hq, hkv, starts, lens, bs, cap, window):
+def _chunked_args(cuda, dtype, hq, hkv, hd, starts, lens, bs, seed=0):
     tables, nxt = _tables([s + n for s, n in zip(starts, lens)], bs)
-    lq = max(lens)
-    q = _randn(0, (len(lens), lq, hq, 64), cuda)
-    kp = _randn(1, (nxt + 2, bs, hkv, 64), cuda)
-    vp = _randn(2, (nxt + 2, bs, hkv, 64), cuda)
-    args = (q, kp, vp, torch.from_numpy(tables).to(cuda),
+    lq = max(max(lens), 1)
+    q = _randn(seed, (len(lens), lq, hq, hd), cuda, dtype)
+    kp = _randn(seed + 1, (nxt + 2, bs, hkv, hd), cuda, dtype)
+    vp = _randn(seed + 2, (nxt + 2, bs, hkv, hd), cuda, dtype)
+    return (q, kp, vp, torch.from_numpy(tables).to(cuda),
             torch.tensor(starts, dtype=torch.int32, device=cuda),
             torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,hd,starts,lens,bs,cap,window", [
+    (4, 2, 64, [0, 8, 4], [5, 7, 1], 4, 0.0, 0), (4, 2, 64, [8, 4], [6, 9], 4, 50.0, 0),
+    (4, 2, 64, [16, 0, 8], [5, 11, 3], 4, 0.0, 6),
+    (8, 2, 64, [0, 32, 0], [40, 9, 0], 16, 0.0, 0),      # B 3 with a zero-length row
+    (32, 8, 64, [70, 5], [90, 33], 16, 0.0, 0),          # rows longer than a key tile
+    (32, 8, 64, [70, 0, 130], [90, 0, 20], 4, 30.0, 40),  # window + softcap, bs 4
+    (8, 8, 128, [3, 100], [61, 70], 12, 0.0, 0),         # bs 12 divides no key tile
+    (4, 1, 16, [0, 17], [200, 3], 16, 20.0, 0),          # G 4 hd 16, many row tiles
+    (3, 1, 32, [5, 0], [30, 64], 4, 0.0, 9),             # G 3
+])
+def test_chunked_prefill_cuda(cuda, dtype, tol, hq, hkv, hd, starts, lens, bs, cap, window):
+    args = _chunked_args(cuda, dtype, hq, hkv, hd, starts, lens, bs)
+    before = ops.launch_counts()["chunked_prefill"]
     got = ops.chunked_prefill(*args, cap=cap, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["chunked_prefill"] == before + 1
     want = chunked_prefill_ref(*args, cap=cap, window=window)
-    _close(got, want, 2e-5)
+    _close(got, want, tol)
     for i, n in enumerate(lens):
         assert torch.all(got[i, n:] == 0)
+    # the combine sums the splits in a fixed order: the same bits again
+    assert torch.equal(ops.chunked_prefill(*args, cap=cap, window=window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_prefill_cuda_trash_page_poison(cuda, dtype):
+    """Page 0 (the trash page of padded table entries) never reaches a real
+    query: filling it with 1e4 changes no valid output, bit for bit."""
+    args = _chunked_args(cuda, dtype, 8, 2, 64, [0, 40, 3], [70, 30, 0], 16, seed=5)
+    q, kp, vp, tables, st, ln = args
+    clean = ops.chunked_prefill(*args)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[0], vp2[0] = 1e4, 1e4
+    poisoned = ops.chunked_prefill(q, kp2, vp2, tables, st, ln)
+    torch.cuda.synchronize()
+    for i, n in enumerate(ln.tolist()):
+        assert torch.equal(poisoned[i, :n], clean[i, :n])
+        assert torch.all(poisoned[i, n:] == 0)
+    _close(clean, chunked_prefill_ref(*args), 2e-5 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.cuda

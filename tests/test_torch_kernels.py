@@ -9,9 +9,14 @@ GPU: tests/test_torch_cuda.py compares each with its plain version there.
 
 Tolerances: lowrank_linear rtol/atol 1e-4 (fp32, as tests/test_kernels.py);
 paged/chunked attention rtol/atol 2e-5 (fp32 softmax over <= 32 keys, as the
-JAX package's own oracle tests); flash attention rtol/atol 2e-5 (fp32
-softmax over <= 100 keys); gram_accum rtol 1e-5 with atol 1e-5·max|G| (fp32
-sums of <= 300 products, taken in another order).
+JAX package's own oracle tests), also for the split/combine plain version of
+chunked prefill (the same softmax, rescaled per split); flash attention
+rtol/atol 2e-5 (fp32 softmax over <= 100 keys); gram_accum rtol 1e-5 with
+atol 1e-5·max|G| (fp32 sums of <= 300 products, taken in another order).
+
+The launch plans of the two kernels (lowrank_linear's kernel choice and
+split-K chunks, chunked_prefill's key-range splits and workspace sizes) are
+Python, and are checked here too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +27,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.chunked_prefill import chunked_prefill_ref as j_cp_ref
 from repro.kernels.paged_attention import paged_attention_ref as j_pa_ref
+from repro_torch.kernels import chunked_prefill as tcp
+from repro_torch.kernels import lowrank_linear as tll
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
+from repro_torch.kernels.chunked_prefill import (chunked_prefill_ref,
+                                                 chunked_prefill_split_ref)
 from repro_torch.kernels.paged_attention import paged_attention_ref
 from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
                                      lowrank_linear_ref)
@@ -63,6 +71,47 @@ def test_cpu_dispatch_is_plain_version():
     tx, tb, ta = map(torch.from_numpy, (x, bt, at))
     assert torch.equal(tops.lowrank_linear(tx, tb, ta),
                        lowrank_linear_ref(tx, tb, ta))
+
+
+LLAMA_LOWRANK = [(2048, 614, 2048), (2048, 245, 512), (2048, 983, 8192),
+                 (8192, 983, 2048)]       # llama3_1b projections at ratio 0.6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 128, 256, 300, 4096])
+@pytest.mark.parametrize("d_in,r,d_out", LLAMA_LOWRANK + [(1000, 83, 130), (7, 3, 5)])
+def test_lowrank_plan_covers_every_k_once(dtype, m, d_in, r, d_out):
+    """Each product's split-K chunks are non-empty, cover [0, k) exactly once,
+    fit the kernel's K step and bounds, and size the workspace and counters;
+    M <= 16 takes the decode kernel."""
+    for p, (n, k) in zip(tll.plan(m, d_in, r, d_out, dtype), ((r, d_in), (d_out, r))):
+        assert (p.m, p.n, p.k) == (m, n, k)
+        assert p.kind == ("decode" if m <= tll.SMALL_M else "prefill")
+        bm, bn, bk, _, k_max, s_max, _ = tll.TILES[(p.kind, dtype)]
+        assert p.kchunk % bk == 0 and p.kchunk <= k_max
+        assert p.splits <= max(s_max, -(-k // k_max))
+        assert p.tile == bm
+        ranges = p.k_ranges()
+        assert len(ranges) == p.splits >= 1
+        assert all(lo < hi for lo, hi in ranges)
+        covered = np.zeros(k, np.int64)
+        for lo, hi in ranges:
+            covered[lo:hi] += 1
+        assert np.all(covered == 1)
+        assert (p.tiles_m, p.tiles_n) == (-(-m // bm), -(-n // bn))
+        assert p.workspace == (p.splits * m * n if p.splits > 1 else 0)
+        assert p.counters == (p.tiles_m * p.tiles_n if p.splits > 1 else 0)
+
+
+def test_lowrank_plan_fills_the_card_at_decode():
+    """At decode every llama3_1b product of at least 4 MB of fp32 weights
+    puts a block on each of the 132 SMs, and the fp32 decode kernel's x
+    slice stays within 512 k."""
+    for d_in, r, d_out in LLAMA_LOWRANK:
+        for p in tll.plan(8, d_in, r, d_out, torch.float32):
+            assert p.kchunk <= 512
+            if 4 * p.k * p.n >= 4 << 20:
+                assert p.tiles_m * p.tiles_n * p.splits >= 132, p
 
 
 @pytest.mark.parametrize("fn", ["lowrank_linear", "paged_attention",
@@ -215,6 +264,111 @@ def test_chunked_prefill_trash_page_poison():
                                  (q, kp2, vp2, tables, st, ln))).numpy()
     for i, n in enumerate(ln):
         np.testing.assert_allclose(a[i, :n], b[i, :n], rtol=1e-6)
+
+
+SPLIT_CASES = CHUNKED_CASES + [
+    # (hq, hkv, starts, lens, bs, cap, window)
+    (4, 2, [20, 0, 30], [9, 0, 6], 4, 0.0, 3),   # window empties whole splits
+    (4, 2, [0, 0], [0, 0], 4, 0.0, 0),           # every row zero-length
+    (2, 1, [13, 2], [11, 5], 3, 20.0, 0),        # bs 3 divides no key tile
+]
+# (rows, keys) tile sizes: the kernel's, then small ones that give many
+# row tiles and splits at these sizes
+SPLIT_TILES = [(tcp.ROWS, tcp.KEYS), (8, 4), (4, 8), (6, 5)]
+# splits per row tile: the plan's own (None), then 1, 2, 3 and as many as
+# there are key tiles, set through TARGET_BLOCKS
+SPLIT_COUNTS = (None, 1, 2, 3, 64)
+
+
+@pytest.mark.parametrize("hq,hkv,starts,lens,bs,cap,window", SPLIT_CASES)
+def test_chunked_prefill_split_matches_jax(monkeypatch, hq, hkv, starts, lens,
+                                           bs, cap, window):
+    """The split/combine plain version (the CUDA kernel's algorithm) against
+    the unsplit plain version and the JAX kernel (interpret mode) and plain
+    reference, for every split count and tile size; padded queries and
+    zero-length rows stay exactly zero."""
+    case = _chunked_case(0, b=len(starts), hq=hq, hkv=hkv, hd=16, bs=bs,
+                         num_blocks=32, starts=starts, lens=lens)
+    jargs = tuple(map(jnp.asarray, case))
+    want = np.asarray(jops.chunked_prefill(*jargs, cap=cap, window=window,
+                                           block_q=4, impl="pallas"))
+    want_ref = np.asarray(j_cp_ref(*jargs, cap=cap, window=window))
+    targs = tuple(map(torch.from_numpy, case))
+    unsplit = chunked_prefill_ref(*targs, cap=cap, window=window).numpy()
+    lq = case[0].shape[1]
+    target = tcp.TARGET_BLOCKS
+    for rows, keys in SPLIT_TILES:
+        monkeypatch.setattr(tcp, "ROWS", rows)
+        monkeypatch.setattr(tcp, "KEYS", keys)
+        base = len(starts) * hkv * -(-lq * (hq // hkv) // rows)
+        for splits in SPLIT_COUNTS:
+            monkeypatch.setattr(tcp, "TARGET_BLOCKS",
+                                target if splits is None else splits * base)
+            p = tcp.plan(len(starts), lq, hq, hkv, 16, bs, case[3].shape[1])
+            if splits is not None:
+                assert p.splits == -(-p.key_tiles // -(-p.key_tiles // splits))
+            got = chunked_prefill_split_ref(*targs, cap=cap,
+                                            window=window).numpy()
+            np.testing.assert_allclose(got, unsplit, rtol=2e-5, atol=2e-5)
+            for i, ln in enumerate(lens):
+                np.testing.assert_allclose(got[i, :ln], want[i, :ln], rtol=2e-5,
+                                           atol=2e-5)
+                np.testing.assert_allclose(got[i, :ln], want_ref[i, :ln],
+                                           rtol=2e-5, atol=2e-5)
+                np.testing.assert_array_equal(got[i, ln:], 0.0)
+            assert np.all(np.isfinite(got))
+
+
+@pytest.mark.parametrize("b,lq,hq,hkv,hd,bs,nb", [
+    (1, 256, 32, 8, 64, 16, 16),      # the serve path's largest prefill
+    (8, 64, 32, 8, 64, 16, 20), (3, 40, 4, 2, 16, 4, 30), (2, 7, 3, 1, 16, 12, 5),
+    (16, 256, 32, 8, 128, 16, 64), (1, 1, 8, 8, 32, 16, 1),
+])
+def test_chunked_plan_splits_cover_every_key_tile(b, lq, hq, hkv, hd, bs, nb):
+    """The key-range splits cover every key tile exactly once and none is
+    empty; the workspace holds (m, l, acc) of every (split, row, KV head,
+    query row) exactly when the keys are split."""
+    p = tcp.plan(b, lq, hq, hkv, hd, bs, nb)
+    assert p.row_tiles == -(-lq * (hq // hkv) // tcp.ROWS)
+    assert p.key_tiles == -(-nb * bs // tcp.KEYS)
+    ranges = p.key_tile_ranges()
+    assert len(ranges) == p.splits >= 1
+    assert all(lo < hi for lo, hi in ranges)
+    covered = np.zeros(p.key_tiles, np.int64)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+    want_ws = p.splits * b * hkv * p.row_tiles * tcp.ROWS * (hd + 2)
+    assert p.workspace == (want_ws if p.splits > 1 else 0)
+    if b * hkv * p.row_tiles < tcp.TARGET_BLOCKS:   # too few blocks: split
+        assert p.splits == min(p.key_tiles, -(-tcp.TARGET_BLOCKS //
+                                              (b * hkv * p.row_tiles))) or p.per > 1
+
+
+@pytest.mark.parametrize("window", [0, 1, 3, 9])
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_chunked_live_key_tiles_are_exactly_the_attended_ones(monkeypatch, window, g):
+    """[lo, hi] of each row tile is exactly the set of key tiles holding a
+    (valid query, key) pair the masks keep, and lo > hi for tiles with none."""
+    rows, keys, lq, n_keys = 8, 4, 13, 40
+    monkeypatch.setattr(tcp, "ROWS", rows)
+    monkeypatch.setattr(tcp, "KEYS", keys)
+    starts = torch.tensor([0, 5, 20, 3, 0])
+    lens = torch.tensor([13, 7, 2, 0, 20])        # the last exceeds lq
+    for rt in range(-(-lq * g // rows)):
+        lo, hi = tcp.live_key_tiles(rt, starts, lens, lq, g, window, n_keys)
+        for i in range(len(starts)):
+            attended = set()
+            for r in range(rt * rows, min(lq * g, (rt + 1) * rows)):
+                j = r // g
+                if j >= min(lq, int(lens[i])):
+                    continue
+                iq = int(starts[i]) + j
+                for ik in range(min(iq + 1, n_keys)):
+                    if window == 0 or iq - ik < window:
+                        attended.add(ik // keys)
+            want = set(range(int(lo[i]), int(hi[i]) + 1))
+            assert attended == want, (rt, i, attended, want)
 
 
 # ---------------------------------------------------------------------------
