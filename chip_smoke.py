@@ -38,8 +38,11 @@ Phases, each printing its own lines:
              zero-length / starts > 0 / ragged cases), with its time, the
              plain version's time, one PyTorch library call's time and the
              least time the card could take (the bound); lowrank_linear is
-             summed per layer at decode and at the largest prefill, and
-             chunked_prefill is also timed at B 4 with cached prefixes;
+             summed per layer at decode and at the largest prefill,
+             chunked_prefill is also timed at B 4 with cached prefixes,
+             paged_attention at 8 rows of 2048 keys and gram_accum per
+             record shape; paged_attention and gram_accum must give the
+             same bits on a second identical call;
 8. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), and the host cost
              of one wrapper call and of two eager model ops.
@@ -580,11 +583,17 @@ def _sdpa_inputs(torch, q, kp, vp, tables, g):
 
 
 def check_paged(torch, ops, pa_ref, dev, gen, shapes, flush):
+    """paged_attention in fp32 and bf16 at the serve path's decode batch and
+    its edge cases; the line's numbers are the path's fp32 call. The long-row
+    case (8 rows of 2048 keys, 67 MB of K/V) is the same code path at a
+    context where the plan cuts each row into many page splits."""
     import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
     hq, hkv, hd, bs = 32, 8, 64, 16
     res = {}
     lengths, pad_rows = shapes["paged_lengths"], shapes["paged_pad_rows"]
     cases = [("main", lengths, pad_rows, 0.0, 0),
+             ("long rows", [2048] * 8, (), 0.0, 0),
              ("ragged+zero", [0, 37, 1, 200, 16, 0, 90, 5], (), 0.0, 0),
              ("window", [0, 37, 1, 200, 16, 0, 90, 5], (), 0.0, 24),
              ("softcap", [0, 37, 1, 200, 16, 0, 90, 5], (), 50.0, 0),
@@ -601,29 +610,40 @@ def check_paged(torch, ops, pa_ref, dev, gen, shapes, flush):
                           pa_ref(*args, cap=cap, window=window), TOL_ATTN[dtype])
             if 0 in lens and not torch.all(got[ln == 0] == 0):
                 raise Failure("paged_attention: zero-length rows are not zero")
+            if not torch.equal(ops.paged_attention(*args, cap=cap, window=window), got):
+                raise Failure("paged_attention: two identical calls differ")
             if dtype == "float32":
                 res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
-            if dtype != "float32" or name != "main":
+            if dtype != "float32" or name not in ("main", "long rows"):
                 continue
-            res["ms"] = timed(torch, lambda: ops.paged_attention(*args), flush)
-            res["plain_ms"] = timed(torch, lambda: pa_ref(*args), flush)
+            ms = timed(torch, lambda: ops.paged_attention(*args), flush)
+            plain = timed(torch, lambda: pa_ref(*args), flush)
             k, v = _sdpa_inputs(torch, q, kp, vp, tables, hq // hkv)
             mask = (torch.arange(k.shape[2], device=dev)[None, :]
                     < ln[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
-            res["library_ms"] = timed(
+            lib = timed(
                 torch, lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask),
                 flush)
+            del k, v
             # bytes the function needs: q of rows with keys, the whole output,
             # the K/V of every attended token, the tables and lengths
             toks = sum(lens)
             q_rows = sum(1 for n in lens if n > 0)
             nbytes = 4 * ((q_rows + len(lens)) * hq * hd + 2 * toks * hkv * hd
                           + tables.numel() + len(lens))
-            res["bound_ms"], res["bound_by"] = bound(nbytes, 4 * toks * hq * hd, dtype)
-            log(f"    main B={len(lens)} lengths={lens}: kernel {res['ms']:.4f} ms, "
-                f"plain {res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms, "
-                f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+            b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, dtype)
+            p = pa.plan(len(lens), hq, hkv, hd, tables.shape[1])
+            log(f"    {name} B={len(lens)} lengths={lens if name == 'main' else lens[0]}"
+                f"{'' if name == 'main' else ' each'} ({p.splits} splits of {p.per} pages): "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
+            fig = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       splits=p.splits)
+            if name == "main":      # the line's numbers: the serve path's call
+                res.update(fig)
+            else:
+                res["long_rows"] = fig
     return res
 
 
@@ -738,9 +758,10 @@ def check_flash(torch, ops, ref, dev, gen, flush):
 def check_gram(torch, ops, ref, dev, gen, flush):
     """gram_accum in fp32 and bf16; the line's numbers are one llama3_1b
     layer's seven fp32 Grams of one calibration record (6 x (512, 2048) and
-    1 x (512, 8192))."""
+    1 x (512, 8192)); ``per_shape`` keeps each record shape's fp32 figures."""
+    from repro_torch.kernels import gram_accum as ga
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "bound_by": "operations"}
+           "bound_ms": 0.0, "bound_by": "operations", "per_shape": []}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for k, n, timed_case in GRAM_CASES:
@@ -750,6 +771,8 @@ def check_gram(torch, ops, ref, dev, gen, flush):
             err = compare(f"gram_accum {dtype} ({k}, {n})", got, want, TOL_GRAM)
             if not torch.equal(got, got.T):
                 raise Failure("gram_accum: G is not exactly symmetric")
+            if not torch.equal(ops.gram_accum(a), got):
+                raise Failure("gram_accum: two identical calls differ")
             if dtype == "float32":
                 res["max_abs_err"] = max(res["max_abs_err"], err)
             if not timed_case:
@@ -759,15 +782,20 @@ def check_gram(torch, ops, ref, dev, gen, flush):
             lib = timed(torch, lambda: a.T @ a, flush) if dtype == "float32" else None
             b_ms, b_by = bound(a.element_size() * k * n + 4 * n * n, k * n * (n + 1),
                                dtype)
-            log(f"    {dtype} ({k}, {n}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"a.T @ a {'n/a' if lib is None else f'{lib:.4f} ms'}, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+            tile = ga.plan(n)
+            log(f"    {dtype} ({k}, {n}) ({ga.tiles(n, tile)} tiles of {tile}): kernel "
+                f"{ms:.4f} ms, plain "
+                f"{plain:.4f} ms, a.T @ a {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+                f"bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
             if dtype == "float32":
                 w = GRAM_LAYER[(k, n)]
                 res["ms"] += w * ms
                 res["plain_ms"] += w * plain
                 res["library_ms"] += w * lib
                 res["bound_ms"] += w * b_ms
+                res["per_shape"].append(dict(k=k, n=n, tile=tile, ms=ms,
+                                             plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                                             bound_by=b_by))
     log(f"  gram_accum, one llama3_1b layer's 7 Grams of a 512-token record: "
         f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, a.T @ a "
         f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms")
@@ -969,6 +997,8 @@ def run(args) -> int:
                                  "gram": gram_counts},
                     "lowrank_prefill": results["lowrank_linear"]["prefill"],
                     "chunked_b4": results["chunked_prefill"]["B4"],
+                    "paged_long_rows": results["paged_attention"]["long_rows"],
+                    "gram_per_shape": results["gram_accum"]["per_shape"],
                     "build_s": build_s}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -48,17 +48,6 @@ constexpr int BR = 64;         // query rows (query, head) per block
 constexpr int BKEYS = 64;      // keys per key tile
 constexpr int PP = BKEYS + 1;  // padded probability row
 
-template <typename T> __device__ __forceinline__ float4 load4(const T* p);
-template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 template <typename T, int HD>
 struct Tile {
   static constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte chunk
@@ -85,21 +74,6 @@ __device__ __forceinline__ void live_key_tiles(int rt, int start, int len, int L
   }
   lo = kmin / BKEYS;
   hi = kmax / BKEYS;
-}
-
-// One 16-byte chunk into shared memory: zeros when !ok, cp.async when the
-// source is 16-byte aligned, element by element otherwise.
-template <typename T>
-__device__ __forceinline__ void copy16(T* dst, const T* src, bool ok, bool vec) {
-  constexpr int VEC = 16 / sizeof(T);
-  if (!ok) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  } else if (vec) {
-    cp_async16(dst, src);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
-  }
 }
 
 // grid: row tiles x B x Hkv x splits (row tile slowest, last tile first).
@@ -309,8 +283,8 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max m),
-// over exactly the splits that the row's tile reaches, in split order.
+// Each output element combines (common.cuh: combine_splits) exactly the
+// splits that its row's tile reaches, in split order.
 template <typename T, int HD>
 __global__ void combine_kernel(const float* __restrict__ work, const int* __restrict__ starts,
                                const int* __restrict__ lens, T* __restrict__ out, int B, int L,
@@ -334,17 +308,10 @@ __global__ void combine_kernel(const float* __restrict__ work, const int* __rest
     float o = 0.f;
     if (lo <= hi) {
       const int s0 = lo / per, s1 = hi / per;
-      float mx = NEG_INF;
-      for (int s = s0; s <= s1; ++s)
-        mx = fmaxf(mx, work[2 * ((((size_t)s * B + b) * Hkv + h) * rp + gr)]);
-      float lsum = 0.f, a = 0.f;
-      for (int s = s0; s <= s1; ++s) {
-        const size_t slot = (((size_t)s * B + b) * Hkv + h) * rp + gr;
-        const float w = expf(work[2 * slot] - mx);
-        lsum = fmaf(w, work[2 * slot + 1], lsum);
-        a = fmaf(w, pacc[slot * HD + d], a);
-      }
-      o = a / fmaxf(lsum, 1e-30f);
+      const size_t step = (size_t)B * Hkv * rp;          // slots between splits
+      const size_t slot = (((size_t)s0 * B + b) * Hkv + h) * rp + gr;
+      o = combine_splits(work + 2 * slot, 2 * step, pacc + slot * HD + d, step * HD,
+                         s1 - s0 + 1);
     }
     out[((size_t)b * L + gr / G) * ((size_t)Hq * HD) + (size_t)(h * G + gr % G) * HD + d] =
         from_f<T>(o);

@@ -1,8 +1,9 @@
 // Shared by the port's kernel sources: fp32 <-> storage-type conversions
 // (every kernel loads fp32 or bf16 and accumulates in fp32), the masked
-// score value of the attention kernels (the Pallas kernels' NEG_INF), and
-// the asynchronous 16-byte global -> shared copies (cp.async) of the
-// pipelined kernels, and the per-device dynamic shared-memory limit.
+// score value of the attention kernels (the Pallas kernels' NEG_INF), the
+// asynchronous 16-byte global -> shared copies (cp.async) of the pipelined
+// kernels, the combine of flash-decoding split partials, and the per-device
+// dynamic shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +38,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four consecutive values as fp32 (16 bytes of fp32, 8 of bf16; the address
+// aligned to that size).
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// One 16-byte chunk into shared memory: zeros when !ok, cp.async when the
+// source is 16-byte aligned (vec), element by element otherwise.
+template <typename T>
+__device__ __forceinline__ void copy16(T* dst, const T* src, bool ok, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (!ok) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  } else if (vec) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
+  }
+}
+
+// Flash-decoding combine of n split partials (m_s, l_s, acc_s), in split
+// order, so the result is the same bits on every run:
+//   sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),  w_s = exp(m_s - max_s m_s).
+// ml points at split 0's (m, l) pair and acc at split 0's accumulator
+// element; ml_step and acc_step are the strides between splits, in floats.
+__device__ __forceinline__ float combine_splits(const float* ml, size_t ml_step,
+                                                const float* acc, size_t acc_step, int n) {
+  float mx = NEG_INF;
+  for (int s = 0; s < n; ++s) mx = fmaxf(mx, ml[s * ml_step]);
+  float lsum = 0.f, a = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float w = expf(ml[s * ml_step] - mx);
+    lsum = fmaf(w, ml[s * ml_step + 1], lsum);
+    a = fmaf(w, acc[s * acc_step], a);
+  }
+  return a / fmaxf(lsum, 1e-30f);
 }
 
 inline bool aligned16(const void* p) {

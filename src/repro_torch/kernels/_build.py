@@ -33,12 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "repro_lowrank_linear": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P]),
-    "repro_paged_attention": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _F, _I, _I, _P]),
+    "repro_paged_attention": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _F, _I, _I, _I, _I, _P]),
     "repro_chunked_prefill": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _I, _I, _I, _I, _P]),
     "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
-    "repro_gram_accum": (_I, [_P, _P, _I, _I, _I, _P]),
+    "repro_gram_accum": (_I, [_P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -94,16 +94,19 @@ def plan(m: int, d_in: int, r: int, d_out: int,
     return gemm_plan(m, r, d_in, dtype), gemm_plan(m, d_out, r, dtype)
 
 
-# scratch kept per (device, stream): one fp32 buffer holding the split-K
+# Scratch kept per (device, stream), shared by the kernels that need it
+# (this one and paged_attention's splits): one fp32 buffer (here the split-K
 # partials and, after them at a 16-byte boundary, the intermediate t in x's
-# dtype; and the int32 arrival counters. Both are needed only between the
-# two launches of one call, so calls on one stream reuse them in stream
-# order. The kernel's last block of a tile resets its counter to 0, so the
-# counters are zeroed once, when the buffer is made.
+# dtype) and int32 arrival counters. A kernel uses them only until its
+# call's launches end, so calls on one stream reuse them in stream order.
+# The last block of a split tile resets its counter to 0, so the counters
+# are zeroed once, when the buffer is made.
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _call_scratch(device, stream: int, work: int, counters: int):
+def call_scratch(device, stream: int, work: int, counters: int):
+    """(fp32 buffer of at least ``work`` elements, zeroed int32 counters of
+    at least ``counters``) for launches on ``stream`` of ``device``."""
     key = (device, stream)
     buf = _scratch.get(key)
     if buf is None or buf[0].numel() < work or buf[1].numel() < counters:
@@ -154,8 +157,8 @@ def _launch(x, b_t, a_t):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     work_n = _cdiv(max(p1.workspace, p2.workspace), 4) * 4
     t_n = _cdiv(m * r * x.element_size(), 4)
-    work, counters = _call_scratch(x.device, stream, work_n + t_n,
-                                   max(p1.counters, p2.counters))
+    work, counters = call_scratch(x.device, stream, work_n + t_n,
+                                  max(p1.counters, p2.counters))
     t = work[work_n:work_n + t_n].view(x.dtype)
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

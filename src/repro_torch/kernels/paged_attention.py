@@ -5,17 +5,57 @@ One decode step attends a single query token per request against that
 request's KV history, scattered over fixed-size pages of the shared pool
 and addressed through a per-request block table. A CPU tensor runs
 ``paged_attention_ref``; a CUDA tensor launches the CUDA kernel or raises.
+
+The kernel splits each row's pages across blocks (flash-decoding) and
+combines the blocks' (m, l, acc) partials. The split plan lives here, in
+Python (``plan``), and ``paged_attention_split_ref`` is the plain version of
+the split and the combine, so the CPU tests reach both.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.lowrank_linear import DTYPES
+from repro_torch.kernels.lowrank_linear import DTYPES, call_scratch
 
 NEG_INF = -1e30
 
 launches = 0          # calls that launched the CUDA kernel
+
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's compiled head sizes
+MAX_G = 8             # query heads per KV head the kernel takes
+TARGET_BLOCKS = 396   # resident at once: three blocks per SM of the H100's
+                      # 132 (~68 KB of shared memory each at hd 64 fp32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """The table's ``nb`` pages cut into ``splits`` ranges of ``per`` pages
+    (the last may be shorter, none is empty); block (row, KV head, split)."""
+    nb: int
+    splits: int
+    per: int
+    workspace: int        # fp32 elements of (m, l, acc) partials; 0 unsplit
+
+    def page_ranges(self):
+        return [(s * self.per, min(self.nb, (s + 1) * self.per))
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(b: int, hq: int, hkv: int, hd: int, nb: int) -> PagedPlan:
+    """Split the pages into as many ranges as keep the (row, KV head, split)
+    blocks within ``TARGET_BLOCKS``, so that they run in one round: at the
+    serve path's decode, B 8 x Hkv 8 = 64 unsplit blocks would leave half of
+    the 132 SMs idle."""
+    splits = max(1, min(nb, TARGET_BLOCKS // (b * hkv)))
+    per = -(-nb // splits)
+    splits = -(-nb // per)
+    ws = splits * b * hq * (hd + 2) if splits > 1 else 0
+    return PagedPlan(nb, splits, per, ws)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -78,16 +118,27 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, *, scale, cap, window):
     b, hq, hd = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
     nb = block_tables.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head size {hd} not in {HEAD_DIMS}")
+    if hq // hkv > MAX_G:
+        raise ValueError(f"paged_attention: {hq // hkv} query heads per KV head, "
+                         f"the kernel takes at most {MAX_G}")
+    if nb == 0:
+        raise ValueError("paged_attention: empty block tables")
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    p = plan(b, hq, hkv, hd, nb)
     out = torch.empty_like(q)
-    lib = _build.lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    work = (call_scratch(q.device, stream, p.workspace, 0)[0]
+            if p.workspace else None)
     with torch.cuda.device(q.device):
-        err = lib.repro_paged_attention(
+        err = _build.lib().repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, hq, hkv, hd, bs, nb, float(scale), float(cap), int(window),
-            DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            0 if work is None else work.data_ptr(), b, hq, hkv, hd, bs, nb,
+            float(scale), float(cap), int(window), p.splits, p.per,
+            DTYPES[q.dtype], stream)
     _build.check(err, "paged_attention")
     launches += 1
     return out
@@ -120,4 +171,56 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))   # all-masked rows -> 0
     l = torch.sum(p, dim=-1, keepdim=True)
     o = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30), v.float())
+    return o.reshape(b, hq, hd).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                              scale=None, cap: float = 0.0, window: int = 0):
+    """Plain version of the kernel's split and combine: the plan's page
+    ranges each give (m, l, acc) over their keys with the masks and the
+    NEG_INF/2 shift of ``paged_attention_ref``; the combine takes, per row,
+    exactly the splits holding an attended key, in split order, and a row
+    with none gives zeros."""
+    b, hq, hd = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    g = hq // hkv
+    nb = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    p = plan(b, hq, hkv, hd, nb)
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(b, nb * bs, hkv, hd).float()
+    v = v_pages[tables].reshape(b, nb * bs, hkv, hd).float()
+    qg = q.reshape(b, hkv, g, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * scale
+    if cap > 0:
+        s = cap * torch.tanh(s / cap)
+    ik = torch.arange(nb * bs, device=q.device)
+    lens = lengths.long()
+    ok = ik[None] < lens[:, None]
+    if window > 0:
+        ok &= (lens[:, None] - 1 - ik[None]) < window
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    # attended keys [klo, khi) of each row
+    khi = torch.clamp(lens, min=0, max=nb * bs)
+    klo = torch.clamp(lens - window, min=0) if window > 0 else torch.zeros_like(lens)
+    parts = []
+    for lo, hi in p.page_ranges():
+        a, e = lo * bs, hi * bs
+        ss = s[..., a:e]
+        m = torch.amax(ss, dim=-1)                              # (B, Hkv, G)
+        pr = torch.exp(ss - torch.clamp(m, min=NEG_INF / 2)[..., None])
+        live = torch.clamp(klo, min=a) < torch.clamp(khi, max=e)   # (B,)
+        parts.append((m, pr.sum(-1), torch.einsum("bkgs,bskd->bkgd", pr, v[:, a:e]),
+                      live[:, None, None]))
+    mx = torch.full_like(parts[0][0], NEG_INF)
+    for m, _, _, live in parts:
+        mx = torch.where(live, torch.maximum(mx, m), mx)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros_like(qg)
+    for m, ls, ac, live in parts:
+        w = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
+        l = l + w * ls
+        acc = acc + w[..., None] * ac
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, hq, hd).to(q.dtype)

@@ -5,7 +5,7 @@ first use) and skip without one. JAX-free, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 attention 2e-5 (softmax over <= 260 keys); fp32 low-rank
+Tolerances: fp32 attention 2e-5 (softmax over <= 1200 keys); fp32 low-rank
 linear 1e-4 relative to max|ref| (sums of up to 2048 products, another
 order than cuBLAS); bf16 2e-2 relative (one bf16 rounding of the
 intermediate or the output may differ); gram_accum 1e-5 relative to max|G|
@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import gram_accum as ga
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
 from repro_torch.kernels.paged_attention import paged_attention_ref
 from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
@@ -98,6 +100,79 @@ def test_paged_attention_cuda(cuda, hq, hkv, lengths, bs, cap, window):
     want = paged_attention_ref(*args, cap=cap, window=window)
     _close(got, want, 2e-5)
     assert torch.all(got[torch.tensor(lengths, device=cuda) == 0] == 0)
+
+
+def _paged_args(cuda, dtype, hq, hkv, lengths, bs, hd=64, seed=0, nb=1):
+    tables, nxt = _tables(lengths, bs)
+    tables = np.pad(tables, ((0, 0), (0, max(0, nb - tables.shape[1]))))  # trash page 0
+    q = _randn(seed, (len(lengths), hq, hd), cuda, dtype)
+    kp = _randn(seed + 1, (nxt + 2, bs, hkv, hd), cuda, dtype)
+    vp = _randn(seed + 2, (nxt + 2, bs, hkv, hd), cuda, dtype)
+    return (q, kp, vp, torch.from_numpy(tables).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda))
+
+
+@pytest.fixture
+def fresh_paged_plan():
+    pa.plan.cache_clear()
+    yield
+    pa.plan.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,hd,lengths,bs,cap,window,splits", [
+    (32, 8, 64, [1200, 37, 0, 300], 16, 0.0, 0, None),   # a row of >= 1000 keys
+    (32, 8, 64, [1200, 37, 0, 300], 16, 0.0, 0, 75),     # one page per split
+    (8, 2, 64, [1000, 517, 3], 16, 30.0, 0, 7),          # softcap
+    (32, 8, 64, [200, 90, 1, 0], 16, 0.0, 40, 13),       # window across split boundaries
+    (32, 8, 64, [333, 17], 16, 0.0, 100, 3),             # window starting mid-page
+    (4, 1, 64, [0, 0, 0], 16, 0.0, 0, 4),                # all padding rows, 8 trash pages
+    (24, 8, 128, [700, 5], 12, 0.0, 0, None),            # G 3, hd 128, bs 12
+    (8, 1, 32, [64, 1, 130], 4, 0.0, 0, 9),              # G 8, hd 32, bs 4
+    (4, 4, 16, [50, 0], 4, 0.0, 24, 2),                  # G 1, hd 16
+])
+def test_paged_attention_cuda_splits(cuda, monkeypatch, fresh_paged_plan, dtype, tol, hq,
+                                     hkv, hd, lengths, bs, cap, window, splits):
+    """The page-split kernel and its combine against the plain version, with
+    the plan's own splits or a forced count; zero-length rows are exactly
+    zero and a second call gives the same bits."""
+    if splits is not None:
+        monkeypatch.setattr(pa, "TARGET_BLOCKS", splits * len(lengths) * hkv)
+    args = _paged_args(cuda, dtype, hq, hkv, lengths, bs, hd, nb=8)
+    p = pa.plan(len(lengths), hq, hkv, hd, args[3].shape[1])
+    if splits is not None:
+        assert p.splits > 1
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_attention(*args, cap=cap, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    _close(got, paged_attention_ref(*args, cap=cap, window=window), tol)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.all(got[i] == 0)
+    assert torch.equal(ops.paged_attention(*args, cap=cap, window=window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [None, 1, 5])
+def test_paged_attention_cuda_trash_page_poison(cuda, monkeypatch, fresh_paged_plan, dtype,
+                                                splits):
+    """Page 0 (the trash page of padded table entries) never reaches a
+    result: filling it with 1e4 changes no output, bit for bit."""
+    if splits is not None:
+        monkeypatch.setattr(pa, "TARGET_BLOCKS", splits * 4 * 2)
+    args = _paged_args(cuda, dtype, 8, 2, [70, 0, 33, 1], 16, seed=5)
+    q, kp, vp, tables, ln = args
+    clean = ops.paged_attention(*args)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[0], vp2[0] = 1e4, 1e4
+    poisoned = ops.paged_attention(q, kp2, vp2, tables, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, clean)
+    assert torch.all(poisoned[1] == 0)
+    _close(clean, paged_attention_ref(*args), 2e-5 if dtype == torch.float32 else 2e-2)
 
 
 def _chunked_args(cuda, dtype, hq, hkv, hd, starts, lens, bs, seed=0):
@@ -193,3 +268,27 @@ def test_gram_accum_cuda(cuda, dtype, k, n):
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
     assert torch.equal(got, got.T)
+
+
+# both tile edges at a ragged N (1000) and a ragged K (300) or a whole one;
+# the plan's own choice at the calibration shapes
+GRAM_TILES = ([(k, 1000, t) for k in (300, 512) for t in (64, 128)]
+              + [(300, 130, 128), (512, 2048, None), (512, 8192, None)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,tile", GRAM_TILES)
+def test_gram_accum_cuda_tiles(cuda, monkeypatch, dtype, k, n, tile):
+    """Each tile edge: G within 1e-5 of the plain version, exactly
+    symmetric, and the same bits on a second call."""
+    if tile is not None:
+        monkeypatch.setattr(ga, "plan", lambda n: tile)
+    a = _randn(4, (k, n), cuda, dtype)
+    got = ops.gram_accum(a)
+    torch.cuda.synchronize()
+    want = gram_accum_ref([a])
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    assert torch.equal(got, got.T)
+    assert torch.equal(ops.gram_accum(a), got)

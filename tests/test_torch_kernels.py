@@ -14,9 +14,11 @@ chunked prefill (the same softmax, rescaled per split); flash attention
 rtol/atol 2e-5 (fp32 softmax over <= 100 keys); gram_accum rtol 1e-5 with
 atol 1e-5·max|G| (fp32 sums of <= 300 products, taken in another order).
 
-The launch plans of the two kernels (lowrank_linear's kernel choice and
-split-K chunks, chunked_prefill's key-range splits and workspace sizes) are
-Python, and are checked here too.
+The launch plans of the kernels (lowrank_linear's kernel choice and
+split-K chunks, chunked_prefill's key-range splits, paged_attention's page
+splits and their workspace sizes, gram_accum's tile edge) are Python, and
+are checked here too, with the plain versions of the split kernels
+(``*_split_ref``) held against the JAX kernels for every split count.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +30,14 @@ from repro.kernels import ref as jref
 from repro.kernels.chunked_prefill import chunked_prefill_ref as j_cp_ref
 from repro.kernels.paged_attention import paged_attention_ref as j_pa_ref
 from repro_torch.kernels import chunked_prefill as tcp
+from repro_torch.kernels import gram_accum as tga
 from repro_torch.kernels import lowrank_linear as tll
+from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.chunked_prefill import (chunked_prefill_ref,
                                                  chunked_prefill_split_ref)
-from repro_torch.kernels.paged_attention import paged_attention_ref
+from repro_torch.kernels.paged_attention import (paged_attention_ref,
+                                                 paged_attention_split_ref)
 from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
                                      lowrank_linear_ref)
 
@@ -198,6 +203,104 @@ def test_paged_attention_trash_page_poison():
     want = np.asarray(jops.paged_attention(
         *map(jnp.asarray, (q, kp2, vp2, tables, lens)), impl="pallas"))
     np.testing.assert_allclose(b.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture
+def fresh_paged_plan():
+    """Plans are cached: clear the cache around a test that moves the
+    module's split target."""
+    tpa.plan.cache_clear()
+    yield
+    tpa.plan.cache_clear()
+
+
+PAGED_SPLIT_CASES = PAGED_CASES + [
+    # (hq, hkv, lengths, bs, cap, window)
+    (8, 1, [30, 7, 0, 16], 4, 0.0, 0),       # GQA 8, a row ending mid-page
+    (8, 8, [13, 29], 4, 0.0, 0),             # GQA 1
+    (8, 2, [29, 17, 1, 0], 4, 20.0, 9),      # GQA 4, window + softcap
+    (4, 2, [31, 3], 4, 0.0, 13),             # window across split boundaries
+    (4, 2, [0, 0], 4, 0.0, 0),               # every row zero-length
+    (2, 1, [22, 11], 3, 0.0, 5),             # bs 3
+]
+# splits: the plan's own (None), then 1, 2, 3 and one page per split, set
+# through TARGET_BLOCKS
+PAGED_SPLIT_COUNTS = (None, 1, 2, 3, 64)
+
+
+@pytest.mark.parametrize("hq,hkv,lengths,bs,cap,window", PAGED_SPLIT_CASES)
+def test_paged_attention_split_matches_jax(monkeypatch, fresh_paged_plan, hq, hkv,
+                                           lengths, bs, cap, window):
+    """The split/combine plain version (the CUDA kernel's algorithm) against
+    the unsplit plain version and the JAX kernel (interpret mode) and plain
+    reference, for every split count; zero-length rows stay exactly zero."""
+    case = _paged_case(0, b=len(lengths), hq=hq, hkv=hkv, hd=16, bs=bs,
+                       num_blocks=32, lengths=lengths)
+    got0, want, want_ref = _paged_both(case, cap, window)
+    targs = tuple(map(torch.from_numpy, case))
+    nb = case[3].shape[1]
+    for splits in PAGED_SPLIT_COUNTS:
+        target = tpa.TARGET_BLOCKS if splits is None else splits * len(lengths) * hkv
+        monkeypatch.setattr(tpa, "TARGET_BLOCKS", target)
+        tpa.plan.cache_clear()
+        p = tpa.plan(len(lengths), hq, hkv, 16, nb)
+        if splits is not None:
+            assert p.splits == -(-nb // -(-nb // min(splits, nb)))
+        got = paged_attention_split_ref(*targs, cap=cap, window=window).numpy()
+        np.testing.assert_allclose(got, got0, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got, want_ref, rtol=2e-5, atol=2e-5)
+        for i, ln in enumerate(lengths):
+            if ln == 0:
+                np.testing.assert_array_equal(got[i], 0.0)
+        assert np.all(np.isfinite(got))
+
+
+@pytest.mark.parametrize("splits", PAGED_SPLIT_COUNTS)
+def test_paged_attention_split_trash_page_poison(monkeypatch, fresh_paged_plan, splits):
+    """Filling the trash page 0 with 1e4 changes no row of the split plain
+    version, and it still matches the JAX kernel on the clean pages."""
+    case = _paged_case(4, b=3, hq=4, hkv=2, hd=16, bs=4, num_blocks=16,
+                       lengths=[13, 0, 6])
+    q, kp, vp, tables, lens = case
+    if splits is not None:
+        monkeypatch.setattr(tpa, "TARGET_BLOCKS", splits * 3 * 2)
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[0], vp2[0] = 1e4, 1e4
+    clean = paged_attention_split_ref(*map(torch.from_numpy, case)).numpy()
+    poisoned = paged_attention_split_ref(
+        *map(torch.from_numpy, (q, kp2, vp2, tables, lens))).numpy()
+    np.testing.assert_allclose(poisoned, clean, rtol=1e-6)
+    want = np.asarray(jops.paged_attention(*map(jnp.asarray, case), impl="pallas"))
+    np.testing.assert_allclose(poisoned, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(poisoned[1], 0.0)
+
+
+@pytest.mark.parametrize("b,hq,hkv,hd,nb", [
+    (8, 32, 8, 64, 12),       # the serve path's decode (tables of 12 pages)
+    (8, 32, 8, 64, 16),       # the same, tables padded to a power of two
+    (8, 32, 8, 64, 128),      # rows of 2048 keys
+    (1, 32, 8, 64, 1), (3, 4, 2, 16, 7), (64, 32, 8, 64, 256), (2, 8, 1, 128, 1000),
+])
+def test_paged_plan_covers_every_page_once(b, hq, hkv, hd, nb):
+    """The page splits cover every page of the table exactly once and none is
+    empty; the workspace holds (m, l, acc) of every (split, row, query head)
+    exactly when the pages are split."""
+    p = tpa.plan(b, hq, hkv, hd, nb)
+    ranges = p.page_ranges()
+    assert len(ranges) == p.splits >= 1
+    assert all(lo < hi for lo, hi in ranges)
+    covered = np.zeros(nb, np.int64)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+    assert p.workspace == (p.splits * b * hq * (hd + 2) if p.splits > 1 else 0)
+    blocks = b * hkv * p.splits
+    if b * hkv >= tpa.TARGET_BLOCKS or nb == 1:
+        assert p.splits == 1 and p.workspace == 0
+    elif nb >= 8:
+        # 2-4 blocks per SM of 132 where the table has pages to split
+        assert 2 * 132 <= blocks <= 4 * 132, blocks
 
 
 # ---------------------------------------------------------------------------
@@ -431,17 +534,20 @@ def test_flash_attention_refuses_autograd():
 # gram_accum
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n,bi,bk", [
     (256, 64, 32, 64),        # tiled: 2 x 2 x 4 grid
     (128, 96, 32, 128),
     (100, 96, 32, 64),        # ragged k: JAX falls back to a.T @ a
     (300, 40, 32, 128),       # ragged k and n
 ])
-def test_gram_accum_matches_jax(k, n, bi, bk):
-    a = _randn(6, (k, n))
-    want = np.asarray(jops.gram_accum(jnp.asarray(a), block_i=bi, block_j=bi,
-                                      block_k=bk))
-    got = tops.gram_accum(torch.from_numpy(a))
+def test_gram_accum_matches_jax(k, n, bi, bk, dtype):
+    """bf16 inputs are held against the JAX kernel on the same values in
+    fp32 (bf16 converts to fp32 exactly, and both accumulate in fp32)."""
+    a = torch.from_numpy(_randn(6, (k, n))).to(dtype)
+    want = np.asarray(jops.gram_accum(jnp.asarray(a.float().numpy()), block_i=bi,
+                                      block_j=bi, block_k=bk))
+    got = tops.gram_accum(a)
     assert got.dtype == torch.float32 and tuple(got.shape) == (n, n)
     tol = 1e-5 * np.abs(want).max()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=tol)
@@ -462,3 +568,19 @@ def test_gram_accum_chunked_sum_matches_jax():
     np.testing.assert_allclose(got.numpy(), whole, rtol=1e-5, atol=tol)
     want_ref = np.asarray(jref.gram_accum_ref([jnp.asarray(a)]))
     np.testing.assert_allclose(whole, want_ref, rtol=1e-5, atol=tol)
+
+
+@pytest.mark.parametrize("n,tile", [
+    (2048, 64), (8192, 128),      # the calibration records
+    (1000, 64), (64, 64), (130, 64), (1, 64),
+    (2047, 64), (2049, 128), (4096, 128), (10000, 128),
+])
+def test_gram_plan_tile(n, tile):
+    """The 64-tile where its tiles fit the card's resident slots in one
+    round, else the 128-tile: at n = 2048 the 528 tiles of 64 fill every
+    slot exactly; at n = 8192 the 2080 tiles of 128 are taken."""
+    assert tga.plan(n) == tile
+    if n == 2048:
+        assert tga.tiles(n, 64) == tga.SMS * tga.SMALL_PER_SM
+    if n == 8192:
+        assert tga.tiles(n, 128) == 2080
