@@ -40,9 +40,10 @@ Phases, each printing its own lines:
              least time the card could take (the bound); lowrank_linear is
              summed per layer at decode and at the largest prefill,
              chunked_prefill is also timed at B 4 with cached prefixes,
-             paged_attention at 8 rows of 2048 keys and gram_accum per
-             record shape; paged_attention and gram_accum must give the
-             same bits on a second identical call;
+             paged_attention at 8 rows of 2048 keys, gram_accum per record
+             shape and flash_attention per case and dtype; paged_attention,
+             gram_accum and flash_attention must give the same bits on a
+             second identical call;
 8. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), and the host cost
              of one wrapper call and of two eager model ops.
@@ -108,7 +109,9 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, True),
                ("ragged T100", 2, 100, 32, 8, 64, 0.0, False),
                ("softcap 20", 2, 256, 32, 8, 64, 20.0, False),
                ("G1", 2, 128, 8, 8, 64, 0.0, False),
-               ("G4 hd128 ragged", 1, 77, 16, 4, 128, 0.0, False)]
+               ("G4 hd128 ragged", 1, 77, 16, 4, 128, 0.0, False),
+               ("T1", 4, 1, 32, 8, 64, 0.0, False),
+               ("G8 T1000", 1, 1000, 64, 8, 64, 0.0, False)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
@@ -721,10 +724,13 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
 
 
 def check_flash(torch, ops, ref, dev, gen, flush):
-    """flash_attention in fp32 and bf16; the line's numbers are the compress
-    path's fp32 call (B8 T64, Hq 32 / Hkv 8, hd 64)."""
+    """flash_attention in fp32 and bf16; each case must repeat its bits on a
+    second identical call. The line's numbers are the compress path's fp32
+    call (B8 T64, Hq 32 / Hkv 8, hd 64); ``per_shape`` keeps every timed case
+    in both dtypes."""
     import torch.nn.functional as F
-    res = {"max_abs_err": 0.0}
+    from repro_torch.kernels import flash_attention as fa
+    res = {"max_abs_err": 0.0, "per_shape": []}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for name, b, t, hq, hkv, hd, cap, timed_case in FLASH_CASES:
@@ -735,6 +741,8 @@ def check_flash(torch, ops, ref, dev, gen, flush):
             err = compare(f"flash_attention {dtype} {name} (B{b} T{t} Hq{hq} Hkv{hkv} "
                           f"hd{hd} cap{cap:g})", got, ref(q, k, v, cap=cap),
                           TOL_ATTN[dtype])
+            if not torch.equal(ops.flash_attention(q, k, v, cap=cap), got):
+                raise Failure(f"flash_attention {dtype} {name}: two identical calls differ")
             if dtype == "float32":
                 res["max_abs_err"] = max(res["max_abs_err"], err)
             if not timed_case:
@@ -744,11 +752,18 @@ def check_flash(torch, ops, ref, dev, gen, flush):
             q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = timed(torch, lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True, enable_gqa=True), flush)
+            del q4, k4, v4
             # q, k, v read and o written once; 4*hd FLOPs per causal pair
             nbytes = q.element_size() * 2 * b * t * hd * (hq + hkv)
             b_ms, b_by = bound(nbytes, 2 * b * hq * hd * t * (t + 1), dtype)
-            log(f"    {dtype} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            p = fa.plan(b, t, hq, hkv, hd, dt)
+            log(f"    {dtype} {name} ({p.blocks} blocks of {p.rows} rows): kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
+            res["per_shape"].append(dict(
+                dtype=dtype, case=name, B=b, T=t, rows=p.rows, blocks=p.blocks, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                reached_pct=100 * b_ms / ms))
             if dtype == "float32" and name == "path B8 T64":
                 res.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                            bound_by=b_by)
@@ -999,6 +1014,7 @@ def run(args) -> int:
                     "chunked_b4": results["chunked_prefill"]["B4"],
                     "paged_long_rows": results["paged_attention"]["long_rows"],
                     "gram_per_shape": results["gram_accum"]["per_shape"],
+                    "flash_per_shape": results["flash_attention"]["per_shape"],
                     "build_s": build_s}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)

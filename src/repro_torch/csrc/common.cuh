@@ -2,8 +2,9 @@
 // (every kernel loads fp32 or bf16 and accumulates in fp32), the masked
 // score value of the attention kernels (the Pallas kernels' NEG_INF), the
 // asynchronous 16-byte global -> shared copies (cp.async) of the pipelined
-// kernels, the combine of flash-decoding split partials, and the per-device
-// dynamic shared-memory limit.
+// kernels, the bf16 tensor-core fragment helpers (ldmatrix, mma.sync), the
+// combine of flash-decoding split partials, and the per-device dynamic
+// shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,6 +85,31 @@ __device__ __forceinline__ float combine_splits(const float* ml, size_t ml_step,
     a = fmaf(w, acc[s * acc_step], a);
   }
   return a / fmaxf(lsum, 1e-30f);
+}
+
+// bf16 tensor-core fragments (mma.sync.m16n8k16, fp32 accumulation): four
+// 8 x 8 b16 matrices from shared memory, each lane giving one row address
+// (lanes 8i..8i+7 the rows of matrix i); .trans hands each lane a column
+// pair instead of a row pair.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 inline bool aligned16(const void* p) {

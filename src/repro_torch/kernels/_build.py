@@ -37,7 +37,8 @@ SIGNATURES = {
                                    _F, _F, _I, _I, _I, _I, _P]),
     "repro_chunked_prefill": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _I, _I, _I, _I, _P]),
-    "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+    "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                   _P]),
     "repro_gram_accum": (_I, [_P, _P, _I, _I, _I, _I, _P]),
 }
 

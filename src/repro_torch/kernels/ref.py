@@ -28,9 +28,11 @@ def flash_attention_ref(q, k, v, *, scale=None, cap: float = 0.0,
                         causal: bool = True):
     """q: (B, T, Hq, hd), k/v: (B, T, Hkv, hd) with Hq % Hkv == 0.
 
-    Scores, softmax and the P·V product run in fp32, as the CUDA kernel
-    does; the result is cast to q.dtype. (The JAX oracle rounds s and p to
-    bf16 on bf16 inputs; that rounding is not repeated.)"""
+    Scores, softmax and the P·V product run in fp32; the result is cast to
+    q.dtype. For bf16 inputs the CUDA kernel, like the Pallas kernel, rounds
+    P to bf16 before P·V (and the JAX oracle rounds s and p to bf16); that
+    rounding is not repeated here (``flash_attention.flash_attention_tiled_ref``
+    repeats the kernel's)."""
     b, t, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv

@@ -5,7 +5,7 @@ first use) and skip without one. JAX-free, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 attention 2e-5 (softmax over <= 1200 keys); fp32 low-rank
+Tolerances: fp32 attention 2e-5 (softmax over <= 2048 keys); fp32 low-rank
 linear 1e-4 relative to max|ref| (sums of up to 2048 products, another
 order than cuBLAS); bf16 2e-2 relative (one bf16 rounding of the
 intermediate or the output may differ); gram_accum 1e-5 relative to max|G|
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gram_accum as ga
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -234,8 +235,16 @@ def test_chunked_prefill_cuda_trash_page_poison(cuda, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,t,hq,hkv,hd,cap", [
     (2, 64, 4, 2, 64, 0.0), (1, 100, 8, 2, 64, 0.0), (2, 37, 4, 1, 16, 20.0),
-    (1, 200, 4, 4, 128, 30.0), (1, 130, 4, 2, 32, 0.0)])
+    (1, 200, 4, 4, 128, 30.0), (1, 130, 4, 2, 32, 0.0),
+    (2, 64, 16, 2, 64, 0.0),        # G 8
+    (3, 1, 8, 2, 64, 0.0),          # T 1
+    (1, 1000, 8, 2, 64, 0.0),       # ragged T over 16 key tiles
+    (1, 2048, 32, 8, 64, 0.0),      # 32 key tiles, 2048 row tiles
+    (1, 300, 8, 2, 128, 0.0),       # hd 128, ragged
+    (2, 256, 32, 8, 64, 50.0)])     # softcap at the serve calibration's shape
 def test_flash_attention_cuda(cuda, dtype, tol, b, t, hq, hkv, hd, cap):
+    """Within tol of the plain version, one launch per call, and the same
+    bits on a second identical call."""
     q = _randn(0, (b, t, hq, hd), cuda, dtype)
     k = _randn(1, (b, t, hkv, hd), cuda, dtype)
     v = _randn(2, (b, t, hkv, hd), cuda, dtype)
@@ -245,6 +254,64 @@ def test_flash_attention_cuda(cuda, dtype, tol, b, t, hq, hkv, hd, cap):
     assert ops.launch_counts()["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, flash_attention_ref(q, k, v, cap=cap), tol)
+    assert torch.equal(ops.flash_attention(q, k, v, cap=cap), got)
+    assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fill", [0, 10 ** 9])
+@pytest.mark.parametrize("b,t,hq,hkv,hd,cap", [
+    (2, 37, 4, 1, 16, 20.0), (1, 130, 4, 2, 32, 0.0), (2, 300, 16, 2, 64, 0.0),
+    (1, 200, 4, 4, 128, 30.0)])
+def test_flash_attention_cuda_row_tiles(cuda, monkeypatch, dtype, tol, fill, b, t, hq, hkv,
+                                        hd, cap):
+    """Both row tiles of the plan on the same inputs: FILL_BLOCKS 0 puts
+    every hd <= 64 shape on 128-row tiles, 10**9 every shape on 64-row
+    tiles. Within tol of the plain version, the same bits on a second call."""
+    monkeypatch.setattr(fa, "FILL_BLOCKS", fill)
+    fa.plan.cache_clear()
+    try:
+        assert fa.plan(b, t, hq, hkv, hd, dtype).rows == (
+            fa.ROWS if fill == 0 and hd <= 64 else fa.THIN_ROWS)
+        q = _randn(3, (b, t, hq, hd), cuda, dtype)
+        k = _randn(4, (b, t, hkv, hd), cuda, dtype)
+        v = _randn(5, (b, t, hkv, hd), cuda, dtype)
+        got = ops.flash_attention(q, k, v, cap=cap)
+        torch.cuda.synchronize()
+        _close(got, flash_attention_ref(q, k, v, cap=cap), tol)
+        assert torch.equal(ops.flash_attention(q, k, v, cap=cap), got)
+    finally:
+        fa.plan.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64), (torch.float32, 48),
+                                      (torch.bfloat16, 8)])
+def test_flash_attention_cuda_refuses_unplanned(cuda, dtype, hd):
+    """A dtype or head size the plan has no tile for raises ValueError and
+    launches nothing; so does a query-head count that is not a multiple of
+    the KV heads."""
+    q = _randn(0, (1, 16, 4, hd), cuda, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    with pytest.raises(ValueError):
+        fa.plan(1, 16, 4, 2, hd, dtype)
+    k = _randn(1, (1, 16, 3, 64), cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(_randn(0, (1, 16, 4, 64), cuda), k, k)
+    assert ops.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_refuses_foreign_plan(cuda, monkeypatch):
+    """The kernel refuses a row tile it is not compiled for."""
+    monkeypatch.setattr(fa, "plan", lambda *a: fa.FlashPlan(32, 1, 2))
+    q = _randn(0, (1, 8, 4, 64), cuda)
+    k = _randn(1, (1, 8, 2, 64), cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.flash_attention(q, k, k)
 
 
 @pytest.mark.cuda

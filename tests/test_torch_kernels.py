@@ -16,10 +16,16 @@ atol 1e-5·max|G| (fp32 sums of <= 300 products, taken in another order).
 
 The launch plans of the kernels (lowrank_linear's kernel choice and
 split-K chunks, chunked_prefill's key-range splits, paged_attention's page
-splits and their workspace sizes, gram_accum's tile edge) are Python, and
-are checked here too, with the plain versions of the split kernels
-(``*_split_ref``) held against the JAX kernels for every split count.
+splits and their workspace sizes, gram_accum's tile edge, flash_attention's
+row tiles and their key ranges) are Python, and are checked here too, with
+the plain versions of the split kernels (``*_split_ref``) held against the
+JAX kernels for every split count, and the plain version of the flash
+kernel's tiling (``flash_attention_tiled_ref``: online softmax, P rounded to
+bf16 for bf16) against the JAX kernel in both dtypes (bf16 within 2e-2 of
+max(1, max|ref|)).
 """
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +36,7 @@ from repro.kernels import ref as jref
 from repro.kernels.chunked_prefill import chunked_prefill_ref as j_cp_ref
 from repro.kernels.paged_attention import paged_attention_ref as j_pa_ref
 from repro_torch.kernels import chunked_prefill as tcp
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gram_accum as tga
 from repro_torch.kernels import lowrank_linear as tll
 from repro_torch.kernels import paged_attention as tpa
@@ -501,6 +508,112 @@ def test_flash_attention_matches_jax(b, t, hq, hkv, hd, cap, block):
     assert tuple(got.shape) == (b, t, hq, hd)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got.numpy(), want_ref, rtol=2e-5, atol=2e-5)
+
+
+# the tiled version's cases: FLASH_CASES in both dtypes, plus G 8 and hd 128
+# (T a multiple of the JAX blocks, so the Pallas kernel runs, not its oracle)
+FLASH_TILED_CASES = FLASH_CASES + [
+    (1, 96, 16, 2, 16, 0.0, 32),         # G 8, two row tiles
+    (1, 128, 4, 2, 128, 10.0, 64),       # hd 128, softcap, two key tiles
+    (2, 200, 8, 2, 16, 0.0, 40),         # G 4, 13 row tiles over 4 key tiles
+]
+
+
+@pytest.fixture(params=["planned", "wide"])
+def flash_rows(request, monkeypatch):
+    """The plan as it is (the tests' small grids take THIN_ROWS), or with
+    FILL_BLOCKS 0, so every head size up to 64 takes ROWS."""
+    if request.param == "wide":
+        monkeypatch.setattr(tfa, "FILL_BLOCKS", 0)
+    tfa.plan.cache_clear()
+    yield request.param
+    tfa.plan.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hq,hkv,hd,cap,block", FLASH_TILED_CASES)
+def test_flash_attention_tiled_matches_jax(flash_rows, b, t, hq, hkv, hd, cap, block, dtype):
+    """The plain version of the kernel's tiling (the plan's row tiles, their
+    live key tiles, the online softmax, P rounded to bf16 for bf16) against
+    the Pallas kernel in interpret mode (its oracle where T is ragged) and
+    against flash_attention_ref: fp32 within 2e-5, bf16 within 2e-2 of
+    max(1, max|ref|) (bf16 output and P roundings)."""
+    q, k, v = (_randn(8, (b, t, hq, hd)), _randn(9, (b, t, hkv, hd)),
+               _randn(10, (b, t, hkv, hd)))
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    got = tfa.flash_attention_tiled_ref(tq, tk, tv, cap=cap)
+    assert got.dtype == dtype and tuple(got.shape) == (b, t, hq, hd)
+    want = np.asarray(jops.flash_attention(jq, jk, jv, cap=cap, block_q=block,
+                                           block_k=block).astype(jnp.float32))
+    want_ref = flash_attention_ref(tq, tk, tv, cap=cap).float().numpy()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for w in (want, want_ref):
+        err = np.abs(got.float().numpy() - w).max()
+        assert err <= tol * max(1.0, np.abs(w).max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hq,hkv,hd", [
+    (2, 64, 32, 8, 64), (1, 1, 4, 4, 16), (3, 37, 8, 1, 32), (2, 100, 16, 2, 128),
+    (1, 257, 4, 4, 64), (2, 17, 24, 3, 16)])
+def test_flash_plan_covers_every_row_once(flash_rows, b, t, hq, hkv, hd, dtype):
+    """Walking the grid in launch order, the blocks' row tiles cover every
+    (batch, query, head) exactly once, the longest diagonal first."""
+    p = tfa.plan(b, t, hq, hkv, hd, dtype)
+    g = hq // hkv
+    assert p.rows in (tfa.ROWS, tfa.THIN_ROWS) and p.blocks == b * hkv * p.row_tiles
+    seen = collections.Counter()
+    tiles = []
+    for x in range(p.blocks):
+        rt, bi, hk = tfa.block_tile(p, x, hkv)
+        assert 0 <= rt < p.row_tiles and 0 <= bi < b and 0 <= hk < hkv
+        tiles.append(rt)
+        for r in range(rt * p.rows, min(t * g, (rt + 1) * p.rows)):
+            seen[(bi, r // g, hk * g + r % g)] += 1
+    assert tiles == sorted(tiles, reverse=True)
+    assert set(seen) == {(bi, j, h) for bi in range(b) for j in range(t)
+                         for h in range(hq)}
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_live_keys_reach_the_diagonal(flash_rows, dtype, hd, g):
+    """Each row tile's key tiles are exactly those holding a key that one of
+    its rows attends, and the last is computed up to its last such key and
+    no further: ragged T, T 1 and T across many key tiles."""
+    for t in (1, 2, 37, 64, 65, 100, 128, 300):
+        p = tfa.plan(1, t, 8 * g, 8, hd, dtype)
+        for rt in range(p.row_tiles):
+            rows = range(rt * p.rows, min(t * g, (rt + 1) * p.rows))
+            attended = {ik for r in rows for ik in range(r // g + 1)}
+            n_kt, kc = tfa.live_keys(rt, t, g, p.rows)
+            assert set(range(n_kt)) == {ik // tfa.KEYS for ik in attended}
+            assert 1 <= kc <= tfa.KEYS
+            assert (n_kt - 1) * tfa.KEYS + kc - 1 == max(attended)
+
+
+@pytest.mark.parametrize("b,t,hq,hkv,hd,rows", [
+    (8, 64, 32, 8, 64, 64),        # compress path: 128-row tiles would make 128 blocks
+    (8, 256, 32, 8, 64, 128),      # serve calibration: 512 blocks of 128 rows
+    (1, 4096, 32, 8, 64, 128),
+    (2, 100, 16, 4, 16, 64),       # thin grid
+    (8, 4096, 32, 8, 128, 64),     # hd 128: 64 rows at any size
+])
+def test_flash_plan_rows(b, t, hq, hkv, hd, rows):
+    """128-row tiles up to hd 64 where they fill the card with two blocks
+    per SM, else 64-row tiles; the same choice in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = tfa.plan(b, t, hq, hkv, hd, dtype)
+        assert p.rows == rows
+        assert p.row_tiles == -(-t * (hq // hkv) // rows)
+    with pytest.raises(ValueError):
+        tfa.plan(b, t, hq, hkv, 48, torch.float32)
+    with pytest.raises(ValueError):
+        tfa.plan(b, t, hq, hkv, hd, torch.float16)
 
 
 def test_flash_attention_is_causal_and_scaled():
