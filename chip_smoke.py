@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~5 min on one H100
+    python3 chip_smoke.py              # full run, ~6 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -16,13 +16,19 @@ Phases, each printing its own lines:
              with the flash kernel (1e-4) and the calibration Grams (1e-4);
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
-             repro_torch.launch.serve --continuous``) on llama3_1b at full
-             width and depth: random init from a seeded torch.Generator,
-             calibration on seeded numpy tokens (through the flash kernel),
-             COALA compression (ratio 0.6, λ = 4, μ from Eq. 5), then the
-             dense and the compressed model each serve the same trace of
-             staggered requests through the continuous engine (batched paged
-             prefill, paged decode, at least one preemption);
+             repro_torch.launch.serve --continuous --warmup on``) on
+             llama3_1b at full width and depth: random init from a seeded
+             torch.Generator, calibration on seeded numpy tokens (through the
+             flash kernel), COALA compression (ratio 0.6, λ = 4, μ from
+             Eq. 5), then the dense and the compressed model each capture
+             their CUDA graphs (warmup) and serve the same trace of staggered
+             requests through the continuous engine (batched paged prefill,
+             paged decode, the prefix cache on, at least one preemption, 0
+             post-warmup captures); then, on those two models, the same trace
+             through the eager engine (identical greedy tokens), a 128-token
+             shared-prefix variant with the prefix cache on and off
+             (identical tokens, hit rate > 0) and a sampled run at
+             temperature 0.8, twice (identical tokens);
 5. compress path — the compression launcher's entry point
              (``repro_torch.launch.compress.main``) at full width with its
              defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
@@ -45,12 +51,15 @@ Phases, each printing its own lines:
              gram_accum and flash_attention must give the same bits on a
              second identical call;
 8. profile — only with ``--profile N``: wall and per-kernel device time of
-             N decode steps per model (torch.profiler), and the host cost
-             of one wrapper call and of two eager model ops.
+             N decode steps per model (torch.profiler), through CUDA graphs
+             and eagerly, and the host cost of one wrapper call and of two
+             eager model ops.
 
 Launch counts are zeroed just before each of the paths 4-6 and read just
-after; each kernel must have launched on the paths that run it, and the
-shapes of the kernel calls are noted on the way for phase 7.
+after: eager launches plus the kernels of every CUDA-graph replay; each
+kernel must have launched on the paths that run it. The shapes of the kernel
+calls are noted on the way for phase 7 (on the serve path in its eager-engine
+runs: a graph's wrapper calls see only the static capture inputs).
 
 It then prints one JSON line of per-kernel results, the nvidia-smi line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -90,11 +99,17 @@ ITERS = 20                  # timed launches per kernel and variant
 # pages of 16 tokens at its peak; a pool of 72 (one reserved for trash)
 # makes the engine preempt once.
 REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW_TOKENS = 8, 16, 200, 32
+ENGINE_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
 LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6",
                  "--requests", str(REQUESTS), "--prompt-len", "256",
-                 "--new-tokens", str(NEW_TOKENS), "--block-size", "16",
-                 "--num-blocks", "72", "--max-running", "8",
+                 "--new-tokens", str(NEW_TOKENS),
+                 "--block-size", str(ENGINE_KNOBS["block_size"]),
+                 "--num-blocks", str(ENGINE_KNOBS["num_blocks"]),
+                 "--max-running", str(ENGINE_KNOBS["max_running"]), "--warmup", "on",
                  "--seed", str(SEED), "--device", "cuda"]
+# The serve path's variants on the launcher's models: every prompt behind
+# one common 128-token prefix (8 pages), and sampling at temperature 0.8.
+SHARED_PREFIX, TEMPERATURE = 128, 0.8
 # The compression launcher with its own defaults (ratio 0.6, λ 4, 100
 # pretrain steps, 4 calibration batches of 8 x 64 tokens).
 COMPRESS_ARGS = ["--arch", "llama3_1b", "--ratio", "0.6", "--lam", "4",
@@ -332,10 +347,51 @@ class KernelCalls:
         return out
 
 
+def _serve_run(torch, model, trace, **kw):
+    """One fresh engine of the serve path's knobs over ``trace``: (engine,
+    metrics, tokens by request id, wall seconds). The engine's graphs are
+    released after the run."""
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.serve import ContinuousEngine
+    temperature = kw.pop("temperature", 0.0)
+    eng = ContinuousEngine(model, **ENGINE_KNOBS, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    met = serve_trace(eng, trace, temperature=temperature)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eng.release_graphs()
+    return eng, met, {r.req_id: list(r.out_tokens) for r in eng.finished}, secs
+
+
+def _check_finished(name, eng, trace, vocab):
+    fin = sorted(eng.finished, key=lambda r: r.req_id)
+    if len(fin) != len(trace) or any(
+            len(r.out_tokens) != nn or not all(0 <= t < vocab for t in r.out_tokens)
+            for r, (_, _, nn) in zip(fin, trace)):
+        raise Failure(f"serve {name}: requests did not all finish with valid tokens")
+    if eng.pool.available_blocks != eng.pool.usable_blocks:
+        raise Failure(f"serve {name}: pages leaked")
+
+
+def _serve_line(met) -> str:
+    return (f"{met['tokens_per_sec']:.1f} new tok/s, {met['decode_tok_per_s']:.1f} decode "
+            f"tok/s, mean TTFT {met['mean_ttft_s']:.4f} s, {met['decode_steps']} decode "
+            f"steps, {met['preemptions']} preemptions, prefix hit rate "
+            f"{met['prefix_hit_rate']:.3f}, {met['decode_compiles']} + "
+            f"{met['prefill_compiles']} captures")
+
+
 def serve_path(torch, ops):
-    """``repro_torch.launch.serve.main`` with ``LAUNCHER_ARGS`` on the
-    serve path's trace; checks what comes out. Returns (summary, launcher
-    result, noted kernel shapes)."""
+    """``repro_torch.launch.serve.main`` with ``LAUNCHER_ARGS`` (CUDA graphs,
+    warmup on, prefix cache at its default) on the serve path's trace, then,
+    on the launcher's two models: the same trace through the eager engine
+    (the graphs' oracle: identical greedy tokens; its kernel shapes are
+    noted for phase 7), a ``SHARED_PREFIX``-token shared-prefix variant with
+    the prefix cache on (graphs) and off (eager), identical tokens and a hit
+    rate above 0, and a sampled run (``TEMPERATURE``, seed 0 per request as
+    the launcher submits) twice on fresh graph engines, identical both
+    times. Returns (summary, launcher result, noted kernel shapes)."""
     from repro_torch.configs import get_config
     from repro_torch.core.compress import compression_summary
     from repro_torch.launch import serve as launcher
@@ -344,9 +400,24 @@ def serve_path(torch, ops):
     trace = launcher.synthetic_trace(REQUESTS, vocab, seed=SEED,
                                      min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
                                      min_new=NEW_TOKENS, max_new=NEW_TOKENS)
-    with KernelCalls(ops) as calls:
-        res = launcher.main(LAUNCHER_ARGS, trace=trace)
+    sp_trace = launcher.synthetic_trace(REQUESTS, vocab, seed=SEED,
+                                        min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                                        min_new=NEW_TOKENS, max_new=NEW_TOKENS,
+                                        shared_prefix=SHARED_PREFIX)
+    counts = {}
+    mark = ops.eager_launch_counts(), ops.replayed_launch_counts()
+
+    def note(what):
+        """Launches since the last note, eager and replayed."""
+        nonlocal mark
+        now = ops.eager_launch_counts(), ops.replayed_launch_counts()
+        counts[what] = {kind: {k: now[i][k] - mark[i][k] for k in now[i]}
+                        for i, kind in enumerate(("eager", "replayed"))}
+        mark = now
+
+    res = launcher.main(LAUNCHER_ARGS, trace=trace)
     torch.cuda.synchronize()
+    note("launcher")
 
     reports = res["reports"]
     summary = compression_summary(reports)
@@ -361,27 +432,78 @@ def serve_path(torch, ops):
         raise Failure(f"kept ratio {summary['kept_ratio']} above 0.6")
 
     out = {"layers": res["models"]["dense"].cfg.n_layers, "seconds": res["seconds"],
-           "compression": summary}
+           "compression": summary, "warmup": res["warmup"], "launches": counts}
     tokens = {}
+    keys = ("requests", "new_tokens", "tokens_per_sec", "decode_tok_per_s",
+            "prefill_tok_per_s", "mean_ttft_s", "max_ttft_s", "decode_steps",
+            "prefill_batches", "preemptions", "decode_seconds", "prefill_seconds",
+            "decode_compiles", "prefill_compiles", "post_warmup_compiles",
+            "warmup_seconds", "prefix_hit_rate", "prefix_hit_tokens", "cached_blocks",
+            "cow_copies", "prefix_evictions")
     for name, eng in res["engines"].items():
         met = res["metrics"][name]
-        out[f"serve_{name}"] = {k: met[k] for k in (
-            "requests", "new_tokens", "tokens_per_sec", "decode_tok_per_s",
-            "prefill_tok_per_s", "mean_ttft_s", "max_ttft_s", "decode_steps",
-            "prefill_batches", "preemptions", "decode_seconds", "prefill_seconds")}
-        fin = sorted(eng.finished, key=lambda r: r.req_id)
-        if len(fin) != REQUESTS or any(
-                len(r.out_tokens) != NEW_TOKENS
-                or not all(0 <= t < vocab for t in r.out_tokens) for r in fin):
-            raise Failure(f"serve {name}: requests did not all finish with "
-                          f"{NEW_TOKENS} valid tokens")
-        if eng.pool.free_blocks != eng.pool.usable_blocks:
-            raise Failure(f"serve {name}: pages leaked")
+        out[f"serve_{name}"] = {k: met[k] for k in keys}
+        _check_finished(name, eng, trace, vocab)
         if met["preemptions"] < 1:
             raise Failure(f"serve {name}: the trace was meant to preempt")
-        tokens[name] = [r.out_tokens for r in fin]
-    same = sum(a[0] == b[0] for a, b in zip(tokens["dense"], tokens["coala"]))
+        if not eng.cuda_graphs or met["post_warmup_compiles"] != 0:
+            raise Failure(f"serve {name}: expected CUDA graphs and 0 post-warmup "
+                          f"compiles, got {met['post_warmup_compiles']}")
+        tokens[name] = {r.req_id: list(r.out_tokens) for r in eng.finished}
+        log(f"  [{name}] graphs: {_serve_line(met)}; warmup {met['warmup_seconds']:.2f} s "
+            f"for {int(res['warmup'][name]['decode_signatures'])} decode + "
+            f"{int(res['warmup'][name]['prefill_signatures'])} prefill signatures, "
+            f"{met['post_warmup_compiles']} post-warmup compiles")
+    same = sum(tokens["dense"][i][0] == tokens["coala"][i][0] for i in tokens["dense"])
     log(f"  first tokens equal between dense and COALA: {same}/{REQUESTS}")
+
+    with KernelCalls(ops) as calls:
+        for name, m in res["models"].items():
+            eng, met, toks, secs = _serve_run(torch, m, trace, cuda_graphs=False)
+            _check_finished(f"{name} eager", eng, trace, vocab)
+            out[f"serve_{name}_eager"] = dict({k: met[k] for k in keys}, seconds=secs)
+            ok = toks == tokens[name]
+            log(f"  [{name}] eager oracle: {_serve_line(met)}; {secs:.3f} s; greedy tokens "
+                f"{'identical to' if ok else 'DIFFER from'} the graphs'")
+            if not ok:
+                raise Failure(f"serve {name}: CUDA graphs and the eager engine disagree")
+    note("eager oracle")
+
+    for name, m in res["models"].items():
+        on_eng, on, on_toks, on_s = _serve_run(torch, m, sp_trace)
+        off_eng, off, off_toks, off_s = _serve_run(torch, m, sp_trace, prefix_cache=False,
+                                                   cuda_graphs=False)
+        for what, eng in (("cache on", on_eng), ("cache off", off_eng)):
+            _check_finished(f"{name} shared prefix {what}", eng, sp_trace, vocab)
+        out[f"shared_prefix_{name}"] = {
+            "on": dict({k: on[k] for k in keys}, seconds=on_s),
+            "off": dict({k: off[k] for k in keys}, seconds=off_s)}
+        ok = on_toks == off_toks and on["prefix_hit_rate"] > 0
+        log(f"  [{name}] shared prefix {SHARED_PREFIX}, cache on (graphs): {_serve_line(on)}, "
+            f"{on['cow_copies']} COW copies, {on['prefix_evictions']} evictions")
+        log(f"  [{name}] shared prefix {SHARED_PREFIX}, cache off (eager): {_serve_line(off)}; "
+            f"tokens {'identical' if on_toks == off_toks else 'DIFFERENT'}")
+        if not ok:
+            raise Failure(f"serve {name}: shared-prefix run: hit rate "
+                          f"{on['prefix_hit_rate']}, tokens equal {on_toks == off_toks}")
+    note("shared prefix")
+
+    for name, m in res["models"].items():
+        runs = [_serve_run(torch, m, trace, temperature=TEMPERATURE) for _ in range(2)]
+        for i, (eng, _, _, _) in enumerate(runs):
+            _check_finished(f"{name} sampled {i}", eng, trace, vocab)
+        met = runs[0][1]
+        out[f"sampled_{name}"] = {k: met[k] for k in keys}
+        ok = runs[0][2] == runs[1][2]
+        diff = sum(a != b for i in tokens[name] for a, b in zip(tokens[name][i], runs[0][2][i]))
+        log(f"  [{name}] sampled at T {TEMPERATURE}: {_serve_line(met)}; second run "
+            f"{'identical' if ok else 'DIFFERENT'}; {diff} of "
+            f"{sum(map(len, tokens[name].values()))} tokens differ from greedy")
+        if not ok:
+            raise Failure(f"serve {name}: two sampled runs with the same seeds differ")
+    note("sampled")
+    torch.cuda.empty_cache()
+    log(f"  launches by run (eager / replayed): {json.dumps(counts)}")
     return out, res, calls.shapes()
 
 
@@ -857,39 +979,55 @@ def profile_host(torch, dev) -> None:
 
 def profile_decode(torch, res, steps: int) -> None:
     """Wall time of ``steps`` steady decode steps of each model (every
-    request of the trace admitted at once, after their prefill), then
-    device time by kernel over ``steps`` more from torch.profiler."""
+    request of the trace admitted at once, after their prefill), through
+    CUDA graphs (warmed up first) and through the eager engine, then device
+    time by kernel over ``steps`` more from torch.profiler: the card's busy
+    and idle share of a decode step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ContinuousEngine
     trace = res["trace"]
     pages = 1 + sum(-(-(len(p) + nn) // 16) for _, p, nn in trace)
+    max_len = max(len(p) + nn for _, p, nn in trace)
     for name, m in res["models"].items():
-        eng = ContinuousEngine(m, block_size=16, num_blocks=pages, max_running=8)
-        for _, p, nn in trace:
-            eng.submit(p, nn)
-        eng.step()                                  # prefill + first decode step
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()                    # wall clock, profiler off
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for graphs in (True, False):
+            eng = ContinuousEngine(m, block_size=16, num_blocks=pages, max_running=8,
+                                   cuda_graphs=graphs)
+            if graphs:
+                eng.warmup(max_len=max_len)
+            for _, p, nn in trace:
+                eng.submit(p, nn)
+            eng.step()                              # prefill + first decode step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()                # wall clock, profiler off
             for _ in range(steps):
                 eng.step()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) is not None
-                  and str(e.device_type).endswith("CUDA")]
-        attr = ("self_device_time_total" if events and hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-        busy = sum(getattr(e, attr) for e in events) / 1e3 / steps
-        log(f"  profile {name}: {wall:.3f} ms per decode step (wall, profiler off), "
-            f"device busy {busy:.3f} ms per step under the profiler "
-            f"({100 * busy / wall:.1f}% of the wall time)")
-        for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
-            log(f"    {getattr(e, attr) / 1e3 / steps:8.4f} ms/step  x{e.count // steps:<4d} "
-                f"{e.key[:90]}")
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_prof = (time.perf_counter() - t0) / steps * 1e3
+            if eng.post_warmup_compiles():
+                raise Failure(f"profile {name}: a decode step captured a graph")
+            eng.release_graphs()
+            events = [e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) is not None
+                      and str(e.device_type).endswith("CUDA")]
+            attr = ("self_device_time_total"
+                    if events and hasattr(events[0], "self_device_time_total")
+                    else "self_cuda_time_total")
+            busy = sum(getattr(e, attr) for e in events) / 1e3 / steps
+            how = "graphs" if graphs else "eager"
+            log(f"  profile {name} ({how}): {wall:.3f} ms per decode step (wall, profiler "
+                f"off), device busy {busy:.3f} ms per step under the profiler: "
+                f"{100 * busy / wall:.1f}% of the step's wall time, the card idle "
+                f"{100 - 100 * busy / wall:.1f}% ({wall_prof:.3f} ms per step with the "
+                f"profiler on)")
+            for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+                log(f"    {getattr(e, attr) / 1e3 / steps:8.4f} ms/step  "
+                    f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
 def run(args) -> int:
@@ -942,7 +1080,9 @@ def run(args) -> int:
 
     log("[4 serve path] python -m repro_torch.launch.serve " + " ".join(LAUNCHER_ARGS)
         + f" on a trace of {REQUESTS} requests (prompts {MIN_PROMPT}-{MAX_PROMPT}, "
-        f"{NEW_TOKENS} new tokens, one every 2 steps)")
+        f"{NEW_TOKENS} new tokens, one every 2 steps); then the eager oracle, a "
+        f"{SHARED_PREFIX}-token shared-prefix variant and a sampled run (T {TEMPERATURE}, "
+        "twice) on its models")
     (serve, res, shapes), serve_counts, peak = path_window(
         "serve", ("lowrank_linear", "paged_attention", "chunked_prefill",
                   "flash_attention"), lambda: serve_path(torch, ops))

@@ -101,22 +101,74 @@ def plan(m: int, d_in: int, r: int, d_out: int,
 # call's launches end, so calls on one stream reuse them in stream order.
 # The last block of a split tile resets its counter to 0, so the counters
 # are zeroed once, when the buffer is made.
+#
+# A CUDA graph bakes the buffer's address into its kernels, so a stream that
+# graphs are captured on reserves its scratch before the first capture
+# (``reserve_scratch``, sized for the largest signature) and the buffer is
+# never replaced after that: replacing it would free memory the captured
+# kernels still write into.
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_pinned: set = set()      # keys whose buffer captured graphs hold
+
+
+def scratch_layout(m: int, d_in: int, r: int, d_out: int,
+                   dtype=torch.float32) -> Tuple[int, int, int]:
+    """Scratch of one call: (fp32 elements of split-K partials, rounded to
+    16 bytes; fp32 elements holding the intermediate t; int32 counters)."""
+    p1, p2 = plan(m, d_in, r, d_out, dtype)
+    work_n = _cdiv(max(p1.workspace, p2.workspace), 4) * 4
+    return work_n, _cdiv(m * r * dtype.itemsize, 4), max(p1.counters, p2.counters)
+
+
+def _make_scratch(device, work: int, counters: int):
+    return (torch.empty(max(work, 1), dtype=torch.float32, device=device),
+            torch.zeros(max(counters, 1), dtype=torch.int32, device=device))
 
 
 def call_scratch(device, stream: int, work: int, counters: int):
     """(fp32 buffer of at least ``work`` elements, zeroed int32 counters of
-    at least ``counters``) for launches on ``stream`` of ``device``."""
+    at least ``counters``) for launches on ``stream`` of ``device``. Raises
+    rather than replace a reserved buffer or allocate during a capture."""
     key = (device, stream)
     buf = _scratch.get(key)
     if buf is None or buf[0].numel() < work or buf[1].numel() < counters:
+        if key in _pinned or (device.type == "cuda"
+                              and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"scratch of stream {stream} needs {work} + {counters} "
+                "elements beyond its reservation; reserve_scratch for the "
+                "largest signature before the first capture")
         old_w, old_c = buf if buf is not None else (None, None)
-        w = max(work, 1 if old_w is None else old_w.numel())
-        c = max(counters, 1 if old_c is None else old_c.numel())
-        buf = (torch.empty(w, dtype=torch.float32, device=device),
-               torch.zeros(c, dtype=torch.int32, device=device))
+        buf = _make_scratch(
+            device, max(work, 0 if old_w is None else old_w.numel()),
+            max(counters, 0 if old_c is None else old_c.numel()))
         _scratch[key] = buf
     return buf
+
+
+def reserve_scratch(device, stream: int, work: int, counters: int):
+    """Make the scratch of ``stream`` at least this large, once, before any
+    graph is captured on it, and pin it: no later call may replace it."""
+    key = (device, stream)
+    if key in _pinned:
+        buf = _scratch[key]
+        if buf[0].numel() < work or buf[1].numel() < counters:
+            raise RuntimeError(f"scratch of stream {stream} is already "
+                               "reserved and held by captured graphs")
+        return buf
+    old = _scratch.get(key)
+    if old is None or old[0].numel() < work or old[1].numel() < counters:
+        _scratch[key] = _make_scratch(
+            device, max(work, 0 if old is None else old[0].numel()),
+            max(counters, 0 if old is None else old[1].numel()))
+    _pinned.add(key)
+    return _scratch[key]
+
+
+def release_scratch(device, stream: int) -> None:
+    """Drop the scratch of ``stream`` once no graph captured on it remains."""
+    _pinned.discard((device, stream))
+    _scratch.pop((device, stream), None)
 
 
 def lowrank_linear(x, b_t, a_t):
@@ -155,10 +207,8 @@ def _launch(x, b_t, a_t):
         raise ValueError("lowrank_linear: empty input")
     p1, p2 = plan(m, d_in, r, d_out, x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    work_n = _cdiv(max(p1.workspace, p2.workspace), 4) * 4
-    t_n = _cdiv(m * r * x.element_size(), 4)
-    work, counters = call_scratch(x.device, stream, work_n + t_n,
-                                  max(p1.counters, p2.counters))
+    work_n, t_n, n_counters = scratch_layout(m, d_in, r, d_out, x.dtype)
+    work, counters = call_scratch(x.device, stream, work_n + t_n, n_counters)
     t = work[work_n:work_n + t_n].view(x.dtype)
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

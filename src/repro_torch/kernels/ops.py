@@ -4,10 +4,17 @@ Dispatch goes by the device of the tensors, which the caller chose: a CPU
 tensor runs the plain PyTorch version, a CUDA tensor launches the
 hand-written CUDA kernel (built from ``repro_torch/csrc`` at first use) or
 raises. There is no automatic fallback.
+
+Launch counts. Each wrapper adds one to its module's ``launches`` where it
+launches its kernel. Inside a CUDA-graph capture a wrapper call records a
+kernel node instead, so ``captured_launches`` takes those calls back out of
+the eager counts and hands them to the graph's owner, which adds them with
+``add_replayed`` on every replay. ``launch_counts`` reports the sum.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 from repro_torch.kernels import chunked_prefill as _cp
 from repro_torch.kernels import flash_attention as _fa
@@ -24,13 +31,47 @@ gram_accum = _ga.gram_accum
 _MODULES = {"lowrank_linear": _ll, "paged_attention": _pa,
             "chunked_prefill": _cp, "flash_attention": _fa,
             "gram_accum": _ga}
+_replayed: Dict[str, int] = dict.fromkeys(_MODULES, 0)
 
 
-def launch_counts() -> Dict[str, int]:
-    """CUDA launches per kernel wrapper since the last reset."""
+def eager_launch_counts() -> Dict[str, int]:
+    """Launches made by wrapper calls outside any graph capture."""
     return {name: mod.launches for name, mod in _MODULES.items()}
 
 
+def replayed_launch_counts() -> Dict[str, int]:
+    """Launches made by CUDA-graph replays (each graph's kernels per replay)."""
+    return dict(_replayed)
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA launches per kernel since the last reset: eager + replayed."""
+    return {name: mod.launches + _replayed[name]
+            for name, mod in _MODULES.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
+    for name, mod in _MODULES.items():
         mod.launches = 0
+        _replayed[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Wrap a CUDA-graph capture: yields a dict that, on exit, holds the
+    kernels' launches per replay of the captured graph; the wrapper calls
+    made inside are taken back out of the eager counts."""
+    before = eager_launch_counts()
+    rec: Dict[str, int] = {}
+    try:
+        yield rec
+    finally:
+        for name, mod in _MODULES.items():
+            rec[name] = mod.launches - before[name]
+            mod.launches = before[name]
+
+
+def add_replayed(counts: Dict[str, int]) -> None:
+    """Count one replay of a graph whose per-replay launches are ``counts``."""
+    for name, n in counts.items():
+        _replayed[name] += n

@@ -8,8 +8,13 @@ aggregate throughput.
       --arch llama3_1b --smoke --requests 4 --new-tokens 8 [--device cpu]
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
-The fixed-batch engine, temperature sampling, warmup, speculation, the
-prefix cache, recalibration and telemetry wait for later slices.
+On the GPU each engine replays one CUDA graph per step signature;
+``--warmup on`` captures the whole set the trace can reach before serving.
+``--prefix-cache`` (auto = on) reuses cached block-aligned prompt prefixes,
+``--shared-prefix N`` prepends one common N-token prefix to every prompt,
+and ``--temperature`` samples instead of taking the argmax. The fixed-batch
+engine, serving dtypes, speculation, recalibration and telemetry wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -32,20 +37,25 @@ from repro_torch.serve import ContinuousEngine
 def synthetic_trace(n_requests: int, vocab_size: int, *, seed: int = 0,
                     min_prompt: int = 4, max_prompt: int = 24,
                     min_new: int = 4, max_new: int = 16,
-                    arrival_every: int = 2):
+                    arrival_every: int = 2, shared_prefix: int = 0):
     """Mixed-length request trace with staggered arrivals (same numpy
-    stream as the JAX launcher). Returns (arrival_step, prompt, max_new)."""
+    stream as the JAX launcher). ``shared_prefix`` prepends one common
+    random prefix of that length to every prompt, the system-prompt traffic
+    the prefix cache serves. Returns (arrival_step, prompt, max_new)."""
     rng = np.random.RandomState(seed)
+    common = rng.randint(0, vocab_size, (shared_prefix,)).astype(np.int32)
     trace = []
     for i in range(n_requests):
         t0 = int(rng.randint(min_prompt, max_prompt + 1))
         nn = int(rng.randint(min_new, max_new + 1))
         prompt = rng.randint(0, vocab_size, (t0,)).astype(np.int32)
+        if shared_prefix:
+            prompt = np.concatenate([common, prompt])
         trace.append((i * arrival_every, prompt, nn))
     return trace
 
 
-def serve_trace(engine: ContinuousEngine, trace):
+def serve_trace(engine: ContinuousEngine, trace, *, temperature: float = 0.0):
     """Replay a trace: submissions are keyed to engine steps, so requests
     join the running decode batch mid-flight."""
     pending = list(trace)
@@ -53,7 +63,7 @@ def serve_trace(engine: ContinuousEngine, trace):
     while pending or engine.has_work():
         while pending and pending[0][0] <= step:
             _, prompt, nn = pending.pop(0)
-            engine.submit(prompt, nn)
+            engine.submit(prompt, nn, temperature=temperature)
         engine.step()
         step += 1
     return engine.metrics()
@@ -115,34 +125,60 @@ def run_continuous(args, cfg, model, trace=None):
     cmodel, reports, seconds = _compressed_params(model, batches, ratio)
     if trace is None:
         trace = synthetic_trace(args.requests, cfg.vocab_size, seed=args.seed,
-                                max_new=args.new_tokens)
+                                max_new=args.new_tokens,
+                                shared_prefix=args.shared_prefix)
+    prefix = {"auto": None, "on": True, "off": False}[args.prefix_cache]
+    # warm for exactly the worst per-request cache need this trace can hit
+    warm_len = max(len(p) + nn for _, p, nn in trace)
     out = {"reports": reports, "trace": trace, "seconds": seconds,
            "models": {"dense": model, "coala": cmodel},
-           "engines": {}, "metrics": {}}
+           "engines": {}, "metrics": {}, "warmup": {}}
     for name, m in out["models"].items():
         eng = ContinuousEngine(m, block_size=args.block_size,
                                num_blocks=args.num_blocks,
                                max_running=args.max_running,
                                bucket_sizes=_parse_buckets(args.bucket_sizes),
+                               prefix_cache=prefix,
                                prefill_bucket_sizes=_parse_buckets(
                                    args.prefill_bucket_sizes))
+        if args.warmup == "on":
+            w = out["warmup"][name] = eng.warmup(max_len=warm_len)
+            print(f"[{name}] warmup: {w['warmup_seconds']:.2f}s for "
+                  f"{int(w['decode_signatures'])} decode + "
+                  f"{int(w['prefill_signatures'])} prefill signatures "
+                  f"(max_len {int(w['max_len'])})")
         met, seconds[f"serve_{name}"] = _seconds(
-            m.device, lambda: serve_trace(eng, trace))
+            m.device, lambda: serve_trace(eng, trace,
+                                          temperature=args.temperature))
+        # free this engine's graphs before the next model captures its own
+        eng.release_graphs()
         out["engines"][name], out["metrics"][name] = eng, met
         print(f"[{name}] per-request TTFT (s):")
         for r in sorted(eng.finished, key=lambda r: r.req_id):
             print(f"  req {r.req_id:3d}: prompt={len(r.prompt):3d} "
                   f"new={len(r.out_tokens):3d} ttft={r.ttft:.3f}s"
                   + (f" (preempted x{r.preemptions})" if r.preemptions else ""))
-        print(f"[{name}] aggregate (paged, {m.device.type}): "
+        path = "cuda graphs" if eng.cuda_graphs else "eager"
+        print(f"[{name}] aggregate (paged, {m.device.type}, {path}): "
               f"{met['requests']} requests in {seconds[f'serve_{name}']:.2f}s, "
               f"{met['requests_per_sec']:.2f} req/s, "
               f"{met['tokens_per_sec']:.1f} new tok/s "
-              f"({met['decode_tok_per_s']:.1f} decode tok/s), "
+              f"({met['decode_tok_per_s']:.1f} decode tok/s steady-state), "
               f"mean TTFT {met['mean_ttft_s']:.3f}s, "
-              f"{met['decode_steps']} decode steps, "
-              f"{met['prefill_batches']} prefill batches, "
-              f"{met['preemptions']} preemptions")
+              f"{met['decode_compiles']} decode captures over "
+              f"{met['decode_steps']} steps, "
+              f"{met['preemptions']} preemptions"
+              + (f"; {met['post_warmup_compiles']} post-warmup compiles"
+                 if args.warmup == "on" else ""))
+        print(f"[{name}] prefill: {met['prefill_tok_per_s']:.1f} suffix "
+              f"tok/s steady-state, {met['prefill_compiles']} captures / "
+              f"{met['prefill_batches']} batched calls; prefix cache "
+              f"{'on' if eng.prefix_cache else 'off'}: "
+              f"hit rate {met['prefix_hit_rate']:.2f} "
+              f"({met['prefix_hit_tokens']} tokens), "
+              f"{met['cached_blocks']} cached blocks, "
+              f"{met['cow_copies']} COW copies, "
+              f"{met['prefix_evictions']} evictions")
     return out
 
 
@@ -171,6 +207,18 @@ def main(argv=None, trace=None):
     ap.add_argument("--prefill-bucket-sizes", default="",
                     help="comma-separated prompt-suffix length buckets for "
                          "batched prefill (default: powers of two, floor 8)")
+    ap.add_argument("--prefix-cache", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="reuse cached block-aligned prompt prefixes "
+                         "(auto = on: the port serves pure-attention LMs)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one common prefix of this many tokens to "
+                         "every trace prompt")
+    ap.add_argument("--warmup", choices=("on", "off"), default="off",
+                    help="capture every step signature the trace can reach "
+                         "before serving (CUDA graphs; nothing on the CPU)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of every request (0 = greedy)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")

@@ -1,31 +1,58 @@
 """Continuous-batching serving engine over the paged KV pool (port of
-``repro/serve/engine.py:118-131``, ``:209-597``, ``:1223-1247`` and
-``:1275-1444``).
+``repro/serve/engine.py:118-131``, ``:209-643``, ``:765-1118`` and
+``:1223-1444``).
 
 ``submit()`` enqueues a request; each ``step()`` admits whatever fits
-(scheduler + block pool), prefills the joiners — suffixes in the same length
-bucket go together through one ``LM.prefill_chunk`` call over the pool's
-page stores (the chunked-prefill kernel on the GPU) — and then runs ONE
-decode step over the whole running set at per-request positions
-(``LM.decode_step``, the paged-attention kernel on the GPU). The batch is
-padded to the next of ``bucket_sizes`` and the block envelope to a power of
-two, exactly as the JAX engine pads them: padding rows carry position 0,
-length 1 and all-trash block tables. When the pool runs dry during decode
-the youngest request is preempted and later re-prefilled. Sampling is
-greedy.
+(scheduler + block pool), looks up each joiner's longest cached block-aligned
+prefix in the pool's prefix registry (``prefix_cache``, on by default: the
+port serves only pure-attention GQA LMs) and prefills only the suffix —
+suffixes in the same length bucket go together through one
+``LM.prefill_chunk`` call over the pool's page stores (the chunked-prefill
+kernel on the GPU) — and then runs ONE decode step over the whole running
+set at per-request positions (``LM.decode_step``, the paged-attention kernel
+on the GPU). The batch is padded to the next of ``bucket_sizes`` and the
+block envelope to a power of two, exactly as the JAX engine pads them:
+padding rows carry position 0, length 1 and all-trash block tables. When the
+pool runs dry during decode the youngest request is preempted and later
+re-prefilled. Each row samples with its own temperature (greedy at 0) from
+a generator seeded by (request seed, output index), so a preempted request
+resumes on the same trajectory; a request stops at ``max_new_tokens`` or
+``eos_id``. ``fork()`` clones a running request copy-on-write (best-of-n).
 
-Waiting for later slices: temperature sampling, warmup (CUDA graphs),
-speculative decoding, the prefix cache and ``fork``, recalibration, async
-detokenize, SLOs and telemetry.
+CUDA graphs take the place of the JAX engine's jit cache. Every step runs
+one of a closed set of signatures — decode ``(b_pad, nb_pad)``, prefill
+``(b_pad, l_pad, nb_pad)`` — and a CUDA engine captures one
+``torch.cuda.CUDAGraph`` per signature, at first use or ahead of traffic
+with ``warmup(max_len)`` (the set ``warmup_signatures`` enumerates, captured
+against the trash page). Each graph has static int32 inputs (tokens,
+positions, lengths, block tables, packed in one buffer that a step fills
+with one host-to-device copy) and a static logits output; all of an
+engine's graphs share one memory pool, so a step consumes its logits
+(sampling, then ``.cpu()``) before the next replay. Sampling, the pool's
+page zeroing and copy-on-write copies stay outside the graphs. A capture
+counts as a compile: ``post_warmup_compiles`` counts captures after
+``warmup``, and steps that capture are left out of the steady-state timers.
+A CPU engine runs eagerly; ``cuda_graphs=False`` runs a CUDA engine eagerly
+too, as the oracle the graphs are checked against. Nothing falls back: a
+failed capture or replay raises.
+
+Waiting for later slices: serving dtypes, speculative decoding,
+recalibration, async detokenize, SLOs and telemetry, the fixed-batch engine.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import lowrank_linear as _ll
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.models.linear import Linear
 from repro_torch.serve.paged_cache import BlockPool
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -58,19 +85,103 @@ def default_bucket_sizes(max_running: int) -> tuple:
     return tuple(sizes) + (max_running,)
 
 
+def row_seed(seed: int, index: int) -> int:
+    """The 64-bit generator seed of output ``index`` of a request seeded
+    ``seed`` (the counterpart of ``fold_in(PRNGKey(seed), index)``)."""
+    state = np.random.SeedSequence([seed % (1 << 64), index])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+def sample_rows(logits: torch.Tensor, temps, seeds, indices) -> torch.Tensor:
+    """Row-wise sampling on the logits' device: the argmax where the
+    temperature is <= 0, else a draw from softmax(logits / temperature) by
+    the exponential race (argmax of p / E, E ~ Exp(1)) with a generator
+    seeded from (seed, output index). Returns (B,) int64."""
+    nxt = torch.argmax(logits, dim=-1)
+    for i, (temp, seed, idx) in enumerate(zip(temps, seeds, indices)):
+        if temp <= 0.0:
+            continue
+        gen = torch.Generator(device=logits.device)
+        gen.manual_seed(row_seed(seed, idx))
+        p = torch.softmax(logits[i].float() / temp, dim=-1)
+        race = torch.empty_like(p).exponential_(generator=gen)
+        nxt[i] = torch.argmax(p / race)
+    return nxt
+
+
+def _layout(sig) -> Tuple[Tuple[str, tuple], ...]:
+    """Named int32 inputs of a step signature, in packed order."""
+    if sig[0] == "decode":
+        _, b, nb = sig
+        return (("tok", (b, 1)), ("pos", (b,)), ("tables", (b, nb)))
+    _, b, l, nb = sig
+    return (("tok", (b, l)), ("pos", (b,)), ("lens", (b,)),
+            ("tables", (b, nb)))
+
+
+def _seg(shape) -> int:
+    """Packed length of one input: 16-byte aligned segments."""
+    return -(-math.prod(shape) // 4) * 4
+
+
+def _pack(sig, **arrays) -> np.ndarray:
+    """One flat int32 host array holding a step's inputs."""
+    parts = []
+    for name, shape in _layout(sig):
+        a = np.zeros(_seg(shape), np.int32)
+        a[:math.prod(shape)] = np.asarray(arrays[name], np.int32).reshape(-1)
+        parts.append(a)
+    return np.concatenate(parts)
+
+
+def _views(sig, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The step's inputs as contiguous views of the packed buffer."""
+    out, off = {}, 0
+    for name, shape in _layout(sig):
+        out[name] = buf[off:off + math.prod(shape)].view(shape)
+        off += _seg(shape)
+    return out
+
+
+def _trash_inputs(sig) -> np.ndarray:
+    """All-padding inputs: token 0, position 0, length 1, all-trash tables."""
+    shapes = dict(_layout(sig))
+    return _pack(sig, **{n: (np.ones if n == "lens" else np.zeros)(s)
+                         for n, s in shapes.items()})
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One captured step signature."""
+    graph: "torch.cuda.CUDAGraph"
+    ints: torch.Tensor            # static packed int32 inputs
+    logits: torch.Tensor          # static output, in the engine's graph pool
+    launches: Dict[str, int]      # kernel launches per replay
+
+
 class ContinuousEngine:
     """Request-level serving: ``submit()`` / ``step()`` / ``run()``."""
 
     def __init__(self, model, *, block_size: int = 16, num_blocks: int = 512,
                  max_running: int = 8,
                  bucket_sizes: Optional[Sequence[int]] = None,
-                 prefill_bucket_sizes: Optional[Sequence[int]] = None):
+                 prefix_cache: Optional[bool] = None,
+                 prefill_bucket_sizes: Optional[Sequence[int]] = None,
+                 cuda_graphs: Optional[bool] = None):
         self.model = model
         self.device = model.device
         self.block_size = block_size
+        # every model the port serves is a pure-attention GQA LM, so the
+        # chunked suffix prefill a cached prefix needs is always there
+        self.prefix_cache = True if prefix_cache is None else prefix_cache
+        is_cuda = self.device.type == "cuda"
+        self.cuda_graphs = is_cuda if cuda_graphs is None else cuda_graphs
+        if self.cuda_graphs and not is_cuda:
+            raise ValueError("cuda_graphs needs a model on a CUDA device")
         self.pool = BlockPool(model, num_blocks=num_blocks,
                               block_size=block_size, max_requests=max_running,
-                              dtype=model.dtype)
+                              dtype=model.dtype,
+                              prefix_cache=self.prefix_cache)
         self.scheduler = Scheduler(self.pool, max_running=max_running)
         buckets = set(bucket_sizes or default_bucket_sizes(max_running))
         buckets.add(max_running)        # largest bucket must cover the batch
@@ -82,18 +193,27 @@ class ContinuousEngine:
         self._start_time: Optional[float] = None
         self.counters = {"decode_steps": 0, "decode_tokens": 0,
                          "decode_seconds": 0.0, "prefill_batches": 0,
-                         "prefill_tokens": 0, "prefill_seconds": 0.0}
+                         "prefill_tokens": 0, "prefill_seconds": 0.0,
+                         "prompt_tokens": 0, "prefix_hit_tokens": 0}
+        # captured graphs by signature, their shared pool and capture stream
+        self._graphs: Dict[tuple, StepGraph] = {}
+        self._graph_pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._captures = {"decode": 0, "prefill": 0}
+        self._warmed = 0
+        self._warmup_seconds = 0.0
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt_tokens, max_new_tokens: int, *,
-               temperature: float = 0.0) -> int:
-        """Enqueue one request; returns its id."""
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature sampling is not ported yet (greedy only)")
+               temperature: float = 0.0, seed: int = 0,
+               eos_id: Optional[int] = None) -> int:
+        """Enqueue one request; returns its id. ``temperature`` <= 0 is
+        greedy; ``seed`` keys the request's samples; generation stops after
+        ``max_new_tokens`` or at ``eos_id``."""
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
         req = Request(req_id=self._next_id, prompt=prompt,
-                      max_new_tokens=max_new_tokens)
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      seed=seed, eos_id=eos_id, cacheable=True)
         need = self.pool.blocks_for(req.cache_budget())
         if need > self.pool.usable_blocks:
             raise ValueError(
@@ -111,15 +231,18 @@ class ContinuousEngine:
         return self.scheduler.has_work()
 
     def step(self) -> List[Request]:
-        """Admit + prefill joiners (same-length-bucket suffixes batched into
-        one call), then one decode step over the running batch; returns the
-        requests that finished during this step."""
+        """Admit + prefill joiners (each looks up its cached prefix once, at
+        allocation; same-length-bucket suffixes are batched into one call),
+        then one decode step over the running batch; returns the requests
+        that finished during this step."""
         done: List[Request] = []
         admitted = self.scheduler.admit()
         groups: Dict[int, list] = {}
         for req in admitted:
             toks = req.prefill_tokens()
-            cached = self.pool.alloc(req.req_id, len(toks))
+            cached = self.pool.alloc(req.req_id, len(toks), tokens=toks)
+            self.counters["prompt_tokens"] += len(toks)
+            self.counters["prefix_hit_tokens"] += cached
             groups.setdefault(self._bucket_prefill(len(toks) - cached),
                               []).append((req, toks, cached))
         for _, group in sorted(groups.items()):
@@ -139,20 +262,157 @@ class ContinuousEngine:
             out.extend(self.step())
         return out
 
+    def fork(self, req_id: int, *, temperature: Optional[float] = None,
+             seed: Optional[int] = None) -> int:
+        """Clone a running request mid-generation (best-of-n sampling): the
+        child shares the parent's cache blocks copy-on-write — the first
+        divergent token write into the shared tail block copies just that
+        block. Returns the child's request id."""
+        parent = next((r for r in self.scheduler.running
+                       if r.req_id == req_id), None)
+        if parent is None:
+            raise ValueError(f"request {req_id} is not running")
+        if len(self.scheduler.running) >= self.scheduler.max_running:
+            raise ValueError("running set full; cannot fork")
+        if seed is None:
+            # a distinct, deterministic child seed: the parent's would
+            # replay its exact trajectory at temperature > 0
+            seed = parent.seed ^ ((0x9E3779B9 * (self._next_id + 1))
+                                  & 0x7FFFFFFF)
+        child = Request(
+            req_id=self._next_id, prompt=parent.prompt.copy(),
+            max_new_tokens=parent.max_new_tokens,
+            temperature=parent.temperature if temperature is None
+            else temperature,
+            seed=seed, eos_id=parent.eos_id, cacheable=parent.cacheable)
+        self._next_id += 1
+        child.out_tokens = list(parent.out_tokens)
+        child.cache_len = parent.cache_len
+        # the child continues the parent's lifecycle: its TTFT is the parent's
+        child.arrival_time = parent.arrival_time
+        child.first_token_time = parent.first_token_time
+        self.pool.fork(parent.req_id, child.req_id)
+        self.scheduler.adopt(child)
+        return child.req_id
+
+    # -------------------------------------------------------------- warm start
+    def warmup_signatures(self, max_len: int):
+        """Every step signature a trace whose per-request cache need stays
+        within ``max_len`` positions can hit (``repro/serve/engine.py:765``).
+
+        Decode ``(b_pad, nb_pad)``: every batch bucket crossed with every
+        power-of-two block envelope up to the largest a ``max_len``-position
+        table can produce (capped by the pool). Prefill ``(b_pad, l_pad,
+        nb_pad)``: for each suffix-length bucket, the shortest suffix that
+        maps to it bounds how high a block-aligned cached-prefix offset can
+        sit underneath it, and each reachable offset yields one block
+        envelope; without the prefix cache the offset is always 0. Returns
+        ``(decode_sigs, prefill_sigs)``."""
+        nb_cap = _pow2_at_least(min(self.pool.blocks_for(max_len),
+                                    self.pool.usable_blocks))
+        decode = []
+        for b in self.bucket_sizes:
+            nb = 1
+            while nb <= nb_cap:
+                decode.append((b, nb))
+                nb *= 2
+        prefill = []
+        l_buckets = sorted({self._bucket_prefill(n)
+                            for n in range(1, max_len + 1)})
+        prev = 0
+        for l_pad in l_buckets:
+            len_min = prev + 1              # shortest suffix in this bucket
+            prev = l_pad
+            if self.prefix_cache:
+                start_max = ((max_len - len_min) // self.block_size
+                             ) * self.block_size
+                starts = range(0, start_max + 1, self.block_size)
+            else:
+                starts = (0,)
+            nbs = sorted({_pow2_at_least(self.pool.blocks_for(s + l_pad))
+                          for s in starts})
+            for b in self.bucket_sizes:
+                for nb in nbs:
+                    prefill.append((b, l_pad, nb))
+        return decode, prefill
+
+    def warmup(self, *, max_len: Optional[int] = None) -> Dict[str, float]:
+        """Capture every signature of ``warmup_signatures(max_len)`` against
+        the trash page, so no admissible request waits on a capture.
+        ``max_len`` bounds the worst-case per-request cache positions
+        (prompt + generated); it defaults to, and is capped at, the pool's
+        capacity. Re-running only captures what is missing. An eager engine
+        has nothing to capture. Returns a summary; the wall time adds up in
+        ``metrics()["warmup_seconds"]``."""
+        cap = self.pool.usable_blocks * self.block_size
+        max_len = cap if max_len is None else min(max_len, cap)
+        t0 = time.perf_counter()
+        decode_sigs, prefill_sigs = self.warmup_signatures(max_len)
+        if self.cuda_graphs:
+            for b, nb in decode_sigs:
+                self._graph(("decode", b, nb))
+            for b, l, nb in prefill_sigs:
+                self._graph(("prefill", b, l, nb))
+            torch.cuda.synchronize(self.device)
+        self._warmed = sum(self._captures.values())
+        dt = time.perf_counter() - t0
+        self._warmup_seconds += dt
+        return {"warmup_seconds": dt, "max_len": float(max_len),
+                "decode_signatures": float(len(decode_sigs)),
+                "prefill_signatures": float(len(prefill_sigs))}
+
+    def post_warmup_compiles(self) -> int:
+        """Graph captures beyond what ``warmup()`` covered: 0 after warmup
+        under admissible traffic (before any warmup it counts them all)."""
+        return sum(self._captures.values()) - self._warmed
+
+    def release_graphs(self) -> None:
+        """Drop the captured graphs, their memory pool and the capture
+        stream's scratch; later steps capture again as needed."""
+        self._graphs.clear()
+        self._graph_pool = None
+        if self._stream is not None:
+            _ll.release_scratch(self.device, self._stream.cuda_stream)
+            self._stream = None
+
+    # -------------------------------------------------------------- metrics
+    def reset_metrics(self) -> None:
+        """Zero everything request-level — finished requests, timers,
+        preemptions, hit-rate and pool counters — keeping the graphs and the
+        prefix registry warm."""
+        self.finished = []
+        self._start_time = None
+        for k, v in self.counters.items():
+            self.counters[k] = type(v)(0)
+        self.scheduler.preemptions = 0
+        for k in self.pool.stats:
+            self.pool.stats[k] = 0
+
     def metrics(self) -> Dict[str, float]:
-        """Aggregate serving metrics over finished requests. Every step is
-        timed (there is no compile step to exclude, unlike the JAX engine)."""
+        """Aggregate serving metrics over finished requests (the JAX keys
+        of what is ported). The steady-state rates leave out steps that
+        captured a graph."""
         c = self.counters
         m = {
+            "decode_compiles": self._captures["decode"],
             "decode_steps": c["decode_steps"],
             "decode_tok_per_s": (c["decode_tokens"] / c["decode_seconds"]
                                  if c["decode_seconds"] > 0 else 0.0),
+            "prefill_compiles": self._captures["prefill"],
             "prefill_batches": c["prefill_batches"],
             "prefill_tok_per_s": (c["prefill_tokens"] / c["prefill_seconds"]
                                   if c["prefill_seconds"] > 0 else 0.0),
             "decode_seconds": c["decode_seconds"],
             "prefill_seconds": c["prefill_seconds"],
+            "prefix_hit_rate": (c["prefix_hit_tokens"]
+                                / max(c["prompt_tokens"], 1)),
+            "prefix_hit_tokens": c["prefix_hit_tokens"],
+            "cached_blocks": self.pool.cached_blocks,
+            "cow_copies": self.pool.stats["cow_copies"],
+            "prefix_evictions": self.pool.stats["evictions"],
             "preemptions": self.scheduler.preemptions,
+            "warmup_seconds": self._warmup_seconds,
+            "post_warmup_compiles": self.post_warmup_compiles(),
         }
         fin = self.finished
         if not fin:
@@ -178,13 +438,100 @@ class ContinuousEngine:
     def _bucket_prefill(self, n: int) -> int:
         return bucket_prefill(n, self.prefill_bucket_sizes)
 
-    def _ints(self, values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values, np.int32), device=self.device)
+    def _sample_tokens(self, logits, reqs) -> np.ndarray:
+        """Row-wise sampling of the real rows (bucket padding rows past
+        ``len(reqs)`` are dropped), keyed by each request's seed and output
+        index; the one device-to-host copy of the step."""
+        rows = logits[:len(reqs)]
+        if all(r.temperature <= 0.0 for r in reqs):
+            nxt = torch.argmax(rows, dim=-1)
+        else:
+            nxt = sample_rows(rows, [r.temperature for r in reqs],
+                              [r.seed for r in reqs],
+                              [len(r.out_tokens) for r in reqs])
+        return nxt.cpu().numpy()
+
+    def _forward(self, sig, inputs: Dict[str, torch.Tensor]):
+        pages = self.pool.pages
+        if sig[0] == "decode":
+            return self.model.decode_step(inputs["tok"], pages, inputs["pos"],
+                                          inputs["tables"])
+        return self.model.prefill_chunk(inputs["tok"], pages, inputs["pos"],
+                                        inputs["lens"], inputs["tables"])
+
+    def _run(self, sig, host: np.ndarray):
+        """Run one step signature on the packed host inputs: replay its
+        graph (capturing it first if new) or run eagerly. Returns (logits,
+        whether a graph was captured)."""
+        if not self.cuda_graphs:
+            buf = torch.as_tensor(host, device=self.device)
+            return self._forward(sig, _views(sig, buf)), False
+        fresh = sig not in self._graphs
+        g = self._graph(sig)
+        g.ints.copy_(torch.from_numpy(host))
+        g.graph.replay()
+        ops.add_replayed(g.launches)
+        return g.logits, fresh
+
+    def _graph(self, sig) -> StepGraph:
+        """The captured graph of ``sig``, captured now if missing: one eager
+        pass on the capture stream against all-trash inputs (it loads the
+        kernels and sets their plans up, writing only the trash page), then
+        the capture into the engine's graph pool."""
+        g = self._graphs.get(sig)
+        if g is not None:
+            return g
+        dev = self.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._reserve_scratch()
+        ints = torch.as_tensor(_trash_inputs(sig), device=dev)
+        inputs = _views(sig, ints)
+        s = self._stream
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            self._forward(sig, inputs)
+        graph = torch.cuda.CUDAGraph()
+        with ops.captured_launches() as launches:
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=s):
+                logits = self._forward(sig, inputs)
+        torch.cuda.current_stream(dev).wait_stream(s)
+        g = StepGraph(graph, ints, logits, launches)
+        self._graphs[sig] = g
+        self._captures[sig[0]] += 1
+        return g
+
+    def _reserve_scratch(self) -> None:
+        """Size the capture stream's kernel scratch for the largest
+        signature the pool admits, before the first capture (a captured
+        graph holds the buffer's address, so it is never replaced)."""
+        decode, prefill = self.warmup_signatures(
+            self.pool.usable_blocks * self.block_size)
+        rows = {b for b, _ in decode} | {b * l for b, l, _ in prefill}
+        shapes = {(lin.b_t.shape[0], lin.b_t.shape[1], lin.a_t.shape[1])
+                  for lin in self.model.modules()
+                  if isinstance(lin, Linear) and lin.is_factored}
+        work = counters = 0
+        for m in rows:
+            for d_in, r, d_out in shapes:
+                w, t, c = _ll.scratch_layout(m, d_in, r, d_out,
+                                             self.model.dtype)
+                work, counters = max(work, w + t), max(counters, c)
+        cfg = self.model.cfg
+        for b, nb in decode:
+            work = max(work, _pa.plan(b, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim, nb).workspace)
+        _ll.reserve_scratch(self.device, self._stream.cuda_stream, work,
+                            counters)
 
     def _prefill_batch(self, group) -> None:
         """One ``prefill_chunk`` over a same-bucket group of (request,
-        tokens, cached-prefix-len) joiners, already allocated by ``step()``,
-        padded to the (batch, suffix-len, blocks) bucket."""
+        tokens, cached-prefix-len) joiners, already allocated by ``step()``:
+        each row prefills only the suffix its cached prefix does not cover,
+        at its own cache offset, padded to the (batch, suffix-len, blocks)
+        bucket. The rows' full blocks are then committed to the prefix
+        registry."""
         reqs = [r for r, _, _ in group]
         ids = [r.req_id for r in reqs]
         starts = [cached for _, _, cached in group]
@@ -195,18 +542,21 @@ class ContinuousEngine:
         b_pad = self._bucket_batch(len(group))
         nb_pad = _pow2_at_least(max(self.pool.blocks_for(s + l_pad)
                                     for s in starts))
+        sig = ("prefill", b_pad, l_pad, nb_pad)
         tok = np.zeros((b_pad, l_pad), np.int32)
         for i, s in enumerate(suffixes):
             tok[i, :len(s)] = s
         pad = b_pad - len(group)
+        host = _pack(sig, tok=tok, pos=starts + [0] * pad,
+                     lens=lens + [1] * pad,
+                     tables=self.pool.padded_tables(ids, rows=b_pad,
+                                                  blocks=nb_pad))
         t0 = time.perf_counter()
-        tables = self.pool.padded_tables(ids, rows=b_pad, blocks=nb_pad)
-        logits = self.model.prefill_chunk(
-            self._ints(tok), self.pool.pages, self._ints(starts + [0] * pad),
-            self._ints(lens + [1] * pad), tables)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()[:len(reqs)]
-        self.counters["prefill_seconds"] += time.perf_counter() - t0
-        self.counters["prefill_tokens"] += sum(lens)
+        logits, fresh = self._run(sig, host)
+        nxt = self._sample_tokens(logits, reqs)
+        if not fresh:                       # steady-state timer: skip captures
+            self.counters["prefill_seconds"] += time.perf_counter() - t0
+            self.counters["prefill_tokens"] += sum(lens)
         self.counters["prefill_batches"] += 1
         now = time.perf_counter()
         for r, start, ln_i, t in zip(reqs, starts, lens, nxt):
@@ -214,10 +564,11 @@ class ContinuousEngine:
             r.out_tokens.append(int(t))
             if r.first_token_time is None:
                 r.first_token_time = now
+            self.pool.commit(r.req_id, r.prefill_tokens()[:r.cache_len])
 
     def _decode_step(self, running: List[Request]) -> List[Request]:
-        # reserve the next position for everyone, preempting the youngest
-        # request when the pool runs dry
+        # reserve the next position for everyone (copy-on-write where a
+        # fork shares it), preempting the youngest when the pool runs dry
         while True:
             try:
                 for r in running:
@@ -233,20 +584,28 @@ class ContinuousEngine:
         b_real = len(ids)
         b_pad = self._bucket_batch(b_real)
         nb_pad = _pow2_at_least(self.pool.max_table_blocks(ids))
+        sig = ("decode", b_pad, nb_pad)
         pad = b_pad - b_real
+        host = _pack(sig, tok=[r.out_tokens[-1] for r in running] + [0] * pad,
+                     pos=[r.cache_len for r in running] + [0] * pad,
+                     tables=self.pool.padded_tables(ids, rows=b_pad,
+                                                  blocks=nb_pad))
         t0 = time.perf_counter()
-        tables = self.pool.padded_tables(ids, rows=b_pad, blocks=nb_pad)
-        tok = self._ints([[r.out_tokens[-1]] for r in running] + [[0]] * pad)
-        pos = self._ints([r.cache_len for r in running] + [0] * pad)
-        logits = self.model.decode_step(tok, self.pool.pages, pos, tables)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()[:b_real]
-        self.counters["decode_seconds"] += time.perf_counter() - t0
-        self.counters["decode_tokens"] += b_real
+        logits, fresh = self._run(sig, host)
+        nxt = self._sample_tokens(logits, running)
+        if not fresh:                       # steady-state timer: skip captures
+            self.counters["decode_seconds"] += time.perf_counter() - t0
+            self.counters["decode_tokens"] += b_real
         self.counters["decode_steps"] += 1
         done = []
         for r, t in zip(running, nxt):
             r.cache_len += 1
             r.out_tokens.append(int(t))
+            if (self.prefix_cache and r.cacheable
+                    and r.cache_len % self.block_size == 0):
+                # a generated block just filled: register it so identical
+                # traffic (and this request, if preempted) can reuse it
+                self.pool.commit(r.req_id, r.prefill_tokens()[:r.cache_len])
             if r.done:
                 self._finish(r)
                 done.append(r)

@@ -3,11 +3,15 @@
 and flight recorder).
 
 Requests join the running batch as soon as a slot and enough cache blocks
-for their worst case are available (FIFO, no overtaking). When the pool
-runs dry mid-decode the youngest running request is preempted: its pages are
-freed and it goes back to the front of the queue, to be re-prefilled over
-prompt + tokens generated so far (greedy generation resumes on the same
-trajectory).
+for their worst case are available (FIFO, no overtaking), and leave it the
+step they reach max-tokens or ``eos_id``. Admission counts the prefix
+cache's evictable blocks as capacity, since the pool reclaims them on
+demand. When the pool runs dry mid-decode the youngest running request is
+preempted: its pages are freed (or parked in the prefix cache's LRU if
+registered) and it goes back to the front of the queue, to be re-prefilled
+over prompt + tokens generated so far (sampling keys are folded per output
+index, so it resumes on the same trajectory, and its own committed blocks
+are prefix-cache hits).
 """
 from __future__ import annotations
 
@@ -25,6 +29,11 @@ class Request:
     req_id: int
     prompt: np.ndarray                       # (T0,) int32
     max_new_tokens: int
+    temperature: float = 0.0
+    seed: int = 0
+    eos_id: Optional[int] = None
+    cacheable: bool = False                  # eligible for prefix caching
+    #                                          (set by the engine)
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     cache_len: int = 0                       # logical positions written to cache
     admit_seq: int = -1                      # order of (latest) admission
@@ -35,7 +44,10 @@ class Request:
 
     @property
     def done(self) -> bool:
-        return len(self.out_tokens) >= self.max_new_tokens
+        if len(self.out_tokens) >= self.max_new_tokens:
+            return True
+        return bool(self.eos_id is not None and self.out_tokens
+                    and self.out_tokens[-1] == self.eos_id)
 
     @property
     def ttft(self) -> Optional[float]:
@@ -80,7 +92,9 @@ class Scheduler:
         blocks twice."""
         admitted: List[Request] = []
         reserved = 0
-        avail = self.pool.free_blocks
+        # prefix-cached blocks in the LRU are evictable on demand, so they
+        # count as admissible capacity (a hit needs even less)
+        avail = self.pool.available_blocks
         while self.waiting and len(self.running) < self.max_running:
             req = self.waiting[0]
             need = self.pool.blocks_for(req.cache_budget())
@@ -94,6 +108,15 @@ class Scheduler:
             self.running.append(req)
             admitted.append(req)
         return admitted
+
+    def adopt(self, req: Request) -> None:
+        """Insert an already-provisioned request (a fork) into the running
+        set directly, bypassing the admission queue."""
+        if len(self.running) >= self.max_running:
+            raise ValueError("running set full")
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        self.running.append(req)
 
     def evict(self, req: Request) -> None:
         """Finished request: free its blocks and leave the running set."""

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
 These tests need a CUDA card (the kernels are built with nvcc for sm_90a at
-first use) and skip without one. JAX-free, so they run on the GPU machine:
+first use) and skip without one. The last ones serve a staggered trace on
+llama3_1b SMOKE through the engine's CUDA graphs and hold it against the
+eager engine (the same kernels, launched call by call). JAX-free, so they
+run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,18 +15,29 @@ intermediate or the output may differ); gram_accum 1e-5 relative to max|G|
 in both dtypes (bf16 inputs convert to fp32 exactly, then fp32 sums of
 <= 512 products in another order).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.config import CompressConfig
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.calibrate import calibrate_model
+from repro_torch.core.compress import compress_model
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gram_accum as ga
+from repro_torch.kernels import lowrank_linear as ll
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
 from repro_torch.kernels.paged_attention import paged_attention_ref
 from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
                                      lowrank_linear_ref)
+from repro_torch.launch.serve import serve_trace, synthetic_trace
+from repro_torch.models import build_model
+from repro_torch.models.linear import Linear
+from repro_torch.serve import ContinuousEngine
 
 torch.set_num_threads(1)
 
@@ -359,3 +373,119 @@ def test_gram_accum_cuda_tiles(cuda, monkeypatch, dtype, k, n, tile):
     assert err <= 1e-5 * want.abs().max().item(), err
     assert torch.equal(got, got.T)
     assert torch.equal(ops.gram_accum(a), got)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's CUDA graphs against its eager oracle
+# ---------------------------------------------------------------------------
+
+# a pool of 14 pages of 4 tokens against requests of up to 37 positions:
+# the trace preempts once; its prompts share a 4-token prefix, so the prefix
+# cache hits at starts > 0
+ENGINE_KNOBS = dict(block_size=4, num_blocks=14, max_running=3)
+ENGINE_TRACE = dict(seed=1, min_prompt=4, max_prompt=20, max_new=16,
+                    arrival_every=1, shared_prefix=4)
+
+
+@pytest.fixture(scope="module")
+def smoke_models():
+    """llama3_1b SMOKE (projections x3, random norm scales, so its tokens
+    vary), dense and COALA-compressed on the CPU, then moved to the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    cfg = get_smoke_config("llama3_1b")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Linear):
+                mod.w.mul_(3.0)
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    rng = np.random.RandomState(0)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 32)))
+               for _ in range(2)]
+    cmodel, _ = compress_model(model, calibrate_model(model, batches),
+                               CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    dev = torch.device("cuda")
+    return {name: copy.deepcopy(m).to(dev)
+            for name, m in (("dense", model), ("coala", cmodel))}
+
+
+def _engine_trace():
+    return synthetic_trace(6, get_smoke_config("llama3_1b").vocab_size,
+                           **ENGINE_TRACE)
+
+
+def _serve(model, *, warmup=False, temperature=0.0, **kw):
+    """(engine, tokens by request id, launch counts eager / replayed) of
+    one run of the trace; counts are zeroed after warmup."""
+    eng = ContinuousEngine(model, **ENGINE_KNOBS, **kw)
+    trace = _engine_trace()
+    if warmup:
+        eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
+    ops.reset_launch_counts()
+    serve_trace(eng, trace, temperature=temperature)
+    torch.cuda.synchronize()
+    counts = (ops.eager_launch_counts(), ops.replayed_launch_counts())
+    return eng, {r.req_id: list(r.out_tokens) for r in eng.finished}, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_engine_cuda_graphs_match_eager(smoke_models, name):
+    """Graph replays give the eager engine's greedy tokens on a trace that
+    preempts and hits the prefix cache; warmup leaves nothing to capture."""
+    eng, toks, _ = _serve(smoke_models[name], warmup=True)
+    ref, ref_toks, _ = _serve(smoke_models[name], cuda_graphs=False)
+    assert eng.cuda_graphs and not ref.cuda_graphs
+    m, rm = eng.metrics(), ref.metrics()
+    assert toks == ref_toks and len(toks) == 6
+    assert m["post_warmup_compiles"] == 0 and m["decode_compiles"] > 0
+    assert m["preemptions"] == rm["preemptions"] >= 1
+    assert m["prefix_hit_tokens"] == rm["prefix_hit_tokens"] > 0
+    assert rm["decode_compiles"] == rm["prefill_compiles"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_engine_cuda_graph_launches_equal_eager(smoke_models, name):
+    """After warmup every kernel launch of the trace is a graph replay, and
+    the replays launch each kernel as often as the eager engine does."""
+    _, _, (eager, replayed) = _serve(smoke_models[name], warmup=True)
+    _, _, (ref_eager, ref_replayed) = _serve(smoke_models[name],
+                                             cuda_graphs=False)
+    assert all(n == 0 for n in eager.values())
+    assert all(n == 0 for n in ref_replayed.values())
+    assert replayed == ref_eager
+    assert replayed["paged_attention"] > 0 and replayed["chunked_prefill"] > 0
+    assert (replayed["lowrank_linear"] > 0) == (name == "coala")
+
+
+@pytest.mark.cuda
+def test_engine_cuda_scratch_never_replaced(smoke_models):
+    """The capture stream's scratch is reserved before the first capture and
+    stays the same buffer through warmup and a later capture at first use."""
+    eng = ContinuousEngine(smoke_models["coala"], **ENGINE_KNOBS)
+    eng._graph(("decode", 1, 1))
+    key = (eng.device, eng._stream.cuda_stream)
+    first = [t.data_ptr() for t in ll._scratch[key]]
+    eng.warmup(max_len=16)
+    eng._graph(("prefill", 3, 32, 16))          # past warmup's max_len
+    assert eng.post_warmup_compiles() == 1
+    assert [t.data_ptr() for t in ll._scratch[key]] == first
+    with pytest.raises(RuntimeError, match="reserv"):
+        ll.call_scratch(eng.device, eng._stream.cuda_stream,
+                        ll._scratch[key][0].numel() + 1, 0)
+    eng.release_graphs()
+    assert key not in ll._scratch
+
+
+@pytest.mark.cuda
+def test_engine_cuda_sampled_run_repeats(smoke_models):
+    """A sampled trace (temperature 0.8, seed 0 per request as the launcher
+    submits) repeats on a second graph engine and equals the eager engine."""
+    runs = [_serve(smoke_models["coala"], temperature=0.8, **kw)[1]
+            for kw in ({}, {}, dict(cuda_graphs=False))]
+    assert runs[0] == runs[1] == runs[2]

@@ -65,7 +65,7 @@ def jax_runs():
 def _port_run(tree):
     cfg = get_smoke_config("llama3_1b")
     model = params_from_numpy(tree, cfg, device="cpu")
-    eng = ContinuousEngine(model, **KNOBS)
+    eng = ContinuousEngine(model, prefix_cache=False, **KNOBS)
     m = serve_trace(eng, _trace(cfg.vocab_size))
     return {r.req_id: list(r.out_tokens) for r in eng.finished}, m, eng
 
@@ -99,15 +99,23 @@ def test_greedy_tokens_identical_to_jax_engine(jax_runs, name):
 
 
 def test_engine_rejects_unported_features():
+    """Temperature sampling is ported (submit takes it); what the engine
+    still refuses: a request that can never fit the pool, CUDA graphs on a
+    CPU model (the CPU engine stays eager, with no fallback) and a fork of a
+    request that is not running."""
     cfg = get_smoke_config("llama3_1b")
     model = params_from_numpy(
         jax.tree.map(np.asarray, j_build(j_smoke("llama3_1b")).init(
             jax.random.PRNGKey(0))), cfg, device="cpu")
     eng = ContinuousEngine(model, **KNOBS)
-    with pytest.raises(NotImplementedError):
-        eng.submit(np.arange(5), 4, temperature=0.7)
+    assert not eng.cuda_graphs and eng.prefix_cache
+    assert eng.submit(np.arange(5), 4, temperature=0.7, seed=3) == 0
     with pytest.raises(ValueError):
         eng.submit(np.arange(40), 30)        # can never fit the 13-page pool
+    with pytest.raises(ValueError, match="cuda_graphs"):
+        ContinuousEngine(model, cuda_graphs=True, **KNOBS)
+    with pytest.raises(ValueError, match="not running"):
+        eng.fork(0)                          # submitted, not yet admitted
 
 
 def test_launcher_entry_point_serves_both_models():
@@ -126,5 +134,37 @@ def test_launcher_entry_point_serves_both_models():
     for name in ("dense", "coala"):
         met, eng = out["metrics"][name], out["engines"][name]
         assert met["requests"] == 6 and met["preemptions"] >= 1
-        assert eng.pool.free_blocks == eng.pool.usable_blocks
+        # every page is free or, with the prefix cache on, evictable
+        assert eng.pool.available_blocks == eng.pool.usable_blocks
         assert out["models"][name].device.type == "cpu"
+
+
+def test_shared_prefix_trace_is_the_jax_trace():
+    cfg = get_smoke_config("llama3_1b")
+    kw = dict(TRACE, shared_prefix=8)
+    ours = synthetic_trace(6, cfg.vocab_size, **kw)
+    theirs = j_synthetic_trace(6, cfg.vocab_size, **kw)
+    for (a0, p0, n0), (a1, p1, n1) in zip(ours, theirs):
+        assert a0 == a1 and n0 == n1
+        np.testing.assert_array_equal(p0, p1)
+    assert all(np.array_equal(p[:8], ours[0][1][:8]) for _, p, _ in ours)
+
+
+def test_launcher_prefix_cache_warmup_and_temperature_flags():
+    """``--shared-prefix``, ``--prefix-cache``, ``--warmup`` and
+    ``--temperature`` on the CPU: the shared prefix is hit with the cache
+    on and never with it off, warmup enumerates signatures (an eager engine
+    captures none) and sampled requests run to their lengths."""
+    from repro_torch.launch import serve as launcher
+    base = ["--continuous", "--smoke", "--requests", "4", "--new-tokens", "6",
+            "--block-size", "4", "--num-blocks", "64", "--max-running", "3",
+            "--shared-prefix", "8", "--temperature", "0.8", "--warmup", "on",
+            "--device", "cpu"]
+    on = launcher.main(base + ["--prefix-cache", "on"])
+    off = launcher.main(base + ["--prefix-cache", "off"])
+    for name in ("dense", "coala"):
+        m_on, m_off = on["metrics"][name], off["metrics"][name]
+        assert m_on["prefix_hit_rate"] > 0 and m_off["prefix_hit_tokens"] == 0
+        assert m_on["requests"] == 4 and m_on["post_warmup_compiles"] == 0
+        assert on["warmup"][name]["prefill_signatures"] > 0
+        assert m_on["new_tokens"] == sum(nn for _, _, nn in on["trace"])
