@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~6 min on one H100
+    python3 chip_smoke.py              # full run, ~8 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -12,8 +12,13 @@ Phases, each printing its own lines:
 2. build   — compiles the CUDA kernels of ``src/repro_torch/csrc`` with nvcc
              for sm_90a (one nvcc per source, started together);
 3. reference — llama3_1b SMOKE through the kernels on the card vs through the
-             plain versions on the CPU: served logits (within 1e-3), LM.loss
-             with the flash kernel (1e-4) and the calibration Grams (1e-4);
+             plain versions on the CPU: served logits (within 1e-3 in fp32;
+             with a bf16 cache under fp32 activations within 2e-2, under
+             bf16 activations within 4e-2), LM.loss with the flash kernel
+             (1e-4), the calibration Grams (1e-4), and a speculative engine's
+             greedy tokens (a ratio-0.3 draft, k 4; graphs on the card,
+             eager on the CPU): identical, and identical to the CPU's
+             non-speculative tokens;
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
@@ -29,6 +34,19 @@ Phases, each printing its own lines:
              shared-prefix variant with the prefix cache on and off
              (identical tokens, hit rate > 0) and a sampled run at
              temperature 0.8, twice (identical tokens);
+4b. serve-spec — the same launcher with ``--draft-ratio 0.3 --spec-k 4``
+             on the same trace and pool, handed phase 4's models and
+             calibrator so that only the draft is compressed: both targets
+             serve speculatively through CUDA graphs (every spec round one
+             replay), greedy tokens identical to phase 4's, 0 post-warmup
+             captures; then the speculative engine eagerly (identical
+             tokens) and sampled at temperature 0.8 twice (identical);
+4c. serve dtypes — phase 4's models through graphs on the same trace with a
+             bf16 KV cache (COALA) and with bf16 activations and cache
+             (dense and COALA): rates, 0 post-warmup captures, and the share
+             of greedy tokens equal to the fp32 run's with the first
+             divergent position (bf16 may part from fp32; it is reported,
+             not failed);
 5. compress path — the compression launcher's entry point
              (``repro_torch.launch.compress.main``) at full width with its
              defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
@@ -47,19 +65,26 @@ Phases, each printing its own lines:
              summed per layer at decode and at the largest prefill,
              chunked_prefill is also timed at B 4 with cached prefixes,
              paged_attention at 8 rows of 2048 keys, gram_accum per record
-             shape and flash_attention per case and dtype; paged_attention,
-             gram_accum and flash_attention must give the same bits on a
-             second identical call;
+             shape and flash_attention per case and dtype; paged_attention
+             and chunked_prefill also with fp32 q over bf16 pages (the
+             serving dtypes' mixed call) and chunked_prefill at the
+             speculative verifier's shape (L 5, every row past its prefix,
+             as phase 4b called it); paged_attention, gram_accum and
+             flash_attention must give the same bits on a second identical
+             call;
 8. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
-             and eagerly, and the host cost of one wrapper call and of two
-             eager model ops.
+             and eagerly, through graphs in bf16 (activations and cache),
+             of the speculative draft served alone and of speculative
+             rounds, and the host cost of one wrapper call and of two eager
+             model ops.
 
-Launch counts are zeroed just before each of the paths 4-6 and read just
-after: eager launches plus the kernels of every CUDA-graph replay; each
-kernel must have launched on the paths that run it. The shapes of the kernel
-calls are noted on the way for phase 7 (on the serve path in its eager-engine
-runs: a graph's wrapper calls see only the static capture inputs).
+Launch counts are zeroed just before each of the paths 4-6 (4b and 4c
+included) and read just after: eager launches plus the kernels of every
+CUDA-graph replay; each kernel must have launched on the paths that run it.
+The shapes of the kernel calls are noted on the way for phase 7 (on the
+serve paths in their eager-engine runs: a graph's wrapper calls see only the
+static capture inputs).
 
 It then prints one JSON line of per-kernel results, the nvidia-smi line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -88,7 +113,13 @@ LOWRANK_SHAPES = {          # llama3_1b projections at ratio 0.6: (d_in, r, d_ou
     "wo": (2048, 614, 2048), "gate": (2048, 983, 8192), "up": (2048, 983, 8192),
     "down": (8192, 983, 2048)}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # max|err| <= tol * max(1, max|ref|)
-TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}  # bf16 also: any bf16 operand
+# SMOKE served logits card vs CPU per (compute, cache) dtype: fp32 sums in
+# another order; a bf16 cache rounds K and V once as they are written; bf16
+# activations round every projection, norm output and the LM head (a few bf16
+# ulps of a logit of magnitude ~1)
+TOL_SERVE = {("float32", "float32"): 1e-3, ("float32", "bfloat16"): 2e-2,
+             ("bfloat16", "bfloat16"): 4e-2}
 TOL_GRAM = 1e-5             # both dtypes: bf16 converts to fp32 exactly
 SEED = 0
 ITERS = 20                  # timed launches per kernel and variant
@@ -110,6 +141,12 @@ LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6
 # The serve path's variants on the launcher's models: every prompt behind
 # one common 128-token prefix (8 pages), and sampling at temperature 0.8.
 SHARED_PREFIX, TEMPERATURE = 128, 0.8
+# Speculative serving: a draft at ratio 0.3 proposing 4 tokens a round.
+DRAFT_RATIO, SPEC_K = 0.3, 4
+SPEC_ARGS = ["--draft-ratio", str(DRAFT_RATIO), "--spec-k", str(SPEC_K)]
+# the serving dtypes held at full width: (model, compute dtype, cache dtype)
+DTYPE_RUNS = [("coala", "float32", "bfloat16"), ("dense", "bfloat16", "bfloat16"),
+              ("coala", "bfloat16", "bfloat16")]
 # The compression launcher with its own defaults (ratio 0.6, λ 4, 100
 # pretrain steps, 4 calibration batches of 8 x 64 tokens).
 COMPRESS_ARGS = ["--arch", "llama3_1b", "--ratio", "0.6", "--lam", "4",
@@ -198,6 +235,7 @@ def reference_check(torch, dev):
     from repro_torch.core.calibrate import calibrate_model
     from repro_torch.core.compress import compress_model
     from repro_torch.models import build_model
+    from repro_torch.serve.engine import compute_copy
 
     cfg = get_smoke_config("llama3_1b")
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
@@ -206,30 +244,89 @@ def reference_check(torch, dev):
                for _ in range(2)]
     cal = calibrate_model(cpu, batches)
     ccpu, _ = compress_model(cpu, cal, CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    bs, nbk = 16, 16
+    lens = [23, 9, 1]
+    tok = np.zeros((4, 32), np.int32)
+    for i, n in enumerate(lens):
+        tok[i, :n] = rng.randint(0, cfg.vocab_size, n)
+    tables = np.zeros((4, 4), np.int32)
+    tables[0, :2], tables[1, :1], tables[2, :1] = [1, 2], [3], [4]
+    ln = np.array(lens + [1], np.int32)
     for name, m_cpu in (("dense", cpu), ("coala", ccpu)):
         m_gpu = copy.deepcopy(m_cpu).to(dev)
-        bs, nbk = 16, 16
-        lens = [23, 9, 1]
-        tok = np.zeros((4, 32), np.int32)
-        for i, n in enumerate(lens):
-            tok[i, :n] = rng.randint(0, cfg.vocab_size, n)
-        tables = np.zeros((4, 4), np.int32)
-        tables[0, :2], tables[1, :1], tables[2, :1] = [1, 2], [3], [4]
-        ln = np.array(lens + [1], np.int32)
-        outs = []
-        for m, d in ((m_cpu, torch.device("cpu")), (m_gpu, dev)):
-            cache = m.init_cache(nbk, bs)
-            t = lambda a: torch.as_tensor(a, device=d)   # noqa: E731
-            lg = [m.prefill_chunk(t(tok), cache, t(np.zeros(4, np.int32)), t(ln),
-                                  t(tables))]
-            pos = np.array(lens + [0], np.int32)
-            nxt = np.array([[5], [7], [11], [0]], np.int32)
-            for _ in range(2):
-                lg.append(m.decode_step(t(nxt), cache, t(pos), t(tables)))
-                pos[:3] += 1
-            outs.append([x[:3].cpu() for x in lg])
-        for i, (a, b) in enumerate(zip(*outs)):
-            compare(f"reference {name} step {i} (card kernels vs CPU plain)", b, a, 1e-3)
+        for (cdt, kdt), tol in TOL_SERVE.items():
+            compute, cache_dt = getattr(torch, cdt), getattr(torch, kdt)
+            outs = []
+            for m, d in ((m_cpu, torch.device("cpu")), (m_gpu, dev)):
+                m = compute_copy(m, compute)
+                cache = m.init_cache(nbk, bs, dtype=cache_dt)
+                t = lambda a: torch.as_tensor(a, device=d)   # noqa: E731
+                lg = [m.prefill_chunk(t(tok), cache, t(np.zeros(4, np.int32)), t(ln),
+                                      t(tables), compute_dtype=compute)]
+                pos = np.array(lens + [0], np.int32)
+                nxt = np.array([[5], [7], [11], [0]], np.int32)
+                for _ in range(2):
+                    lg.append(m.decode_step(t(nxt), cache, t(pos), t(tables),
+                                            compute_dtype=compute))
+                    pos[:3] += 1
+                outs.append([x[:3].cpu() for x in lg])
+            for i, (a, b) in enumerate(zip(*outs)):
+                compare(f"reference {name} {cdt}/{kdt} cache step {i} (card kernels vs "
+                        "CPU plain)", b, a, tol)
+
+
+def reference_spec(torch, dev):
+    """A speculative SMOKE engine (draft at ``DRAFT_RATIO`` from the same
+    calibration, k ``SPEC_K``) on a staggered trace that preempts: greedy
+    tokens through CUDA graphs on the card equal the eager engine's on the
+    CPU and the CPU's non-speculative tokens. Projections x3 and random
+    norm scales make the tokens vary from step to step."""
+    import copy
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model_pair
+    from repro_torch.launch.serve import serve_trace, synthetic_trace
+    from repro_torch.models import build_model
+    from repro_torch.models.linear import Linear
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = get_smoke_config("llama3_1b")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Linear):
+                mod.w.mul_(3.0)
+        for pname, p in model.named_parameters():
+            if pname.endswith("scale"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    rng = np.random.RandomState(SEED)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 32))) for _ in range(2)]
+    target, draft, _, _ = compress_model_pair(
+        model, calibrate_model(model, batches), CompressConfig(ratio=0.6, lam=4.0, mu=-1.0),
+        draft_ratio=DRAFT_RATIO)
+    knobs = dict(block_size=4, num_blocks=16, max_running=3)
+    trace = synthetic_trace(6, cfg.vocab_size, seed=1, min_prompt=4, max_prompt=20,
+                            max_new=16, arrival_every=1)
+    runs = {}
+    for label, t, d, kw in (("card spec", copy.deepcopy(target).to(dev),
+                             copy.deepcopy(draft).to(dev), dict(spec_k=SPEC_K)),
+                            ("CPU spec", target, draft, dict(spec_k=SPEC_K)),
+                            ("CPU non-spec", target, None, {})):
+        eng = ContinuousEngine(t, draft_model=d, **knobs, **kw)
+        serve_trace(eng, trace)
+        runs[label] = eng, {r.req_id: list(r.out_tokens) for r in eng.finished}
+        eng.release_graphs()
+    m = runs["card spec"][0].metrics()
+    same = runs["card spec"][1] == runs["CPU spec"][1] == runs["CPU non-spec"][1]
+    log(f"  reference spec engine (card graphs vs CPU eager vs CPU non-spec): "
+        f"{m['spec_rounds']} rounds, accept rate {m['spec_accept_rate']:.3f}, "
+        f"{m['preemptions']} preemptions; greedy tokens "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same or m["spec_rounds"] < 1 or len(runs["card spec"][1]) != 6:
+        raise Failure("spec engine: card tokens differ from the CPU's")
 
 
 def reference_loss_grams(torch, dev):
@@ -287,6 +384,7 @@ class KernelCalls:
         self.lowrank_m = collections.Counter()   # rows M -> calls
         self.paged = None      # (B, tables, lengths) of the last largest-batch call
         self.chunked = None    # (B, L, tables, starts, lens) of the largest call
+        self.verify = None     # the same of the largest-batch call at L = SPEC_K + 1
         self.flash = collections.Counter()       # (B, T, Hq, Hkv, hd) -> calls
         self.gram = collections.Counter()        # (k, n) -> calls
 
@@ -306,6 +404,9 @@ class KernelCalls:
         def chunked(q, kp, vp, tables, starts, lens, **kw):
             if self.chunked is None or q.shape[0] * q.shape[1] > math.prod(self.chunked[:2]):
                 self.chunked = (q.shape[0], q.shape[1], tables, starts, lens)
+            if q.shape[1] == SPEC_K + 1 and (self.verify is None
+                                             or q.shape[0] >= self.verify[0]):
+                self.verify = (q.shape[0], q.shape[1], tables, starts, lens)
             return cp(q, kp, vp, tables, starts, lens, **kw)
 
         def flash(q, k, v, **kw):
@@ -344,17 +445,23 @@ class KernelCalls:
             out.update(chunked_l=l_pad, chunked_starts=cs.tolist(),
                        chunked_lens=cl.tolist(),
                        chunked_pad_rows=(ct == 0).all(dim=1).tolist())
+        if self.verify is not None:
+            _, _, vt, vs, vl = self.verify
+            out.update(verify_starts=vs.tolist(), verify_lens=vl.tolist(),
+                       verify_pad_rows=(vt == 0).all(dim=1).tolist())
         return out
 
 
-def _serve_run(torch, model, trace, **kw):
-    """One fresh engine of the serve path's knobs over ``trace``: (engine,
-    metrics, tokens by request id, wall seconds). The engine's graphs are
-    released after the run."""
+def _serve_run(torch, model, trace, *, warmup=False, temperature=0.0, **kw):
+    """One fresh engine of the serve path's knobs over ``trace`` (captured
+    ahead of it with ``warmup``): (engine, metrics, tokens by request id,
+    wall seconds of the trace). The engine's graphs are released after the
+    run."""
     from repro_torch.launch.serve import serve_trace
     from repro_torch.serve import ContinuousEngine
-    temperature = kw.pop("temperature", 0.0)
     eng = ContinuousEngine(model, **ENGINE_KNOBS, **kw)
+    if warmup:
+        eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     met = serve_trace(eng, trace, temperature=temperature)
@@ -370,8 +477,9 @@ def _check_finished(name, eng, trace, vocab):
             len(r.out_tokens) != nn or not all(0 <= t < vocab for t in r.out_tokens)
             for r, (_, _, nn) in zip(fin, trace)):
         raise Failure(f"serve {name}: requests did not all finish with valid tokens")
-    if eng.pool.available_blocks != eng.pool.usable_blocks:
-        raise Failure(f"serve {name}: pages leaked")
+    for pool in (eng.pool, eng.draft_pool):
+        if pool is not None and pool.available_blocks != pool.usable_blocks:
+            raise Failure(f"serve {name}: pages leaked")
 
 
 def _serve_line(met) -> str:
@@ -505,6 +613,126 @@ def serve_path(torch, ops):
     torch.cuda.empty_cache()
     log(f"  launches by run (eager / replayed): {json.dumps(counts)}")
     return out, res, calls.shapes()
+
+
+def _phase4_tokens(res):
+    return {name: {r.req_id: list(r.out_tokens) for r in eng.finished}
+            for name, eng in res["engines"].items()}
+
+
+SPEC_KEYS = ("spec_rounds", "spec_proposed_tokens", "spec_accepted_tokens",
+             "spec_accept_rate")
+
+
+def _spec_line(met) -> str:
+    rounds = max(met["spec_rounds"], 1)
+    return (f"{met['spec_rounds']} rounds, accept rate {met['spec_accept_rate']:.3f} "
+            f"({met['spec_accepted_tokens']}/{met['spec_proposed_tokens']}), "
+            f"{met['decode_seconds'] / rounds * 1e3:.3f} ms per steady round")
+
+
+def serve_spec_path(torch, ops, res):
+    """``repro_torch.launch.serve.main`` with ``LAUNCHER_ARGS + SPEC_ARGS``
+    on phase 4's trace, handed phase 4's result (``reuse``: its models and
+    calibrator, so only the draft is compressed): both targets serve
+    speculatively through CUDA graphs, greedy tokens identical to phase 4's
+    non-speculative ones, 0 post-warmup captures; then, on the same models
+    and draft, the eager speculative engine (identical tokens; its kernel
+    shapes are noted for phase 7) and a sampled run at ``TEMPERATURE``
+    twice on fresh graph engines (identical). Returns (summary, noted
+    kernel shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    vocab = get_config("llama3_1b").vocab_size
+    trace, base = res["trace"], _phase4_tokens(res)
+    keys = ("requests", "new_tokens", "tokens_per_sec", "decode_tok_per_s",
+            "mean_ttft_s", "decode_steps", "decode_seconds", "preemptions",
+            "decode_compiles", "prefill_compiles", "post_warmup_compiles",
+            "warmup_seconds") + SPEC_KEYS
+    spec = launcher.main(LAUNCHER_ARGS + SPEC_ARGS, trace=trace, reuse=res)
+    torch.cuda.synchronize()
+    draft = spec["draft"]
+    out = {"seconds": spec["seconds"], "warmup": spec["warmup"]}
+    for name, eng in spec["engines"].items():
+        met = spec["metrics"][name]
+        _check_finished(f"{name} spec", eng, trace, vocab)
+        toks = {r.req_id: list(r.out_tokens) for r in eng.finished}
+        w = spec["warmup"][name]
+        out[f"spec_{name}"] = {k: met[k] for k in keys}
+        log(f"  [{name}] spec graphs: {_serve_line(met)}; {_spec_line(met)}; warmup "
+            f"{w['warmup_seconds']:.2f} s for {int(w['decode_signatures'])} spec-round + "
+            f"{int(w['prefill_signatures'])} x 2 prefill signatures; greedy tokens "
+            f"{'identical to' if toks == base[name] else 'DIFFER from'} phase 4's")
+        if toks != base[name]:
+            raise Failure(f"serve-spec {name}: tokens differ from the non-speculative run")
+        if (not eng.cuda_graphs or met["post_warmup_compiles"] != 0
+                or met["spec_rounds"] < 1):
+            raise Failure(f"serve-spec {name}: expected graphs, spec rounds and 0 "
+                          f"post-warmup compiles, got {met['post_warmup_compiles']}")
+    with KernelCalls(ops) as calls:
+        for name, m in res["models"].items():
+            eng, met, toks, secs = _serve_run(torch, m, trace, cuda_graphs=False,
+                                              draft_model=draft, spec_k=SPEC_K)
+            _check_finished(f"{name} spec eager", eng, trace, vocab)
+            out[f"spec_{name}_eager"] = dict({k: met[k] for k in keys}, seconds=secs)
+            ok = toks == base[name]
+            log(f"  [{name}] spec eager: {_serve_line(met)}; {_spec_line(met)}; greedy "
+                f"tokens {'identical' if ok else 'DIFFERENT'}")
+            if not ok:
+                raise Failure(f"serve-spec {name}: the eager spec engine disagrees")
+    for name, m in res["models"].items():
+        runs = [_serve_run(torch, m, trace, temperature=TEMPERATURE, draft_model=draft,
+                           spec_k=SPEC_K) for _ in range(2)]
+        for i, (eng, _, _, _) in enumerate(runs):
+            _check_finished(f"{name} spec sampled {i}", eng, trace, vocab)
+        met = runs[0][1]
+        out[f"spec_sampled_{name}"] = {k: met[k] for k in keys}
+        ok = runs[0][2] == runs[1][2]
+        log(f"  [{name}] spec sampled at T {TEMPERATURE}: {_serve_line(met)}; "
+            f"{_spec_line(met)}; second run {'identical' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise Failure(f"serve-spec {name}: two sampled runs with the same seeds differ")
+    res["spec_draft"] = draft              # profiled alone with --profile
+    del spec, draft
+    torch.cuda.empty_cache()
+    return out, calls.shapes()
+
+
+def serve_dtypes_path(torch, res):
+    """Phase 4's models through graphs (warmup first) on its trace at each
+    ``DTYPE_RUNS`` (compute, cache) pair: the rates, 0 post-warmup captures,
+    and the share of greedy tokens equal, position by position, to phase 4's
+    fp32 run's, with the first divergent (request, position). bf16 may
+    legitimately part from the fp32 trajectory: that is reported, not
+    failed."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config("llama3_1b").vocab_size
+    trace, base = res["trace"], _phase4_tokens(res)
+    out = {}
+    for name, cdt, kdt in DTYPE_RUNS:
+        eng, met, toks, secs = _serve_run(
+            torch, res["models"][name], trace, warmup=True,
+            compute_dtype=getattr(torch, cdt), cache_dtype=getattr(torch, kdt))
+        label = f"{name} {cdt}/{kdt} cache"
+        _check_finished(label, eng, trace, vocab)
+        if met["post_warmup_compiles"] != 0:
+            raise Failure(f"serve {label}: {met['post_warmup_compiles']} post-warmup "
+                          "compiles")
+        pairs = [(i, j) for i in sorted(toks) for j in range(len(toks[i]))]
+        same = sum(toks[i][j] == base[name][i][j] for i, j in pairs)
+        first = next(((i, j) for i, j in pairs if toks[i][j] != base[name][i][j]), None)
+        out[f"{name}_{cdt}_{kdt}"] = dict(
+            tokens_per_sec=met["tokens_per_sec"], decode_tok_per_s=met["decode_tok_per_s"],
+            mean_ttft_s=met["mean_ttft_s"], warmup_seconds=met["warmup_seconds"],
+            post_warmup_compiles=met["post_warmup_compiles"], seconds=secs,
+            equal_share=same / len(pairs), first_divergence=first)
+        log(f"  [{label}] graphs: {_serve_line(met)}; warmup {met['warmup_seconds']:.2f} s; "
+            f"{same}/{len(pairs)} greedy tokens equal to the fp32 run's, first divergent "
+            f"(request, position): {first}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -707,9 +935,17 @@ def _sdpa_inputs(torch, q, kp, vp, tables, g):
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
+# (label, q dtype, page dtype): both in one dtype, and the serving dtypes'
+# mixed call, fp32 activations over a bf16 KV cache
+ATTN_DTYPES = [("float32", "float32", "float32"), ("bfloat16", "bfloat16", "bfloat16"),
+               ("q fp32 / pages bf16", "float32", "bfloat16")]
+MIXED = ATTN_DTYPES[2][0]
+
+
 def check_paged(torch, ops, pa_ref, dev, gen, shapes, flush):
-    """paged_attention in fp32 and bf16 at the serve path's decode batch and
-    its edge cases; the line's numbers are the path's fp32 call. The long-row
+    """paged_attention in fp32, bf16 and fp32 q over bf16 pages at the serve
+    path's decode batch and its edge cases; the line's numbers are the
+    path's fp32 call, ``mixed`` the same call over bf16 pages. The long-row
     case (8 rows of 2048 keys, 67 MB of K/V) is the same code path at a
     context where the plan cuts each row into many page splits."""
     import torch.nn.functional as F
@@ -723,27 +959,31 @@ def check_paged(torch, ops, pa_ref, dev, gen, shapes, flush):
              ("window", [0, 37, 1, 200, 16, 0, 90, 5], (), 0.0, 24),
              ("softcap", [0, 37, 1, 200, 16, 0, 90, 5], (), 50.0, 0),
              ("window+softcap", lengths, pad_rows, 30.0, 40)]
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
+    for label, qdtype, kvdtype in ATTN_DTYPES:
+        qdt, kvdt = getattr(torch, qdtype), getattr(torch, kvdtype)
+        tol = TOL_ATTN[kvdtype if qdtype == "float32" else qdtype]
         for name, lens, pads, cap, window in cases:
-            kp, vp, tables = _pages(torch, dev, gen, lens, bs, hkv, hd, dt, pads)
-            q = torch.randn((len(lens), hq, hd), generator=gen, device=dev).to(dt)
+            if label == MIXED and name in ("long rows", "softcap"):
+                continue
+            kp, vp, tables = _pages(torch, dev, gen, lens, bs, hkv, hd, kvdt, pads)
+            q = torch.randn((len(lens), hq, hd), generator=gen, device=dev).to(qdt)
             ln = torch.tensor(lens, dtype=torch.int32, device=dev)
             args = (q, kp, vp, tables, ln)
             got = ops.paged_attention(*args, cap=cap, window=window)
-            err = compare(f"paged_attention {dtype} {name} B={len(lens)}", got,
-                          pa_ref(*args, cap=cap, window=window), TOL_ATTN[dtype])
+            err = compare(f"paged_attention {label} {name} B={len(lens)}", got,
+                          pa_ref(*args, cap=cap, window=window), tol)
             if 0 in lens and not torch.all(got[ln == 0] == 0):
                 raise Failure("paged_attention: zero-length rows are not zero")
             if not torch.equal(ops.paged_attention(*args, cap=cap, window=window), got):
                 raise Failure("paged_attention: two identical calls differ")
-            if dtype == "float32":
+            if label == "float32":
                 res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
-            if dtype != "float32" or name not in ("main", "long rows"):
+            if label == "bfloat16" or name not in ("main", "long rows"):
                 continue
             ms = timed(torch, lambda: ops.paged_attention(*args), flush)
             plain = timed(torch, lambda: pa_ref(*args), flush)
-            k, v = _sdpa_inputs(torch, q, kp, vp, tables, hq // hkv)
+            # the library yardstick is fp32 SDPA (K and V converted outside)
+            k, v = _sdpa_inputs(torch, q, kp.float(), vp.float(), tables, hq // hkv)
             mask = (torch.arange(k.shape[2], device=dev)[None, :]
                     < ln[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
@@ -755,17 +995,21 @@ def check_paged(torch, ops, pa_ref, dev, gen, shapes, flush):
             # the K/V of every attended token, the tables and lengths
             toks = sum(lens)
             q_rows = sum(1 for n in lens if n > 0)
-            nbytes = 4 * ((q_rows + len(lens)) * hq * hd + 2 * toks * hkv * hd
-                          + tables.numel() + len(lens))
-            b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, dtype)
+            nbytes = (q.element_size() * (q_rows + len(lens)) * hq * hd
+                      + kp.element_size() * 2 * toks * hkv * hd
+                      + 4 * (tables.numel() + len(lens)))
+            b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, "float32")
             p = pa.plan(len(lens), hq, hkv, hd, tables.shape[1])
-            log(f"    {name} B={len(lens)} lengths={lens if name == 'main' else lens[0]}"
+            log(f"    {label} {name} B={len(lens)} "
+                f"lengths={lens if name == 'main' else lens[0]}"
                 f"{'' if name == 'main' else ' each'} ({p.splits} splits of {p.per} pages): "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, fp32 SDPA {lib:.4f} ms, bound "
                 f"{b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
             fig = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                        splits=p.splits)
-            if name == "main":      # the line's numbers: the serve path's call
+            if label == MIXED:
+                res["mixed"] = dict(fig, max_abs_err=err)
+            elif name == "main":      # the line's numbers: the serve path's call
                 res.update(fig)
             else:
                 res["long_rows"] = fig
@@ -783,40 +1027,52 @@ def _prefill_pairs(starts, lens, window):
 
 
 def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
+    """chunked_prefill in fp32, bf16 and fp32 q over bf16 pages at the serve
+    path's largest prefill, the speculative verifier's call (phase 4b: L =
+    SPEC_K + 1, every row past its prefix) and edge cases; the line's numbers
+    are the path's fp32 prefill, ``verify`` the verifier's fp32 call and
+    ``mixed`` both over bf16 pages."""
     import torch.nn.functional as F
     hq, hkv, hd, bs = 32, 8, 64, 16
-    res = {}
+    res = {"mixed": {}}
     odd = ([32, 0, 5, 64, 0, 16, 3, 0], [20, 64, 0, 7, 33, 1, 64, 0])
     cases = [("main", shapes["chunked_starts"], shapes["chunked_lens"],
               shapes["chunked_pad_rows"], shapes["chunked_l"], 0.0, 0),
+             ("verify", shapes["verify_starts"], shapes["verify_lens"],
+              shapes["verify_pad_rows"], SPEC_K + 1, 0.0, 0),
              # B 4 with cached prefixes: the split balance across rows
              ("B4", [0, 48, 0, 96], [128, 90, 33, 128], (), 128, 0.0, 0),
              ("starts>0+zero", *odd, (), 64, 0.0, 0),
              ("window", *odd, (), 64, 0.0, 24),
              ("softcap+window", *odd, (), 64, 30.0, 40)]
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
+    timed_cases = {"float32": ("main", "verify", "B4"), MIXED: ("main", "verify")}
+    for label, qdtype, kvdtype in ATTN_DTYPES:
+        qdt, kvdt = getattr(torch, qdtype), getattr(torch, kvdtype)
+        tol = TOL_ATTN[kvdtype if qdtype == "float32" else qdtype]
         for name, starts, lens, pads, lq, cap, window in cases:
+            if label == MIXED and name in ("B4", "window"):
+                continue
             totals = [s + lq for s in starts]
-            kp, vp, tables = _pages(torch, dev, gen, totals, bs, hkv, hd, dt, pads)
-            q = torch.randn((len(lens), lq, hq, hd), generator=gen, device=dev).to(dt)
+            kp, vp, tables = _pages(torch, dev, gen, totals, bs, hkv, hd, kvdt, pads)
+            q = torch.randn((len(lens), lq, hq, hd), generator=gen, device=dev).to(qdt)
             st = torch.tensor(starts, dtype=torch.int32, device=dev)
             ln = torch.tensor(lens, dtype=torch.int32, device=dev)
             args = (q, kp, vp, tables, st, ln)
             got = ops.chunked_prefill(*args, cap=cap, window=window)
             want = cp_ref(*args, cap=cap, window=window)
-            err = compare(f"chunked_prefill {dtype} {name} B={len(lens)} L={lq}",
-                          got, want, TOL_ATTN[dtype])
+            err = compare(f"chunked_prefill {label} {name} B={len(lens)} L={lq}",
+                          got, want, tol)
             for i, n in enumerate(lens):
                 if not torch.all(got[i, n:] == 0):
                     raise Failure("chunked_prefill: padded queries are not zero")
-            if dtype == "float32":
+            if label == "float32":
                 res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
-            if dtype != "float32" or name not in ("main", "B4"):
+            if name not in timed_cases.get(label, ()):
                 continue
             ms = timed(torch, lambda: ops.chunked_prefill(*args), flush)
             plain = timed(torch, lambda: cp_ref(*args), flush)
-            k, v = _sdpa_inputs(torch, q, kp, vp, tables, hq // hkv)
+            # the library yardstick is fp32 SDPA (K and V converted outside)
+            k, v = _sdpa_inputs(torch, q, kp.float(), vp.float(), tables, hq // hkv)
             iq = st[:, None] + torch.arange(lq, device=dev)
             ik = torch.arange(k.shape[2], device=dev)
             mask = ((ik[None, None, :] <= iq[..., None])
@@ -830,15 +1086,18 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
             # every written token, the tables, starts and lens
             real_q = sum(lens)
             toks = sum(s + n for s, n in zip(starts, lens))
-            nbytes = 4 * ((real_q + q.shape[0] * lq) * hq * hd + 2 * toks * hkv * hd
-                          + tables.numel() + 2 * len(lens))
+            nbytes = (q.element_size() * (real_q + q.shape[0] * lq) * hq * hd
+                      + kp.element_size() * 2 * toks * hkv * hd
+                      + 4 * (tables.numel() + 2 * len(lens)))
             ops_n = 4 * hq * hd * _prefill_pairs(starts, lens, window)
-            b_ms, b_by = bound(nbytes, ops_n, dtype)
-            log(f"    {name} B={len(lens)} L={lq} starts={starts} lens={lens}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+            b_ms, b_by = bound(nbytes, ops_n, "float32")
+            log(f"    {label} {name} B={len(lens)} L={lq} starts={starts} lens={lens}: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, fp32 SDPA {lib:.4f} ms, bound "
                 f"{b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
             fig = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-            if name == "main":      # the line's numbers: the serve path's call
+            if label == MIXED:
+                res["mixed"][name] = dict(fig, max_abs_err=err)
+            elif name == "main":      # the line's numbers: the serve path's call
                 res.update(fig)
             else:
                 res[name] = fig
@@ -980,54 +1239,64 @@ def profile_host(torch, dev) -> None:
 def profile_decode(torch, res, steps: int) -> None:
     """Wall time of ``steps`` steady decode steps of each model (every
     request of the trace admitted at once, after their prefill), through
-    CUDA graphs (warmed up first) and through the eager engine, then device
-    time by kernel over ``steps`` more from torch.profiler: the card's busy
-    and idle share of a decode step."""
+    CUDA graphs (warmed up first) and through the eager engine, through
+    graphs in bf16 (activations and cache), of the speculative draft served
+    alone (its decode step is a draft step of a spec round) and of each
+    model's speculative rounds, then
+    device time by kernel over ``steps`` more from torch.profiler: the
+    card's busy and idle share of a decode step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ContinuousEngine
     trace = res["trace"]
     pages = 1 + sum(-(-(len(p) + nn) // 16) for _, p, nn in trace)
     max_len = max(len(p) + nn for _, p, nn in trace)
-    for name, m in res["models"].items():
-        for graphs in (True, False):
-            eng = ContinuousEngine(m, block_size=16, num_blocks=pages, max_running=8,
-                                   cuda_graphs=graphs)
-            if graphs:
-                eng.warmup(max_len=max_len)
-            for _, p, nn in trace:
-                eng.submit(p, nn)
-            eng.step()                              # prefill + first decode step
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()                # wall clock, profiler off
+    bf16 = dict(compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16)
+    variants = [(name, m, graphs, {}) for name, m in res["models"].items()
+                for graphs in (True, False)]
+    variants += [(f"{name} bf16", m, True, bf16) for name, m in res["models"].items()]
+    variants.append((f"draft {DRAFT_RATIO}", res["spec_draft"], True, {}))
+    variants += [(f"{name} spec k {SPEC_K} (a step is a round)", m, True,
+                  dict(draft_model=res["spec_draft"], spec_k=SPEC_K))
+                 for name, m in res["models"].items()]
+    for name, m, graphs, kw in variants:
+        eng = ContinuousEngine(m, block_size=16, num_blocks=pages, max_running=8,
+                               cuda_graphs=graphs, **kw)
+        if graphs:
+            eng.warmup(max_len=max_len)
+        for _, p, nn in trace:
+            eng.submit(p, nn)
+        eng.step()                              # prefill + first decode step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()                # wall clock, profiler off
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(steps):
                 eng.step()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / steps * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    eng.step()
-                torch.cuda.synchronize()
-                wall_prof = (time.perf_counter() - t0) / steps * 1e3
-            if eng.post_warmup_compiles():
-                raise Failure(f"profile {name}: a decode step captured a graph")
-            eng.release_graphs()
-            events = [e for e in prof.key_averages()
-                      if getattr(e, "device_type", None) is not None
-                      and str(e.device_type).endswith("CUDA")]
-            attr = ("self_device_time_total"
-                    if events and hasattr(events[0], "self_device_time_total")
-                    else "self_cuda_time_total")
-            busy = sum(getattr(e, attr) for e in events) / 1e3 / steps
-            how = "graphs" if graphs else "eager"
-            log(f"  profile {name} ({how}): {wall:.3f} ms per decode step (wall, profiler "
-                f"off), device busy {busy:.3f} ms per step under the profiler: "
-                f"{100 * busy / wall:.1f}% of the step's wall time, the card idle "
-                f"{100 - 100 * busy / wall:.1f}% ({wall_prof:.3f} ms per step with the "
-                f"profiler on)")
-            for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
-                log(f"    {getattr(e, attr) / 1e3 / steps:8.4f} ms/step  "
-                    f"x{e.count // steps:<4d} {e.key[:90]}")
+            wall_prof = (time.perf_counter() - t0) / steps * 1e3
+        if eng.post_warmup_compiles():
+            raise Failure(f"profile {name}: a decode step captured a graph")
+        eng.release_graphs()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) is not None
+                  and str(e.device_type).endswith("CUDA")]
+        attr = ("self_device_time_total"
+                if events and hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        busy = sum(getattr(e, attr) for e in events) / 1e3 / steps
+        how = "graphs" if graphs else "eager"
+        log(f"  profile {name} ({how}): {wall:.3f} ms per decode step (wall, profiler "
+            f"off), device busy {busy:.3f} ms per step under the profiler: "
+            f"{100 * busy / wall:.1f}% of the step's wall time, the card idle "
+            f"{100 - 100 * busy / wall:.1f}% ({wall_prof:.3f} ms per step with the "
+            f"profiler on)")
+        for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+            log(f"    {getattr(e, attr) / 1e3 / steps:8.4f} ms/step  "
+                f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
 def run(args) -> int:
@@ -1063,6 +1332,7 @@ def run(args) -> int:
     log("[3 reference] llama3_1b SMOKE: kernels on the card vs plain versions on the CPU")
     reference_check(torch, dev)
     reference_loss_grams(torch, dev)
+    reference_spec(torch, dev)
 
     def path_window(name, kernels, fn):
         """Run one path with the launch counts zeroed just before and read
@@ -1089,6 +1359,25 @@ def run(args) -> int:
     serve["peak_memory_gb"] = peak
     log(f"  phases (s): {serve['seconds']}")
     log(f"  kernel shapes noted on the serve path: {shapes}")
+
+    log("[4b serve-spec] python -m repro_torch.launch.serve " + " ".join(
+        LAUNCHER_ARGS + SPEC_ARGS) + " on the same trace, handed phase 4's models and "
+        "calibrator; then the eager spec engine and a sampled run (T "
+        f"{TEMPERATURE}, twice)")
+    (spec, spec_shapes), spec_counts, peak = path_window(
+        "serve-spec", ("lowrank_linear", "paged_attention", "chunked_prefill"),
+        lambda: serve_spec_path(torch, ops, res))
+    spec["peak_memory_gb"] = peak
+    log(f"  phases (s): {spec['seconds']}")
+    log(f"  kernel shapes noted on the serve-spec path: {spec_shapes}")
+    shapes.update({k: v for k, v in spec_shapes.items() if k.startswith("verify")})
+
+    log("[4c serve dtypes] phase 4's models through graphs at (compute, cache) "
+        f"{[(n, c, k) for n, c, k in DTYPE_RUNS]}")
+    dtypes, dtype_counts, peak = path_window(
+        "serve-dtypes", ("lowrank_linear", "paged_attention", "chunked_prefill"),
+        lambda: serve_dtypes_path(torch, res))
+    dtypes["peak_memory_gb"] = peak
     if not args.profile:
         del res
         torch.cuda.empty_cache()
@@ -1140,16 +1429,22 @@ def run(args) -> int:
                 "chunked_prefill": "src/repro/kernels/chunked_prefill.py:121",
                 "flash_attention": "src/repro/kernels/flash_attention.py:69",
                 "gram_accum": "src/repro/kernels/gram_accum.py:37"}
-    launches = {k: serve_counts[k] + comp_counts[k] + gram_counts[k] for k in replaces}
+    launches = {k: serve_counts[k] + spec_counts[k] + dtype_counts[k] + comp_counts[k]
+                + gram_counts[k] for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
                 "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
                 "bound_by": results[k]["bound_by"],
                 "library_ms": results[k]["library_ms"]} for k in replaces]
-    log(json.dumps({"main_path": {"serve": serve, "compress": comp, "gram": gram},
-                    "launches": {"serve": serve_counts, "compress": comp_counts,
+    log(json.dumps({"main_path": {"serve": serve, "serve_spec": spec,
+                                  "serve_dtypes": dtypes, "compress": comp, "gram": gram},
+                    "launches": {"serve": serve_counts, "serve_spec": spec_counts,
+                                 "serve_dtypes": dtype_counts, "compress": comp_counts,
                                  "gram": gram_counts},
+                    "paged_mixed": results["paged_attention"]["mixed"],
+                    "chunked_mixed": results["chunked_prefill"]["mixed"],
+                    "chunked_verify": results["chunked_prefill"]["verify"],
                     "lowrank_prefill": results["lowrank_linear"]["prefill"],
                     "chunked_b4": results["chunked_prefill"]["B4"],
                     "paged_long_rows": results["paged_attention"]["long_rows"],

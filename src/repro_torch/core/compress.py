@@ -1,18 +1,20 @@
-"""Model-wide compression (port of ``repro/core/compress.py:28-193``,
-``:209-288`` and ``:308-316``).
+"""Model-wide compression (port of ``repro/core/compress.py:28-207``,
+``:209-316``).
 
 For every compressible block linear with a calibrated R factor, solve the
 context-aware low-rank problem — COALA (Algorithm 1/2 with the per-layer μ
 of Eq. 5, full or randomized SVD) or one of the baselines (svd, svd_llm,
 svd_llm_v2, asvd) — and swap the dense ``w`` for the factored ``b_t``/``a_t``
-pair. Adaptive ranks, rank maps and per-expert compression wait for later
-slices.
+pair. ``compress_model_pair`` builds a speculative-decoding target and its
+harder-compressed draft from one calibration pass. Adaptive ranks, the
+``rank_map`` override and per-expert compression wait for later slices.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List, Tuple
+import re
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +118,29 @@ def compress_model(model, calibrator, ccfg: CompressConfig):
             rel_err_bound=float(bound)))
         lin.set_factors(b.T.to(w.dtype), a.T.to(w.dtype))
     return new_model, reports
+
+
+def rank_map_from_reports(reports) -> Dict[str, int]:
+    """Per-layer ranks of a previous compression's reports, keyed by full
+    calibrator path: recompressing with them keeps every factor's shape
+    (what a live hot-swap of the factors needs). Per-expert rows (path
+    suffix '/e<i>') are skipped, as in the JAX package."""
+    return {r.path: r.rank for r in reports
+            if not re.search(r"/e\d+$", r.path)}
+
+
+def compress_model_pair(model, calibrator, ccfg: CompressConfig, *,
+                        draft_ratio: float):
+    """A speculative-decoding target at ``ccfg.ratio`` and a harder-
+    compressed draft at ``draft_ratio`` from ONE calibration pass: both
+    solves reuse the calibrator's R factors. Returns ``(target, draft,
+    target_reports, draft_reports)``."""
+    if not 0.0 < draft_ratio < 1.0:
+        raise ValueError(f"draft_ratio must be in (0, 1), got {draft_ratio}")
+    target, treports = compress_model(model, calibrator, ccfg)
+    dcfg = dataclasses.replace(ccfg, ratio=draft_ratio, rank=0)
+    draft, dreports = compress_model(model, calibrator, dcfg)
+    return target, draft, treports, dreports
 
 
 def compression_summary(reports) -> dict:

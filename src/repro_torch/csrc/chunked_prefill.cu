@@ -36,8 +36,13 @@
 //   window, masked scores NEG_INF = -1e30, the maximum(m, NEG_INF/2) exponent
 //   shift for fully masked rows, output acc / max(l, 1e-30); padded queries
 //   (j >= lens[b]), rows with lens == 0 and dead row tiles give exact zeros.
-// Scores and P.V are fp32 FMAs on the CUDA cores in both dtypes (bf16 K/V
-// are converted as they are read from shared memory).
+// Scores and P.V are fp32 FMAs on the CUDA cores in every dtype pair (q and
+// the output in the compute dtype TQ, the pages in the cache dtype TKV, each
+// fp32 or bf16; bf16 values are converted as they are read from shared
+// memory). As in the Pallas kernel, the probabilities are rounded to the
+// pages' dtype before P.V (p.astype(v.dtype)) while l adds them unrounded.
+// The speculative verifier is this kernel at L = spec_k + 1 with every row at
+// starts > 0: one row tile per (row, KV head) when L * G <= 64.
 
 #include "common.cuh"
 
@@ -48,13 +53,21 @@ constexpr int BR = 64;         // query rows (query, head) per block
 constexpr int BKEYS = 64;      // keys per key tile
 constexpr int PP = BKEYS + 1;  // padded probability row
 
+// Row layout of one operand type in shared memory.
 template <typename T, int HD>
-struct Tile {
+struct Rows {
   static constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte chunk
-  static constexpr int CPR = HD / VEC;          // chunks per K/V/q row
+  static constexpr int CPR = HD / VEC;          // chunks per row
   static constexpr int LD = HD + VEC;           // shared row stride (elements)
+};
+
+// Shared memory: the q tile (TQ), two K and two V tiles (T), the
+// probability rows (fp32).
+template <typename TQ, typename T, int HD>
+struct Tile {
   static constexpr size_t bytes() {
-    return (size_t)(BR + 4 * BKEYS) * LD * sizeof(T) + (size_t)BR * PP * sizeof(float);
+    return (size_t)BR * Rows<TQ, HD>::LD * sizeof(TQ) +
+           (size_t)4 * BKEYS * Rows<T, HD>::LD * sizeof(T) + (size_t)BR * PP * sizeof(float);
   }
 };
 
@@ -78,20 +91,20 @@ __device__ __forceinline__ void live_key_tiles(int rt, int start, int len, int L
 
 // grid: row tiles x B x Hkv x splits (row tile slowest, last tile first).
 // work (splits > 1): ml [splits][B][Hkv][nrt*BR][2] then acc [..][HD].
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+chunked_prefill_kernel(const TQ* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ tables,
                        const int* __restrict__ starts, const int* __restrict__ lens,
-                       T* __restrict__ out, float* __restrict__ work, int B, int L, int Hq,
+                       TQ* __restrict__ out, float* __restrict__ work, int B, int L, int Hq,
                        int Hkv, int bs, int nb, float scale, float cap, int window,
                        int splits, int per, int vec) {
-  using TL = Tile<T, HD>;
-  constexpr int LD = TL::LD, CPR = TL::CPR, VEC = TL::VEC;
+  constexpr int LDQ = Rows<TQ, HD>::LD, CPRQ = Rows<TQ, HD>::CPR, VECQ = Rows<TQ, HD>::VEC;
+  constexpr int LD = Rows<T, HD>::LD, CPR = Rows<T, HD>::CPR, VEC = Rows<T, HD>::VEC;
   constexpr int CO = HD / 16;            // accumulator columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);            // [BR][LD]
-  T* ks = qs + BR * LD;                               // [2][BKEYS][LD]
+  TQ* qs = reinterpret_cast<TQ*>(smem_raw);           // [BR][LDQ]
+  T* ks = reinterpret_cast<T*>(qs + BR * LDQ);        // [2][BKEYS][LD]
   T* vs = ks + 2 * BKEYS * LD;                        // [2][BKEYS][LD]
   float* ps = reinterpret_cast<float*>(vs + 2 * BKEYS * LD);   // [BR][PP]
 
@@ -121,17 +134,18 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int gr = r0 + e / HD;
       if (gr < rows)
         out[((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD + e % HD] =
-            from_f<T>(0.f);
+            from_f<TQ>(0.f);
     }
     return;
   }
 
   // the query tile and the first key tile: commit group 0
-  for (int e = tid; e < BR * CPR; e += THREADS) {
-    const int r = e / CPR, c = e % CPR;
+  for (int e = tid; e < BR * CPRQ; e += THREADS) {
+    const int r = e / CPRQ, c = e % CPRQ;
     const int gr = r0 + r;
-    const T* src = q + ((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD + c * VEC;
-    copy16<T>(qs + r * LD + c * VEC, gr < rows ? src : q, gr < rows, vec);
+    const TQ* src =
+        q + ((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD + c * VECQ;
+    copy16<TQ>(qs + r * LDQ + c * VECQ, gr < rows ? src : q, gr < rows, vec);
   }
   const int* trow = tables + (size_t)b * nb;
   auto issue = [&](int kt, int buf) {
@@ -185,7 +199,7 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int d = 0; d < HD; d += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = load4<T>(qs + (ty * 4 + i) * LD + d);
+      for (int i = 0; i < 4; ++i) qv[i] = load4<TQ>(qs + (ty * 4 + i) * LDQ + d);
 #pragma unroll
       for (int c = 0; c < 4; ++c) kv[c] = load4<T>(kb + (tx + 16 * c) * LD + d);
 #pragma unroll
@@ -227,7 +241,7 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float p = expf(sc[i][c] - shift);
-        ps[(ty * 4 + i) * PP + tx + 16 * c] = p;
+        ps[(ty * 4 + i) * PP + tx + 16 * c] = round_to<T>(p);   // P in the pages' dtype
         sum += p;
       }
 #pragma unroll
@@ -260,10 +274,10 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int i = 0; i < 4; ++i) {
       const int gr = r0 + ty * 4 + i;
       if (gr >= rows) continue;
-      T* orow = out + ((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD;
+      TQ* orow = out + ((size_t)b * L + gr / G) * q_tok + (size_t)(h * G + gr % G) * HD;
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < CO; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / den);
+      for (int c = 0; c < CO; ++c) orow[tx + 16 * c] = from_f<TQ>(acc[i][c] / den);
     }
     return;
   }
@@ -318,22 +332,22 @@ __global__ void combine_kernel(const float* __restrict__ work, const int* __rest
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const T* q, const T* kp, const T* vp, const int* tables, const int* starts,
-                      const int* lens, T* out, float* work, int B, int L, int Hq, int Hkv,
-                      int bs, int nb, float scale, float cap, int window, int splits, int per,
-                      cudaStream_t stream) {
-  const size_t bytes = Tile<T, HD>::bytes();
+template <typename TQ, typename T, int HD>
+cudaError_t launch_hd(const TQ* q, const T* kp, const T* vp, const int* tables,
+                      const int* starts, const int* lens, TQ* out, float* work, int B, int L,
+                      int Hq, int Hkv, int bs, int nb, float scale, float cap, int window,
+                      int splits, int per, cudaStream_t stream) {
+  const size_t bytes = Tile<TQ, T, HD>::bytes();
   static bool configured[MAX_DEVICES] = {};
-  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(chunked_prefill_kernel<T, HD>),
-                                    (int)bytes, configured);
+  cudaError_t err = smem_limit_once(
+      reinterpret_cast<const void*>(chunked_prefill_kernel<TQ, T, HD>), (int)bytes, configured);
   if (err != cudaSuccess) return err;
   const int G = Hq / Hkv;
   const long long nrt = ((long long)L * G + BR - 1) / BR;
   const long long blocks = nrt * B * Hkv * splits;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int vec = aligned16(q) && aligned16(kp) && aligned16(vp);
-  chunked_prefill_kernel<T, HD><<<(unsigned)blocks, THREADS, bytes, stream>>>(
+  chunked_prefill_kernel<TQ, T, HD><<<(unsigned)blocks, THREADS, bytes, stream>>>(
       q, kp, vp, tables, starts, lens, out, work, B, L, Hq, Hkv, bs, nb, scale, cap, window,
       splits, per, vec);
   err = cudaGetLastError();
@@ -341,24 +355,24 @@ cudaError_t launch_hd(const T* q, const T* kp, const T* vp, const int* tables, c
   const long long n = (long long)B * Hkv * L * G * HD;
   long long grid = (n + 255) / 256;
   if (grid > 8192) grid = 8192;
-  combine_kernel<T, HD><<<(unsigned)grid, 256, 0, stream>>>(work, starts, lens, out, B, L, Hq,
+  combine_kernel<TQ, HD><<<(unsigned)grid, 256, 0, stream>>>(work, starts, lens, out, B, L, Hq,
                                                             Hkv, bs, nb, window, splits, per);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
                    const int* starts, const int* lens, void* out, float* work, int B, int L,
                    int Hq, int Hkv, int hd, int bs, int nb, float scale, float cap, int window,
                    int splits, int per, cudaStream_t stream) {
-  const T* qq = static_cast<const T*>(q);
+  const TQ* qq = static_cast<const TQ*>(q);
   const T* kk = static_cast<const T*>(kp);
   const T* vv = static_cast<const T*>(vp);
-  T* o = static_cast<T*>(out);
-#define REPRO_CP_HD(H)                                                                      \
-  case H:                                                                                   \
-    return launch_hd<T, H>(qq, kk, vv, tables, starts, lens, o, work, B, L, Hq, Hkv, bs, nb, \
-                           scale, cap, window, splits, per, stream);
+  TQ* o = static_cast<TQ*>(out);
+#define REPRO_CP_HD(H)                                                                       \
+  case H:                                                                                    \
+    return launch_hd<TQ, T, H>(qq, kk, vv, tables, starts, lens, o, work, B, L, Hq, Hkv, bs, \
+                               nb, scale, cap, window, splits, per, stream);
   switch (hd) {
     REPRO_CP_HD(16)
     REPRO_CP_HD(32)
@@ -377,12 +391,13 @@ extern "C" {
 // starts (B,), lens (B,) int32; out (B, L, Hq, hd); work: the plan's fp32
 // partials (unused when splits == 1). The plan (kernels/chunked_prefill.py)
 // cuts the ceil(nb*bs/64) key tiles into `splits` ranges of `per` tiles.
-// hd in {16, 32, 64, 128}. dtype: 0 = f32, 1 = bf16.
+// hd in {16, 32, 64, 128}. dtype_q (q and out) and dtype_kv (both page
+// stores): 0 = f32, 1 = bf16.
 int repro_chunked_prefill(const void* q, const void* kp, const void* vp, const void* tables,
                           const void* starts, const void* lens, void* out, void* work, int B,
                           int L, int Hq, int Hkv, int hd, int bs, int nb, float scale,
-                          float cap, int window, int splits, int per, int dtype,
-                          void* stream) {
+                          float cap, int window, int splits, int per, int dtype_q,
+                          int dtype_kv, void* stream) {
   if (B <= 0 || L <= 0 || Hkv <= 0 || Hq % Hkv != 0 || hd <= 0 || bs <= 0 || nb <= 0)
     return (int)cudaErrorInvalidValue;
   const long long nkt = ((long long)nb * bs + BKEYS - 1) / BKEYS;
@@ -394,12 +409,15 @@ int repro_chunked_prefill(const void* q, const void* kp, const void* vp, const v
   const int* st = static_cast<const int*>(starts);
   const int* ln = static_cast<const int*>(lens);
   float* w = static_cast<float*>(work);
-  if (dtype == 0)
-    return (int)launch<float>(q, kp, vp, t, st, ln, out, w, B, L, Hq, Hkv, hd, bs, nb, scale,
-                              cap, window, splits, per, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, kp, vp, t, st, ln, out, w, B, L, Hq, Hkv, hd, bs, nb,
-                                      scale, cap, window, splits, per, s);
+#define REPRO_CP_CALL(TQ, TKV)                                                             \
+  return (int)launch<TQ, TKV>(q, kp, vp, t, st, ln, out, w, B, L, Hq, Hkv, hd, bs, nb, scale, \
+                              cap, window, splits, per, s)
+  using bf16 = __nv_bfloat16;
+  if (dtype_q == 0 && dtype_kv == 0) REPRO_CP_CALL(float, float);
+  if (dtype_q == 1 && dtype_kv == 1) REPRO_CP_CALL(bf16, bf16);
+  if (dtype_q == 0 && dtype_kv == 1) REPRO_CP_CALL(float, bf16);
+  if (dtype_q == 1 && dtype_kv == 0) REPRO_CP_CALL(bf16, float);
+#undef REPRO_CP_CALL
   return (int)cudaErrorInvalidValue;
 }
 

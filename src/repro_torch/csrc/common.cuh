@@ -25,6 +25,10 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+// v rounded to T's precision, as fp32 (the identity for float).
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
 
 // 16-byte asynchronous copy global -> shared; both addresses 16-byte
 // aligned. Completion is tracked per thread in commit groups.

@@ -44,8 +44,11 @@
 //   (len-1-ik) < window, softcap cap*tanh(s/cap) before the mask, the
 //   maximum(m, NEG_INF/2) exponent shift and the finalization
 //   acc / max(l, 1e-30), so a length-0 row gives exact zeros.
-// Scores and P.V are fp32 FMAs in both dtypes (bf16 K/V are converted as
-// they are read from shared memory).
+// Scores and P.V are fp32 FMAs in every dtype pair (q and the output in
+// the compute dtype TQ, the pages in the cache dtype TKV, each fp32 or bf16;
+// bf16 values are converted as they are read). As in the Pallas kernel, the
+// probabilities are rounded to the pages' dtype before P.V (p.astype(v.dtype))
+// while the row sum l adds them unrounded.
 
 #include "common.cuh"
 
@@ -90,11 +93,11 @@ __device__ __forceinline__ void attended_keys(int length, int window, int keys, 
 // grid (B * Hkv, splits); block (b * Hkv + h, s) attends pages
 // [s * per, min(nb, (s + 1) * per)). work (splits > 1): ml [splits][B][Hq][2]
 // then acc [splits][B][Hq][HD].
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+paged_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ tables,
-                       const int* __restrict__ lengths, T* __restrict__ out,
+                       const int* __restrict__ lengths, TQ* __restrict__ out,
                        float* __restrict__ work, int Hq, int Hkv, int bs, int nb, float scale,
                        float cap, int window, int per, int vec) {
   using LY = Layout<T, HD>;
@@ -115,7 +118,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int length = lengths[b];
   const int* trow = tables + (size_t)b * nb + pg0;
   for (int i = tid; i < np; i += THREADS) tbl[i] = trow[i];
-  const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * HD;   // G heads, contiguous
+  const TQ* qb = q + ((size_t)b * Hq + (size_t)h * G) * HD;   // G heads, contiguous
   for (int e = tid; e < G * HD; e += THREADS) qs[e] = to_f(qb[e]);
   int klo, khi;
   attended_keys(length, window, nb * bs, klo, khi);
@@ -211,7 +214,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       corr[g] = expf(m[g] - m_new);
       l[g] = l[g] * corr[g] + sum;
       m[g] = m_new;
-      if (hh == 0) wps[g * KG + j] = p;
+      if (hh == 0) wps[g * KG + j] = round_to<T>(p);   // P in the pages' dtype
     }
     __syncwarp();                         // probabilities visible to the warp
 #pragma unroll
@@ -278,7 +281,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     const size_t row = (size_t)b * Hq + (size_t)h * G + g;
     if (splits == 1) {
-      out[row * HD + d] = from_f<T>(a / fmaxf(lsum, 1e-30f));
+      out[row * HD + d] = from_f<TQ>(a / fmaxf(lsum, 1e-30f));
     } else {
       const size_t slot = (size_t)s * rows + row;
       if (d == 0) {
@@ -316,9 +319,9 @@ __global__ void paged_combine_kernel(const float* __restrict__ work,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const T* q, const T* kp, const T* vp, const int* tables,
-                      const int* lengths, T* out, float* work, int B, int Hq, int Hkv, int bs,
+template <typename TQ, typename T, int HD>
+cudaError_t launch_hd(const TQ* q, const T* kp, const T* vp, const int* tables,
+                      const int* lengths, TQ* out, float* work, int B, int Hq, int Hkv, int bs,
                       int nb, float scale, float cap, int window, int splits, int per,
                       cudaStream_t stream) {
   const int G = Hq / Hkv;
@@ -326,36 +329,36 @@ cudaError_t launch_hd(const T* q, const T* kp, const T* vp, const int* tables,
   const size_t bytes = Layout<T, HD>::bytes(G, per);
   if (bytes > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
   static bool configured[MAX_DEVICES] = {};
-  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(paged_attention_kernel<T, HD>),
-                                    SMEM_MAX, configured);
+  cudaError_t err = smem_limit_once(
+      reinterpret_cast<const void*>(paged_attention_kernel<TQ, T, HD>), SMEM_MAX, configured);
   if (err != cudaSuccess) return err;
   const int vec = aligned16(kp) && aligned16(vp);
-  paged_attention_kernel<T, HD><<<dim3((unsigned)(B * Hkv), (unsigned)splits), THREADS, bytes,
-                                  stream>>>(q, kp, vp, tables, lengths, out, work, Hq, Hkv, bs,
+  paged_attention_kernel<TQ, T, HD><<<dim3((unsigned)(B * Hkv), (unsigned)splits), THREADS,
+                                      bytes, stream>>>(q, kp, vp, tables, lengths, out, work, Hq, Hkv, bs,
                                             nb, scale, cap, window, per, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long n = (long long)B * Hq * HD;
   long long grid = (n + 255) / 256;
   if (grid > 8192) grid = 8192;
-  paged_combine_kernel<T><<<(unsigned)grid, 256, 0, stream>>>(work, lengths, out, B, Hq, HD, bs,
+  paged_combine_kernel<TQ><<<(unsigned)grid, 256, 0, stream>>>(work, lengths, out, B, Hq, HD, bs,
                                                               nb, window, splits, per);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
                    const int* lengths, void* out, float* work, int B, int Hq, int Hkv, int hd,
                    int bs, int nb, float scale, float cap, int window, int splits, int per,
                    cudaStream_t stream) {
-  const T* qq = static_cast<const T*>(q);
+  const TQ* qq = static_cast<const TQ*>(q);
   const T* kk = static_cast<const T*>(kp);
   const T* vv = static_cast<const T*>(vp);
-  T* o = static_cast<T*>(out);
-#define REPRO_PA_HD(H)                                                                      \
-  case H:                                                                                   \
-    return launch_hd<T, H>(qq, kk, vv, tables, lengths, o, work, B, Hq, Hkv, bs, nb, scale, \
-                           cap, window, splits, per, stream);
+  TQ* o = static_cast<TQ*>(out);
+#define REPRO_PA_HD(H)                                                                       \
+  case H:                                                                                    \
+    return launch_hd<TQ, T, H>(qq, kk, vv, tables, lengths, o, work, B, Hq, Hkv, bs, nb,     \
+                               scale, cap, window, splits, per, stream);
   switch (hd) {
     REPRO_PA_HD(16)
     REPRO_PA_HD(32)
@@ -374,12 +377,12 @@ extern "C" {
 // lengths (B,) int32; out (B, Hq, hd); work: the plan's fp32 partials
 // (splits x B x Hq x (hd + 2); unused when splits == 1). The plan
 // (kernels/paged_attention.py) cuts the nb pages into `splits` ranges of
-// `per` pages. hd in {16, 32, 64, 128}, Hq / Hkv <= 8. dtype: 0 = float32,
-// 1 = bfloat16.
+// `per` pages. hd in {16, 32, 64, 128}, Hq / Hkv <= 8. dtype_q (q and out)
+// and dtype_kv (both page stores): 0 = float32, 1 = bfloat16.
 int repro_paged_attention(const void* q, const void* kp, const void* vp, const void* tables,
                           const void* lengths, void* out, void* work, int B, int Hq, int Hkv,
                           int hd, int bs, int nb, float scale, float cap, int window,
-                          int splits, int per, int dtype, void* stream) {
+                          int splits, int per, int dtype_q, int dtype_kv, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || hd <= 0 || bs <= 0 || nb <= 0)
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || per < 1 || (long long)(splits - 1) * per >= nb ||
@@ -390,12 +393,15 @@ int repro_paged_attention(const void* q, const void* kp, const void* vp, const v
   const int* t = static_cast<const int*>(tables);
   const int* l = static_cast<const int*>(lengths);
   float* w = static_cast<float*>(work);
-  if (dtype == 0)
-    return (int)launch<float>(q, kp, vp, t, l, out, w, B, Hq, Hkv, hd, bs, nb, scale, cap,
-                              window, splits, per, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, kp, vp, t, l, out, w, B, Hq, Hkv, hd, bs, nb, scale,
-                                      cap, window, splits, per, s);
+#define REPRO_PA_CALL(TQ, TKV)                                                              \
+  return (int)launch<TQ, TKV>(q, kp, vp, t, l, out, w, B, Hq, Hkv, hd, bs, nb, scale, cap, \
+                              window, splits, per, s)
+  using bf16 = __nv_bfloat16;
+  if (dtype_q == 0 && dtype_kv == 0) REPRO_PA_CALL(float, float);
+  if (dtype_q == 1 && dtype_kv == 1) REPRO_PA_CALL(bf16, bf16);
+  if (dtype_q == 0 && dtype_kv == 1) REPRO_PA_CALL(float, bf16);
+  if (dtype_q == 1 && dtype_kv == 0) REPRO_PA_CALL(bf16, float);
+#undef REPRO_PA_CALL
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,9 +34,9 @@ SIGNATURES = {
     "repro_lowrank_linear": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P]),
     "repro_paged_attention": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _F, _I, _I, _I, _I, _P]),
+                                   _F, _F, _I, _I, _I, _I, _I, _P]),
     "repro_chunked_prefill": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _F, _I, _I, _I, _I, _P]),
+                                   _I, _I, _F, _F, _I, _I, _I, _I, _I, _P]),
     "repro_flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                                    _P]),
     "repro_gram_accum": (_I, [_P, _P, _I, _I, _I, _I, _P]),

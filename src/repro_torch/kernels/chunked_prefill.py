@@ -85,7 +85,8 @@ def chunked_prefill(q, k_pages, v_pages, block_tables, starts, lens, *,
 
     q: (B, L, Hq, hd) — each row's suffix queries, rotary already applied,
       right-padded to the shared length bucket ``L``.
-    k_pages/v_pages: (num_blocks, bs, Hkv, hd) — already holding the suffix K/V.
+    k_pages/v_pages: (num_blocks, bs, Hkv, hd) — already holding the suffix
+      K/V, in the cache dtype (fp32 or bf16, q's or not).
     block_tables: (B, nb) int32; starts: (B,) int32 cached-prefix lengths;
     lens: (B,) int32 valid suffix tokens per row (padded queries past
       ``lens[b]`` and rows with ``lens[b] == 0`` return zeros).
@@ -126,7 +127,8 @@ def _launch(q, k_pages, v_pages, block_tables, starts, lens, *, scale, cap,
             block_tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
             out.data_ptr(), 0 if work is None else work.data_ptr(), b, lq, hq,
             hkv, hd, bs, nb, float(scale), float(cap), int(window), p.splits,
-            p.per, DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            p.per, DTYPES[q.dtype], DTYPES[k_pages.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "chunked_prefill")
     launches += 1
     return out
@@ -136,7 +138,8 @@ def chunked_prefill_ref(q, k_pages, v_pages, block_tables, starts, lens, *,
                         scale=None, cap: float = 0.0, window: int = 0):
     """Plain PyTorch version and test oracle: gathers only the pages named
     by the block tables and runs a masked softmax in fp32 with per-row
-    prefix-offset causal masks."""
+    prefix-offset causal masks; the probabilities are rounded to the pages'
+    dtype before P·V, as the Pallas kernel does (a no-op for fp32 pages)."""
     b, lq, hq, hd = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
     g = hq // hkv
@@ -161,6 +164,7 @@ def chunked_prefill_ref(q, k_pages, v_pages, block_tables, starts, lens, *,
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))          # all-masked -> 0
     l = torch.sum(p, dim=-1, keepdim=True)
+    p = p.to(v_pages.dtype).float()
     o = torch.einsum("bkgls,bskd->blkgd", p / torch.clamp(l, min=1e-30),
                      v.float())
     return o.reshape(b, lq, hq, hd).to(q.dtype)
@@ -171,8 +175,8 @@ def chunked_prefill_split_ref(q, k_pages, v_pages, block_tables, starts, lens, *
     """Plain version of the kernel's split and combine: query rows r = j*G + g
     of each (row, KV head) in tiles of ``ROWS``, keys in tiles of ``KEYS``
     cut into the plan's ranges. Each split computes
-    (m, l, acc) over its keys with the masks and the NEG_INF/2 shift of
-    ``chunked_prefill_ref``; the combine takes, per row tile, exactly the
+    (m, l, acc) over its keys with the masks, the NEG_INF/2 shift and the P
+    rounding of ``chunked_prefill_ref``; the combine takes, per row tile, exactly the
     splits its live key range reaches, in split order."""
     b, lq, hq, hd = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
@@ -213,8 +217,8 @@ def chunked_prefill_split_ref(q, k_pages, v_pages, block_tables, starts, lens, *
         m = torch.amax(ss, dim=-1)                              # (B, Hkv, R)
         pr = torch.exp(ss - torch.clamp(m, min=NEG_INF / 2)[..., None])
         live = (sp * per <= hi) & (lo <= (sp + 1) * per - 1)     # (B, R)
-        parts.append((m, pr.sum(-1), torch.einsum("bhrk,bkhd->bhrd", pr, v[:, a:e]),
-                      live[:, None]))
+        pv = torch.einsum("bhrk,bkhd->bhrd", pr.to(v_pages.dtype).float(), v[:, a:e])
+        parts.append((m, pr.sum(-1), pv, live[:, None]))
     mx = torch.full_like(parts[0][0], NEG_INF)
     for m, _, _, live in parts:
         mx = torch.where(live, torch.maximum(mx, m), mx)

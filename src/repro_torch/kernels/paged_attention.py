@@ -63,7 +63,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     """Decode-step attention over a paged KV cache.
 
     q: (B, Hq, hd) — one query token per request, already rotary-embedded.
-    k_pages/v_pages: (num_blocks, bs, Hkv, hd) — the shared block pool.
+    k_pages/v_pages: (num_blocks, bs, Hkv, hd) — the shared block pool, in
+      the cache dtype (fp32 or bf16, q's or not).
     block_tables: (B, nb) int32 — page ids per request, padded with page 0.
     lengths: (B,) int32 — valid positions per request (query at length-1);
       0 marks a padding row and yields a zero output row.
@@ -80,18 +81,21 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
 
 
 def check_paged_args(name, q, k_pages, v_pages, block_tables, int_args):
-    """Validate the arguments shared by the two paged attention kernels."""
+    """Validate the arguments shared by the two paged attention kernels: q
+    in the compute dtype and the pages in the cache dtype, each fp32 or
+    bf16, the two page stores in one dtype."""
     if k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: pages must be (num_blocks, bs, Hkv, hd)")
     hkv, hd = k_pages.shape[2], k_pages.shape[3]
     if q.shape[-1] != hd or q.shape[-2] % hkv:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit pages "
                          f"{tuple(k_pages.shape)}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
-    for arg, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, q is {q.dtype}")
+    for arg, t in (("q", q), ("k_pages", k_pages)):
+        if t.dtype not in DTYPES:
+            raise ValueError(f"{name}: unsupported {arg} dtype {t.dtype}")
+    if v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{name}: v_pages is {v_pages.dtype}, k_pages is "
+                         f"{k_pages.dtype}")
     b = q.shape[0]
     if block_tables.ndim != 2 or block_tables.shape[0] != b:
         raise ValueError(f"{name}: block_tables must be (B, nb)")
@@ -138,7 +142,7 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, *, scale, cap, window):
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(), b, hq, hkv, hd, bs, nb,
             float(scale), float(cap), int(window), p.splits, p.per,
-            DTYPES[q.dtype], stream)
+            DTYPES[q.dtype], DTYPES[k_pages.dtype], stream)
     _build.check(err, "paged_attention")
     launches += 1
     return out
@@ -147,7 +151,9 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, *, scale, cap, window):
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                         scale=None, cap: float = 0.0, window: int = 0):
     """Plain PyTorch version and test oracle: gathers only the pages named
-    by the block tables and runs a masked softmax in fp32."""
+    by the block tables and runs a masked softmax in fp32; the probabilities
+    are rounded to the pages' dtype before P·V, as the Pallas kernel does
+    (``p.astype(v.dtype)``; a no-op for fp32 pages)."""
     b, hq, hd = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
     g = hq // hkv
@@ -170,6 +176,7 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))   # all-masked rows -> 0
     l = torch.sum(p, dim=-1, keepdim=True)
+    p = p.to(v_pages.dtype).float()
     o = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30), v.float())
     return o.reshape(b, hq, hd).to(q.dtype)
 
@@ -177,8 +184,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
 def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
                               scale=None, cap: float = 0.0, window: int = 0):
     """Plain version of the kernel's split and combine: the plan's page
-    ranges each give (m, l, acc) over their keys with the masks and the
-    NEG_INF/2 shift of ``paged_attention_ref``; the combine takes, per row,
+    ranges each give (m, l, acc) over their keys with the masks, the
+    NEG_INF/2 shift and the P rounding of ``paged_attention_ref``; the
+    combine takes, per row,
     exactly the splits holding an attended key, in split order, and a row
     with none gives zeros."""
     b, hq, hd = q.shape
@@ -211,8 +219,8 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
         m = torch.amax(ss, dim=-1)                              # (B, Hkv, G)
         pr = torch.exp(ss - torch.clamp(m, min=NEG_INF / 2)[..., None])
         live = torch.clamp(klo, min=a) < torch.clamp(khi, max=e)   # (B,)
-        parts.append((m, pr.sum(-1), torch.einsum("bkgs,bskd->bkgd", pr, v[:, a:e]),
-                      live[:, None, None]))
+        pv = torch.einsum("bkgs,bskd->bkgd", pr.to(v_pages.dtype).float(), v[:, a:e])
+        parts.append((m, pr.sum(-1), pv, live[:, None, None]))
     mx = torch.full_like(parts[0][0], NEG_INF)
     for m, _, _, live in parts:
         mx = torch.where(live, torch.maximum(mx, m), mx)

@@ -12,13 +12,18 @@ On the GPU each engine replays one CUDA graph per step signature;
 ``--warmup on`` captures the whole set the trace can reach before serving.
 ``--prefix-cache`` (auto = on) reuses cached block-aligned prompt prefixes,
 ``--shared-prefix N`` prepends one common N-token prefix to every prompt,
-and ``--temperature`` samples instead of taking the argmax. The fixed-batch
-engine, serving dtypes, speculation, recalibration and telemetry wait for
-later slices.
+and ``--temperature`` samples instead of taking the argmax.
+``--draft-ratio R --spec-k K`` serves both models speculatively: a draft
+COALA-compressed at ratio R from the same calibration pass proposes K
+tokens a round and the served model verifies them (greedy tokens are those
+of the non-speculative run). Like the JAX launcher it serves in fp32:
+the serving dtypes are the engine's ``compute_dtype``/``cache_dtype``. The
+fixed-batch engine, recalibration and telemetry wait for later slices.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -28,7 +33,8 @@ from repro_torch import resolve_device
 from repro_torch.config import CompressConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.calibrate import calibrate_model
-from repro_torch.core.compress import compress_model, compression_summary
+from repro_torch.core.compress import (compress_model, compress_model_pair,
+                                       compression_summary)
 from repro_torch.models import build_model
 from repro_torch.models.common import ParallelCtx
 from repro_torch.serve import ContinuousEngine
@@ -88,20 +94,33 @@ def _seconds(device, fn):
     return out, time.perf_counter() - t0
 
 
-def _compressed_params(model, batches, ratio: float):
-    """COALA-compress at ``ratio`` with the launcher's settings (λ = 4, μ
-    per layer from Eq. 5). The calibration forward takes the flash kernel
-    (``use_pallas``). Returns (compressed model, reports, seconds of
-    calibration and of compression)."""
+def _ccfg(ratio: float) -> CompressConfig:
+    """The launcher's COALA settings: λ = 4, μ per layer from Eq. 5."""
+    return CompressConfig(method="coala", ratio=ratio, lam=4.0, mu=-1.0)
+
+
+def _compressed_params(model, batches, ratio: float, draft_ratio: float = 0.0):
+    """COALA-compress at ``ratio``; with ``draft_ratio`` also build the
+    harder-compressed speculative draft from the same calibration pass
+    (``compress_model_pair``). The calibration forward takes the flash
+    kernel (``use_pallas``). Returns (compressed model, draft or None,
+    reports, calibrator, seconds of calibration and of compression)."""
     cal, cal_s = _seconds(model.device, lambda: calibrate_model(
         model, batches, ctx=ParallelCtx(use_pallas=True)))
-    ccfg = CompressConfig(method="coala", ratio=ratio, lam=4.0, mu=-1.0)
-    (cmodel, reports), comp_s = _seconds(
-        model.device, lambda: compress_model(model, cal, ccfg))
+    dmodel = None
+    if draft_ratio > 0:
+        (cmodel, dmodel, reports, dreports), comp_s = _seconds(
+            model.device, lambda: compress_model_pair(
+                model, cal, _ccfg(ratio), draft_ratio=draft_ratio))
+        print("draft compression:", compression_summary(dreports))
+    else:
+        (cmodel, reports), comp_s = _seconds(
+            model.device, lambda: compress_model(model, cal, _ccfg(ratio)))
     print("compression:", compression_summary(reports))
-    print(f"calibration {cal_s:.2f}s, compression of {len(reports)} "
-          f"linears {comp_s:.2f}s")
-    return cmodel, reports, {"calibrate": cal_s, "compress": comp_s}
+    print(f"calibration {cal_s:.2f}s, compression of "
+          f"{len(reports) * (2 if dmodel is not None else 1)} linears "
+          f"{comp_s:.2f}s")
+    return cmodel, dmodel, reports, cal, {"calibrate": cal_s, "compress": comp_s}
 
 
 def _parse_buckets(spec: str):
@@ -109,20 +128,35 @@ def _parse_buckets(spec: str):
     return tuple(int(s) for s in spec.split(",") if s.strip()) or None
 
 
-def run_continuous(args, cfg, model, trace=None):
+def run_continuous(args, cfg, model, trace=None, reuse=None):
     """Calibrate, compress, then serve ``trace`` (default: the launcher's
-    synthetic trace) with the dense and the compressed model. Returns a dict
-    with the compression ``reports`` and, per model name ("dense",
-    "coala"), its ``models``, ``engines`` and ``metrics``, plus the
-    ``seconds`` of each phase."""
+    synthetic trace) with the dense and the compressed model, speculatively
+    with ``--draft-ratio``. Returns a dict with the compression ``reports``,
+    the ``calibrator``, the ``draft`` (or None) and, per model name
+    ("dense", "coala"), its ``models``, ``engines`` and ``metrics``, plus
+    the ``seconds`` of each phase. ``reuse``, an earlier result of the same
+    arguments, supplies the calibrator and the compressed model, so that
+    only the draft is compressed."""
     if args.requests <= 0:
         print("no requests to serve")
         return None
     ratio = args.compress_ratio if args.compress_ratio > 0 else 0.6
-    batches = calibration_batches(cfg.vocab_size, n_batches=2,
-                                  batch=args.requests, seq_len=args.prompt_len,
-                                  seed=args.seed, device=model.device)
-    cmodel, reports, seconds = _compressed_params(model, batches, ratio)
+    if reuse is None:
+        batches = calibration_batches(cfg.vocab_size, n_batches=2,
+                                      batch=args.requests,
+                                      seq_len=args.prompt_len, seed=args.seed,
+                                      device=model.device)
+        cmodel, dmodel, reports, cal, seconds = _compressed_params(
+            model, batches, ratio, args.draft_ratio)
+    else:
+        cal, cmodel, reports = (reuse["calibrator"], reuse["models"]["coala"],
+                                reuse["reports"])
+        dmodel, seconds = None, {}
+        if args.draft_ratio > 0:
+            dcfg = dataclasses.replace(_ccfg(ratio), ratio=args.draft_ratio)
+            (dmodel, dreports), seconds["compress_draft"] = _seconds(
+                model.device, lambda: compress_model(model, cal, dcfg))
+            print("draft compression:", compression_summary(dreports))
     if trace is None:
         trace = synthetic_trace(args.requests, cfg.vocab_size, seed=args.seed,
                                 max_new=args.new_tokens,
@@ -130,17 +164,20 @@ def run_continuous(args, cfg, model, trace=None):
     prefix = {"auto": None, "on": True, "off": False}[args.prefix_cache]
     # warm for exactly the worst per-request cache need this trace can hit
     warm_len = max(len(p) + nn for _, p, nn in trace)
-    out = {"reports": reports, "trace": trace, "seconds": seconds,
+    out = {"reports": reports, "calibrator": cal, "draft": dmodel,
+           "trace": trace, "seconds": seconds,
            "models": {"dense": model, "coala": cmodel},
            "engines": {}, "metrics": {}, "warmup": {}}
     for name, m in out["models"].items():
+        # the dense and the compressed target serve with the same draft
         eng = ContinuousEngine(m, block_size=args.block_size,
                                num_blocks=args.num_blocks,
                                max_running=args.max_running,
                                bucket_sizes=_parse_buckets(args.bucket_sizes),
                                prefix_cache=prefix,
                                prefill_bucket_sizes=_parse_buckets(
-                                   args.prefill_bucket_sizes))
+                                   args.prefill_bucket_sizes),
+                               draft_model=dmodel, spec_k=args.spec_k)
         if args.warmup == "on":
             w = out["warmup"][name] = eng.warmup(max_len=warm_len)
             print(f"[{name}] warmup: {w['warmup_seconds']:.2f}s for "
@@ -170,6 +207,12 @@ def run_continuous(args, cfg, model, trace=None):
               f"{met['preemptions']} preemptions"
               + (f"; {met['post_warmup_compiles']} post-warmup compiles"
                  if args.warmup == "on" else ""))
+        if dmodel is not None:
+            print(f"[{name}] speculative (draft ratio {args.draft_ratio}, "
+                  f"k={int(met['spec_k'])}): {met['spec_rounds']} rounds, "
+                  f"accept rate {met['spec_accept_rate']:.2f} "
+                  f"({met['spec_accepted_tokens']}/"
+                  f"{met['spec_proposed_tokens']} draft tokens)")
         print(f"[{name}] prefill: {met['prefill_tok_per_s']:.1f} suffix "
               f"tok/s steady-state, {met['prefill_compiles']} captures / "
               f"{met['prefill_batches']} batched calls; prefix cache "
@@ -182,9 +225,10 @@ def run_continuous(args, cfg, model, trace=None):
     return out
 
 
-def main(argv=None, trace=None):
-    """Command-line entry point; ``trace`` replaces the synthetic trace
-    (see ``run_continuous``, whose result it returns)."""
+def main(argv=None, trace=None, reuse=None):
+    """Command-line entry point; ``trace`` replaces the synthetic trace and
+    ``reuse`` an earlier result supplies the models, the calibrator and the
+    compressed model (see ``run_continuous``, whose result it returns)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_1b")
     ap.add_argument("--smoke", action="store_true")
@@ -192,6 +236,15 @@ def main(argv=None, trace=None):
                     help="continuous batching over the paged KV cache (the "
                          "only serving mode ported so far)")
     ap.add_argument("--compress-ratio", type=float, default=0.0)
+    ap.add_argument("--draft-ratio", type=float, default=0.0,
+                    help="self-speculative decoding: also build a harder-"
+                         "compressed COALA draft at this kept-parameter "
+                         "ratio from the same calibration pass, and serve "
+                         "with draft-proposed tokens verified by the target "
+                         "(0 = off)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculative round "
+                         "(used with --draft-ratio)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16,
                     help="calibration sequence length")
@@ -227,9 +280,13 @@ def main(argv=None, trace=None):
         ap.error("only --continuous serving is ported so far")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model, init_s = _seconds(device, lambda: build_model(cfg, device=device).init(gen))
-    out = run_continuous(args, cfg, model, trace=trace)
+    if reuse is not None:
+        model, init_s = reuse["models"]["dense"], 0.0
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model, init_s = _seconds(
+            device, lambda: build_model(cfg, device=device).init(gen))
+    out = run_continuous(args, cfg, model, trace=trace, reuse=reuse)
     if out is not None:
         out["seconds"]["init"] = init_s
     return out

@@ -196,24 +196,40 @@ class LM(torch.nn.Module):
             return self._backbone(tokens, ctx=ctx)
 
     @torch.no_grad()
-    def prefill_chunk(self, tokens, cache, pos, lens, block_tables):
+    def prefill_chunk(self, tokens, cache, pos, lens, block_tables, *,
+                      compute_dtype=None):
         """Prefill a batch of suffix chunks at per-request cache offsets.
 
         tokens (B, L) int — row i's un-cached prompt suffix right-padded to
         the length bucket L; pos (B,) int32 start offsets; lens (B,) int32
         valid tokens per row; block_tables (B, nb) int32. The suffix K/V are
-        written into the page stores of ``cache`` in place. Returns the
-        logits at each row's last valid token, (B, vocab)."""
-        h = self._backbone(tokens, cache=cache, pos=pos,
-                           paged_tables=block_tables, lens=lens)
+        written into the page stores of ``cache`` in place, in the stores'
+        dtype; activations are in ``compute_dtype`` (None: the embedding's).
+        Returns the logits at each row's last valid token, (B, vocab)."""
+        h = self._backbone(tokens, compute_dtype=compute_dtype, cache=cache,
+                           pos=pos, paged_tables=block_tables, lens=lens)
         idx = torch.clamp(lens.long() - 1, min=0)
         h_last = h[torch.arange(h.shape[0], device=h.device), idx]
         return self._logits(h_last)
 
     @torch.no_grad()
-    def decode_step(self, tokens, cache, pos, block_tables):
+    def verify_chunk(self, tokens, cache, pos, lens, block_tables, *,
+                     compute_dtype=None):
+        """Speculative-decoding verifier (``repro/models/transformer.py:464``):
+        ``prefill_chunk`` returning the logits at every position, (B, L,
+        vocab). Row i is ``[last emitted token, d_1 .. d_{L-1}]`` at offset
+        ``pos[i]`` (the request's cache length), so ``logits[:, j]`` is the
+        target's next-token distribution after position ``pos + j``, which
+        accept/reject compares with proposal ``d_{j+1}``."""
+        h = self._backbone(tokens, compute_dtype=compute_dtype, cache=cache,
+                           pos=pos, paged_tables=block_tables, lens=lens)
+        return self._logits(h)
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache, pos, block_tables, *,
+                    compute_dtype=None):
         """tokens (B, 1); pos (B,) int32 positions being written; returns the
         next-token logits (B, vocab) and writes K/V into the pages."""
-        h = self._backbone(tokens, cache=cache, pos=pos,
-                           paged_tables=block_tables)
+        h = self._backbone(tokens, compute_dtype=compute_dtype, cache=cache,
+                           pos=pos, paged_tables=block_tables)
         return self._logits(h)[:, 0]

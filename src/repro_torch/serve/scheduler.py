@@ -41,6 +41,8 @@ class Request:
     arrival_time: float = dataclasses.field(default_factory=time.perf_counter)
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    spec_proposed: int = 0                   # draft tokens proposed for this
+    spec_accepted: int = 0                   # request / accepted by the target
 
     @property
     def done(self) -> bool:
@@ -71,9 +73,13 @@ class Request:
 class Scheduler:
     """FIFO admission against pool capacity and a running-slot cap."""
 
-    def __init__(self, pool, max_running: int = 8):
+    def __init__(self, pool, max_running: int = 8, headroom_tokens: int = 0):
         self.pool = pool
         self.max_running = max_running
+        # extra cache positions every running request may transiently write
+        # past its budget (speculative decoding: a verify round can land up
+        # to spec_k uncommitted tail tokens before rollback)
+        self.headroom_tokens = headroom_tokens
         self.waiting: Deque[Request] = collections.deque()
         self.running: List[Request] = []
         self._admit_seq = 0
@@ -97,7 +103,8 @@ class Scheduler:
         avail = self.pool.available_blocks
         while self.waiting and len(self.running) < self.max_running:
             req = self.waiting[0]
-            need = self.pool.blocks_for(req.cache_budget())
+            need = self.pool.blocks_for(req.cache_budget()
+                                        + self.headroom_tokens)
             if (need + reserved > avail
                     or len(admitted) + 1 > self.pool.free_slots):
                 break

@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
 These tests need a CUDA card (the kernels are built with nvcc for sm_90a at
-first use) and skip without one. The last ones serve a staggered trace on
+first use) and skip without one. The paged kernels are also held at every
+pair of q and page dtypes (fp32 / bf16), the chunked kernel at the
+speculative verifier's shape. The last ones serve a staggered trace on
 llama3_1b SMOKE through the engine's CUDA graphs and hold it against the
-eager engine (the same kernels, launched call by call). JAX-free, so they
-run on the GPU machine:
+eager engine (the same kernels, launched call by call), also speculatively
+and in bf16. JAX-free, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -24,7 +26,7 @@ import torch
 from repro_torch.config import CompressConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.calibrate import calibrate_model
-from repro_torch.core.compress import compress_model
+from repro_torch.core.compress import compress_model_pair
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gram_accum as ga
 from repro_torch.kernels import lowrank_linear as ll
@@ -245,6 +247,74 @@ def test_chunked_prefill_cuda_trash_page_poison(cuda, dtype):
     _close(clean, chunked_prefill_ref(*args), 2e-5 if dtype == torch.float32 else 2e-2)
 
 
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+def _tol(*dtypes):
+    return 2e-5 if all(d == torch.float32 for d in dtypes) else 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("lengths,splits", [([183, 98, 163, 146, 172, 1, 1, 1], None),
+                                            ([1200, 37, 0, 300], 75)])
+def test_paged_attention_cuda_dtype_pairs(cuda, monkeypatch, fresh_paged_plan, qdt, kvdt,
+                                          lengths, splits):
+    """q in the compute dtype, pages in the cache dtype: every pair launches
+    the kernel once per call, within tolerance of the plain version (which
+    rounds P to the pages' dtype as the kernel does), the same bits twice."""
+    if splits is not None:
+        monkeypatch.setattr(pa, "TARGET_BLOCKS", splits * len(lengths) * 8)
+    q, kp, vp, tables, ln = _paged_args(cuda, torch.float32, 32, 8, lengths, 16)
+    args = (q.to(qdt), kp.to(kvdt), vp.to(kvdt), tables, ln)
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    assert got.dtype == qdt
+    _close(got, paged_attention_ref(*args), _tol(qdt, kvdt))
+    assert torch.equal(ops.paged_attention(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("starts,lens", [
+    ([0, 48, 0, 96], [128, 90, 33, 128]),
+    # the speculative verifier: B 8, L = spec_k + 1 = 5, every row past its
+    # prefix (one row tile of 5 x 4 query rows per (row, KV head))
+    ([183, 98, 163, 146, 172, 55, 17, 140], [5] * 8),
+])
+def test_chunked_prefill_cuda_dtype_pairs(cuda, qdt, kvdt, starts, lens):
+    q, kp, vp, tables, st, ln = _chunked_args(cuda, torch.float32, 32, 8, 64, starts,
+                                              lens, 16)
+    args = (q.to(qdt), kp.to(kvdt), vp.to(kvdt), tables, st, ln)
+    before = ops.launch_counts()["chunked_prefill"]
+    got = ops.chunked_prefill(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["chunked_prefill"] == before + 1
+    assert got.dtype == qdt
+    _close(got, chunked_prefill_ref(*args), _tol(qdt, kvdt))
+    for i, n in enumerate(lens):
+        assert torch.all(got[i, n:] == 0)
+    assert torch.equal(ops.chunked_prefill(*args), got)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_cuda_refuse_other_dtypes(cuda):
+    """fp16, or K and V pages in two dtypes, raise before any launch."""
+    q, kp, vp, tables, ln = _paged_args(cuda, torch.float32, 8, 2, [20, 3], 4)
+    st = torch.zeros_like(ln)
+    before = ops.launch_counts()
+    bad = [(q.half(), kp, vp), (q, kp.half(), vp.half()), (q, kp, vp.bfloat16())]
+    for qq, kk, vv in bad:
+        with pytest.raises(ValueError):
+            ops.paged_attention(qq, kk, vv, tables, ln)
+        with pytest.raises(ValueError):
+            ops.chunked_prefill(qq[:, None].contiguous(), kk, vv, tables, st, ln)
+    assert ops.launch_counts() == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,t,hq,hkv,hd,cap", [
@@ -406,11 +476,12 @@ def smoke_models():
     rng = np.random.RandomState(0)
     batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 32)))
                for _ in range(2)]
-    cmodel, _ = compress_model(model, calibrate_model(model, batches),
-                               CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    cmodel, draft, _, _ = compress_model_pair(
+        model, calibrate_model(model, batches),
+        CompressConfig(ratio=0.6, lam=4.0, mu=-1.0), draft_ratio=0.3)
     dev = torch.device("cuda")
     return {name: copy.deepcopy(m).to(dev)
-            for name, m in (("dense", model), ("coala", cmodel))}
+            for name, m in (("dense", model), ("coala", cmodel), ("draft", draft))}
 
 
 def _engine_trace():
@@ -489,3 +560,71 @@ def test_engine_cuda_sampled_run_repeats(smoke_models):
     runs = [_serve(smoke_models["coala"], temperature=0.8, **kw)[1]
             for kw in ({}, {}, dict(cuda_graphs=False))]
     assert runs[0] == runs[1] == runs[2]
+
+
+SPEC = dict(spec_k=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_engine_cuda_spec_graphs_match_eager(smoke_models, name):
+    """Speculative rounds through CUDA graphs give the eager speculative
+    engine's greedy tokens and launch counts, which are the non-speculative
+    engine's tokens; warmup covers every round and draft prefill."""
+    draft = smoke_models["draft"]
+    eng, toks, (eager, replayed) = _serve(smoke_models[name], warmup=True,
+                                          draft_model=draft, **SPEC)
+    ref, ref_toks, (ref_eager, ref_replayed) = _serve(
+        smoke_models[name], cuda_graphs=False, draft_model=draft, **SPEC)
+    _, plain_toks, _ = _serve(smoke_models[name], cuda_graphs=False)
+    m = eng.metrics()
+    assert toks == ref_toks == plain_toks and len(toks) == 6
+    assert m["post_warmup_compiles"] == 0 and m["spec_rounds"] > 0
+    assert m["spec_accepted_tokens"] == ref.metrics()["spec_accepted_tokens"]
+    assert all(n == 0 for n in eager.values())
+    assert all(n == 0 for n in ref_replayed.values())
+    assert replayed == ref_eager
+    assert min(replayed[k] for k in ("paged_attention", "chunked_prefill",
+                                     "lowrank_linear")) > 0
+    for pool in (eng.pool, eng.draft_pool):
+        assert pool.available_blocks == pool.usable_blocks
+
+
+@pytest.mark.cuda
+def test_engine_cuda_spec_scratch_never_replaced(smoke_models):
+    """The reservation covers the draft's factored shapes and the verify's
+    b_pad * (spec_k + 1) rows: warmup and a spec round past it keep the
+    first capture's scratch."""
+    eng = ContinuousEngine(smoke_models["dense"], **ENGINE_KNOBS,
+                           draft_model=smoke_models["draft"], **SPEC)
+    eng._graph(("spec", 1, 2))                  # 2 pages hold a round's 5 positions
+    key = (eng.device, eng._stream.cuda_stream)
+    first = [t.data_ptr() for t in ll._scratch[key]]
+    eng.warmup(max_len=16)
+    eng._graph(("spec", 3, 16))                 # past warmup's max_len
+    assert eng.post_warmup_compiles() == 1
+    assert [t.data_ptr() for t in ll._scratch[key]] == first
+    eng.release_graphs()
+
+
+@pytest.mark.cuda
+def test_engine_cuda_spec_sampled_run_repeats(smoke_models):
+    """A sampled speculative trace (T 0.8) repeats on a second graph engine
+    and equals the eager engine: the draft's noise is drawn outside the
+    graph from per-(seed, output index) generators."""
+    runs = [_serve(smoke_models["coala"], temperature=0.8,
+                   draft_model=smoke_models["draft"], **SPEC, **kw)[1]
+            for kw in ({}, {}, dict(cuda_graphs=False))]
+    assert runs[0] == runs[1] == runs[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+def test_engine_cuda_bf16_cache_graphs_match_eager(smoke_models, compute):
+    """A bf16 cache under fp32 or bf16 activations: graphs after warmup give
+    the eager engine's tokens (the same kernels at the same dtype pair)."""
+    kw = dict(compute_dtype=compute, cache_dtype=torch.bfloat16)
+    eng, toks, _ = _serve(smoke_models["coala"], warmup=True, **kw)
+    _, ref_toks, _ = _serve(smoke_models["coala"], cuda_graphs=False, **kw)
+    assert toks == ref_toks and eng.metrics()["post_warmup_compiles"] == 0
+    assert eng.pool.pages[0]["k"].dtype == torch.bfloat16
