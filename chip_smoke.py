@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~8 min on one H100
+    python3 chip_smoke.py              # full run, ~11 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -47,6 +47,19 @@ Phases, each printing its own lines:
              of greedy tokens equal to the fp32 run's with the first
              divergent position (bf16 may part from fp32; it is reported,
              not failed);
+4d. serve-recalib — the same launcher with ``--calibrate-from-traffic`` on
+             20 requests of phase 4's ranges, handed phase 4's models and
+             calibrator: the COALA engine streams its traffic through the
+             dense model (flash kernel) into traffic calibration and, once
+             the bound clears, swaps the solved factors into its captured
+             graphs mid-trace (one full solve; requests in flight; 0
+             post-warmup captures); then the swapped graphs against an eager
+             engine on the solved model (logits within 1e-3, greedy tokens
+             on 2 fresh requests), phase 4's trace on a fresh graph engine
+             (prefix cache off) before a swap, with identity swaps every 4
+             steps (tokens equal phase 4's) and after swapping the solved
+             model in (the rates), capture tokens/s, and the caller's COALA
+             model bit-equal;
 5. compress path — the compression launcher's entry point
              (``repro_torch.launch.compress.main``) at full width with its
              defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
@@ -79,7 +92,13 @@ Phases, each printing its own lines:
              rounds, and the host cost of one wrapper call and of two eager
              model ops.
 
-Launch counts are zeroed just before each of the paths 4-6 (4b and 4c
+Phase 4b's launcher run also writes its span trace (``--trace-out``, under
+``build/``) and keeps a flight recorder: the trace must be strict JSON with
+the serving spans nesting per thread, each engine's ``metrics()`` keys the
+JAX golden set, and every request's lifecycle in the recorder. Phase 4d
+runs after 4c, so that no earlier phase sees a swapped model.
+
+Launch counts are zeroed just before each of the paths 4-6 (4b, 4c and 4d
 included) and read just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it.
 The shapes of the kernel calls are noted on the way for phase 7 (on the
@@ -144,6 +163,36 @@ SHARED_PREFIX, TEMPERATURE = 128, 0.8
 # Speculative serving: a draft at ratio 0.3 proposing 4 tokens a round.
 DRAFT_RATIO, SPEC_K = 0.3, 4
 SPEC_ARGS = ["--draft-ratio", str(DRAFT_RATIO), "--spec-k", str(SPEC_K)]
+# Phase 4b's launcher run also writes its span trace and keeps a flight
+# recorder; the trace goes under build/ (ignored by git)
+TRACE_OUT = ROOT / "build" / "chip_smoke_trace.json"
+TELEMETRY_ARGS = ["--trace-out", str(TRACE_OUT), "--flight-recorder", "65536"]
+# engine.metrics() keys (the JAX engine's golden set, tests/test_obs.py), the
+# speculative and the recalibration ones
+METRICS_KEYS = {
+    "requests", "requests_per_sec", "new_tokens", "tokens_per_sec",
+    "mean_ttft_s", "max_ttft_s", "preemptions",
+    "decode_compiles", "decode_shapes", "decode_steps", "decode_tok_per_s",
+    "prefill_compiles", "prefill_shapes", "prefill_batches",
+    "prefill_tok_per_s", "prefill_kernel",
+    "prefix_hit_rate", "prefix_hit_tokens", "cached_blocks",
+    "cow_copies", "prefix_evictions", "queue_depth",
+    "warmup_seconds", "post_warmup_compiles", "slo_goodput"}
+SPEC_METRICS_KEYS = {"spec_k", "spec_rounds", "spec_proposed_tokens",
+                     "spec_accepted_tokens", "spec_accept_rate"}
+RECALIB_METRICS_KEYS = {"recalib_swaps", "recalib_sampled_requests",
+                        "recalib_captured_tokens", "recalib_clearance",
+                        "recalib_residual_excess"}
+# Live recompression (phase 4d): phase 4's prompt and new-token ranges over
+# 20 requests, one every 2 steps, so the data gate (0.25 x 8192 = 2048 tokens
+# for `down`) clears mid-trace (after step 57 of 102: token counts do not
+# depend on the weights); the gates are polled every 60 steps, so one full
+# solve runs, at step 60 with 8 requests running and 4 waiting.
+RECALIB_REQUESTS, RECALIB_CHECK_EVERY = 20, 60
+CAPTURE_PROMPTS = 8         # prompts of phase 4d's trace timed through capture
+RECALIB_ARGS = ["--calibrate-from-traffic", "--recalib-check-every",
+                str(RECALIB_CHECK_EVERY), "--flight-recorder", "65536"]
+IDENTITY_SWAP_EVERY = 4     # phase 4d's identity swaps: every 4th step
 # the serving dtypes held at full width: (model, compute dtype, cache dtype)
 DTYPE_RUNS = [("coala", "float32", "bfloat16"), ("dense", "bfloat16", "bfloat16"),
               ("coala", "bfloat16", "bfloat16")]
@@ -452,6 +501,14 @@ class KernelCalls:
         return out
 
 
+def _with_seconds(eng, met) -> dict:
+    """``met`` plus the steady-state decode and prefill seconds, which the
+    engine keeps in its registry (``serve_*_seconds_total``)."""
+    snap = eng.registry.snapshot()
+    return dict(met, decode_seconds=snap["serve_decode_seconds_total"],
+                prefill_seconds=snap["serve_prefill_seconds_total"])
+
+
 def _serve_run(torch, model, trace, *, warmup=False, temperature=0.0, **kw):
     """One fresh engine of the serve path's knobs over ``trace`` (captured
     ahead of it with ``warmup``): (engine, metrics, tokens by request id,
@@ -464,7 +521,7 @@ def _serve_run(torch, model, trace, *, warmup=False, temperature=0.0, **kw):
         eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    met = serve_trace(eng, trace, temperature=temperature)
+    met = _with_seconds(eng, serve_trace(eng, trace, temperature=temperature))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     eng.release_graphs()
@@ -525,6 +582,7 @@ def serve_path(torch, ops):
 
     res = launcher.main(LAUNCHER_ARGS, trace=trace)
     torch.cuda.synchronize()
+    res["engines"]["coala"].release_graphs()
     note("launcher")
 
     reports = res["reports"]
@@ -549,7 +607,7 @@ def serve_path(torch, ops):
             "warmup_seconds", "prefix_hit_rate", "prefix_hit_tokens", "cached_blocks",
             "cow_copies", "prefix_evictions")
     for name, eng in res["engines"].items():
-        met = res["metrics"][name]
+        met = _with_seconds(eng, res["metrics"][name])
         out[f"serve_{name}"] = {k: met[k] for k in keys}
         _check_finished(name, eng, trace, vocab)
         if met["preemptions"] < 1:
@@ -564,6 +622,9 @@ def serve_path(torch, ops):
             f"{met['post_warmup_compiles']} post-warmup compiles")
     same = sum(tokens["dense"][i][0] == tokens["coala"][i][0] for i in tokens["dense"])
     log(f"  first tokens equal between dense and COALA: {same}/{REQUESTS}")
+    # later phases need the tokens, not the engines and their weight copies
+    res["tokens"] = tokens
+    del res["engines"], eng
 
     with KernelCalls(ops) as calls:
         for name, m in res["models"].items():
@@ -575,6 +636,7 @@ def serve_path(torch, ops):
                 f"{'identical to' if ok else 'DIFFER from'} the graphs'")
             if not ok:
                 raise Failure(f"serve {name}: CUDA graphs and the eager engine disagree")
+            del eng
     note("eager oracle")
 
     for name, m in res["models"].items():
@@ -594,6 +656,7 @@ def serve_path(torch, ops):
         if not ok:
             raise Failure(f"serve {name}: shared-prefix run: hit rate "
                           f"{on['prefix_hit_rate']}, tokens equal {on_toks == off_toks}")
+        del on_eng, off_eng
     note("shared prefix")
 
     for name, m in res["models"].items():
@@ -609,6 +672,7 @@ def serve_path(torch, ops):
             f"{sum(map(len, tokens[name].values()))} tokens differ from greedy")
         if not ok:
             raise Failure(f"serve {name}: two sampled runs with the same seeds differ")
+        del runs
     note("sampled")
     torch.cuda.empty_cache()
     log(f"  launches by run (eager / replayed): {json.dumps(counts)}")
@@ -616,8 +680,7 @@ def serve_path(torch, ops):
 
 
 def _phase4_tokens(res):
-    return {name: {r.req_id: list(r.out_tokens) for r in eng.finished}
-            for name, eng in res["engines"].items()}
+    return res["tokens"]
 
 
 SPEC_KEYS = ("spec_rounds", "spec_proposed_tokens", "spec_accepted_tokens",
@@ -650,12 +713,16 @@ def serve_spec_path(torch, ops, res):
             "mean_ttft_s", "decode_steps", "decode_seconds", "preemptions",
             "decode_compiles", "prefill_compiles", "post_warmup_compiles",
             "warmup_seconds") + SPEC_KEYS
-    spec = launcher.main(LAUNCHER_ARGS + SPEC_ARGS, trace=trace, reuse=res)
+    TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    spec = launcher.main(LAUNCHER_ARGS + SPEC_ARGS + TELEMETRY_ARGS, trace=trace,
+                         reuse=res)
     torch.cuda.synchronize()
+    spec["engines"]["coala"].release_graphs()
     draft = spec["draft"]
-    out = {"seconds": spec["seconds"], "warmup": spec["warmup"]}
+    out = {"seconds": spec["seconds"], "warmup": spec["warmup"],
+           "telemetry": check_telemetry(spec, len(trace))}
     for name, eng in spec["engines"].items():
-        met = spec["metrics"][name]
+        met = _with_seconds(eng, spec["metrics"][name])
         _check_finished(f"{name} spec", eng, trace, vocab)
         toks = {r.req_id: list(r.out_tokens) for r in eng.finished}
         w = spec["warmup"][name]
@@ -670,6 +737,8 @@ def serve_spec_path(torch, ops, res):
                 or met["spec_rounds"] < 1):
             raise Failure(f"serve-spec {name}: expected graphs, spec rounds and 0 "
                           f"post-warmup compiles, got {met['post_warmup_compiles']}")
+    spec["engines"].clear()                 # their weight copies
+    del eng
     with KernelCalls(ops) as calls:
         for name, m in res["models"].items():
             eng, met, toks, secs = _serve_run(torch, m, trace, cuda_graphs=False,
@@ -681,6 +750,7 @@ def serve_spec_path(torch, ops, res):
                 f"tokens {'identical' if ok else 'DIFFERENT'}")
             if not ok:
                 raise Failure(f"serve-spec {name}: the eager spec engine disagrees")
+            del eng
     for name, m in res["models"].items():
         runs = [_serve_run(torch, m, trace, temperature=TEMPERATURE, draft_model=draft,
                            spec_k=SPEC_K) for _ in range(2)]
@@ -693,10 +763,253 @@ def serve_spec_path(torch, ops, res):
             f"{_spec_line(met)}; second run {'identical' if ok else 'DIFFERENT'}")
         if not ok:
             raise Failure(f"serve-spec {name}: two sampled runs with the same seeds differ")
+        del runs
     res["spec_draft"] = draft              # profiled alone with --profile
     del spec, draft
     torch.cuda.empty_cache()
     return out, calls.shapes()
+
+
+def _nesting_ok(events) -> bool:
+    """Per thread, complete spans nest like a call stack."""
+    by_tid = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid[e["tid"]].append(e)
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for e in evs:
+            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]:
+                stack.pop()
+            if stack and e["ts"] + e["dur"] > stack[-1]["ts"] + stack[-1]["dur"] + 1e-3:
+                return False
+            stack.append(e)
+    return True
+
+
+def check_telemetry(spec, n_requests) -> dict:
+    """The telemetry of phase 4b's launcher run (``TELEMETRY_ARGS``): the
+    written trace is strict JSON with the serving span taxonomy and spans
+    nesting per thread; each engine's ``metrics()`` keys are the JAX golden
+    set plus the speculative keys; the flight recorder holds each request's
+    lifecycle in both engines."""
+    from repro_torch.obs import EVENT_TYPES
+
+    def strict(c):
+        raise Failure(f"trace {TRACE_OUT}: non-strict JSON constant {c}")
+
+    doc = json.loads(TRACE_OUT.read_text(), parse_constant=strict)
+    evs = doc["traceEvents"]
+    names = collections.Counter(e["name"] for e in evs)
+    want = {"serve.warmup", "serve.admit", "serve.prefill_batch",
+            "serve.spec_draft_prefill", "serve.spec_step"}
+    if not want <= set(names) or not _nesting_ok(evs):
+        raise Failure(f"trace: spans {sorted(want - set(names))} missing or "
+                      f"not nested (nested: {_nesting_ok(evs)})")
+    for name, eng in spec["engines"].items():
+        keys = set(eng.metrics())
+        if keys != METRICS_KEYS | SPEC_METRICS_KEYS:
+            raise Failure(f"metrics() keys of {name}: "
+                          f"{sorted(keys ^ (METRICS_KEYS | SPEC_METRICS_KEYS))} "
+                          "differ from the golden set")
+    fl = spec["flight"]
+    kinds = collections.Counter(e["event"] for e in fl.events())
+    if (fl.dropped or not set(kinds) <= EVENT_TYPES
+            or not kinds["submit"] == kinds["finish"] == 2 * n_requests
+            or kinds["spec_round"] < 1):
+        raise Failure(f"flight recorder: {dict(kinds)}, {fl.dropped} dropped")
+    log(f"  telemetry: {len(evs)} trace events in {TRACE_OUT.name} (strict JSON, spans "
+        f"nested per thread; {names['serve.spec_step']} spec steps, "
+        f"{names['serve.prefill_batch']} prefill batches); metrics() keys = golden + "
+        f"spec; flight recorder {len(fl)} events: {dict(kinds)}")
+    return {"trace_events": len(evs), "spans": dict(names), "flight": dict(kinds)}
+
+
+def _logits_at(eng, tok: int):
+    """Logits of one decode step of ``tok`` at position 0 over the trash page:
+    a replay of the engine's captured (1, 1) decode graph, or the eager
+    forward of a ``cuda_graphs=False`` engine."""
+    from repro_torch.serve.engine import _pack
+    sig = ("decode", 1, 1)
+    logits, _ = eng._run(sig, _pack(sig, tok=[[tok]], pos=[0], tables=[[0]]))
+    return logits.clone()
+
+
+def serve_recalib_path(torch, ops, res, smi):
+    """Live recompression at full width. ``repro_torch.launch.serve.main``
+    with ``LAUNCHER_ARGS + RECALIB_ARGS`` on ``RECALIB_REQUESTS`` requests of
+    phase 4's ranges, handed phase 4's result: the COALA engine streams its
+    sampled traffic through the dense model (the flash kernel) into traffic
+    calibration, and once the bound clears swaps the solved factors into its
+    captured graphs mid-trace (at least one swap, requests in flight, every
+    request completes, 0 post-warmup captures, residual within the policy).
+    Then: (b) the same engine's graphs, captured before the swap, give the
+    logits (1e-3) of an eager engine on the solved model, and its greedy
+    tokens on a short fresh trace; (c) a fresh graph engine on phase 4's
+    COALA model (prefix cache off) serves phase 4's trace (tokens equal
+    phase 4's), then again with identity swaps every
+    ``IDENTITY_SWAP_EVERY`` steps (equal), then with the solved model
+    swapped in: the rates before and after the swap; (d) capture throughput
+    of the traffic calibrator alone on ``CAPTURE_PROMPTS`` prompts; the caller's
+    COALA model is bit-equal to what it was before the phase."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ContinuousEngine, TrafficCalibrator, recalibrate
+    from repro_torch.models.common import ParallelCtx
+
+    vocab = get_config("llama3_1b").vocab_size
+    coala = res["models"]["coala"]
+    before = {k: v.clone() for k, v in coala.state_dict().items()}
+    trace = launcher.synthetic_trace(RECALIB_REQUESTS, vocab, seed=SEED,
+                                     min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                                     min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    solved = []
+    solve = recalibrate.RecalibWorker._solve
+
+    def noting_solve(self, snap):
+        out = solve(self, snap)
+        solved.append(out)
+        return out
+
+    recalibrate.RecalibWorker._solve = noting_solve
+    try:
+        rec = launcher.main(LAUNCHER_ARGS + RECALIB_ARGS, trace=trace, reuse=res)
+    finally:
+        recalibrate.RecalibWorker._solve = solve
+    torch.cuda.synchronize()
+    eng, worker = rec["engines"]["coala"], rec["workers"]["coala"]
+    met = _with_seconds(eng, rec["metrics"]["coala"])
+    sm = worker.summary()
+    swaps = [e for e in rec["flight"].events() if e["event"] == "recalib_swap"]
+    _check_finished("recalib coala", eng, trace, vocab)
+    _check_finished("recalib dense", rec["engines"].pop("dense"), trace, vocab)
+    ok = (sm["swaps"] >= 1 and met["post_warmup_compiles"] == 0 and eng.cuda_graphs
+          and sm["residual_excess"] <= worker.policy.max_residual_excess
+          and swaps and swaps[0]["in_flight"] > 0
+          and set(eng.metrics()) == METRICS_KEYS | RECALIB_METRICS_KEYS)
+    log(f"  [coala recalib] {smi}: {sm['swaps']} hot-swaps over {sm['solve_attempts']} "
+        f"solve attempts, {sm['sampled_requests']} sampled requests / "
+        f"{sm['captured_tokens']} captured tokens, data clearance {sm['clearance']:.2f}, "
+        f"residual excess {sm['residual_excess']:.4f}, status {sm['status']}; "
+        f"{met['post_warmup_compiles']} post-warmup compiles; first swap at step "
+        f"{swaps[0]['step'] if swaps else None} with "
+        f"{swaps[0]['in_flight'] if swaps else 0} requests in flight; solve "
+        f"{worker.last_solve_seconds:.2f} s, swap {worker.last_swap_seconds * 1e3:.3f} ms")
+    log(f"  [coala recalib] graphs: {_serve_line(met)}")
+    if not ok:
+        raise Failure(f"recalib: expected a bound-cleared swap with requests in flight "
+                      f"and 0 post-warmup compiles; got {sm}, swaps {swaps}, "
+                      f"{met['post_warmup_compiles']} post-warmup compiles")
+    new = [r for r in solved if r is not None][-1][0]
+    out = {"summary": sm, "metrics": {k: met[k] for k in (
+               "tokens_per_sec", "decode_tok_per_s", "mean_ttft_s", "decode_steps",
+               "preemptions", "post_warmup_compiles", "decode_seconds")},
+           "solve_seconds": worker.last_solve_seconds,
+           "swap_ms": worker.last_swap_seconds * 1e3,
+           "first_swap": swaps[0], "seconds": rec["seconds"]}
+
+    # (b) the launcher's engine: graphs captured before the swap read the
+    # solved factors; its worker cannot solve again on this short trace
+    oracle = ContinuousEngine(new, cuda_graphs=False, **ENGINE_KNOBS)
+    err = compare("swapped graphs vs eager on the solved model, logits",
+                  _logits_at(eng, 7), _logits_at(oracle, 7), TOL_SERVE[("float32",
+                                                                        "float32")])
+    short = launcher.synthetic_trace(2, vocab, seed=SEED + 1, min_prompt=8, max_prompt=8,
+                                     min_new=4, max_new=4)
+    attempts, done = worker.solve_attempts, len(eng.finished)
+    launcher.serve_trace(eng, short)
+    toks = [list(r.out_tokens)
+            for r in sorted(eng.finished[done:], key=lambda r: r.req_id)]
+    _, _, ref, _ = _serve_run(torch, new, short, cuda_graphs=False)
+    same = toks == [ref[i] for i in sorted(ref)]
+    log(f"  [coala recalib] the swapped engine's graphs on {len(short)} fresh requests: "
+        f"greedy tokens {'identical to' if same else 'DIFFER from'} the eager engine on "
+        f"the solved model; {eng.post_warmup_compiles()} post-warmup compiles")
+    if not same or eng.post_warmup_compiles() or worker.solve_attempts != attempts:
+        raise Failure("recalib: the swapped graphs disagree with the solved model")
+    eng.release_graphs()
+    out["swapped_logits_err"] = err
+
+    # (c) rates before and after a swap on one warmed engine, and identity
+    # swaps mid-trace
+    p4 = res["trace"]
+    base = _phase4_tokens(res)["coala"]
+    # no prefix cache: each run recomputes its prompts, so the three runs'
+    # rates compare (and no page computed by the old weights is reused)
+    e2 = ContinuousEngine(coala, prefix_cache=False, **ENGINE_KNOBS)
+    e2.warmup(max_len=max(len(p) + nn for _, p, nn in p4))
+    rates = {}
+
+    def run(label, swap_every=0):
+        e2.reset_metrics()
+        n0, pending, step = e2._next_id, list(p4), 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while pending or e2.has_work():
+            while pending and pending[0][0] <= step:
+                _, prompt, nn = pending.pop(0)
+                e2.submit(prompt, nn)
+            e2.step()
+            step += 1
+            if swap_every and step % swap_every == 0 and e2.scheduler.running:
+                e2.hot_swap(copy.deepcopy(coala))
+        torch.cuda.synchronize()
+        m = _with_seconds(e2, e2.metrics())
+        rates[label] = dict(tokens_per_sec=m["tokens_per_sec"],
+                            decode_tok_per_s=m["decode_tok_per_s"],
+                            mean_ttft_s=m["mean_ttft_s"],
+                            seconds=time.perf_counter() - t0)
+        return {r.req_id - n0: list(r.out_tokens) for r in e2.finished}
+
+    t_before = run("before swap")
+    t_identity = run("identity swaps", IDENTITY_SWAP_EVERY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e2.hot_swap(new)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    run("after swap")
+    ok = (t_before == base and t_identity == base and e2.post_warmup_compiles() == 0)
+    e2.release_graphs()
+    log(f"  [coala swap] {smi}: phase 4's trace through graphs before the swap "
+        f"{rates['before swap']['tokens_per_sec']:.1f} new tok/s "
+        f"({rates['before swap']['decode_tok_per_s']:.1f} decode), with identity swaps "
+        f"every {IDENTITY_SWAP_EVERY} steps {rates['identity swaps']['tokens_per_sec']:.1f} "
+        f"({rates['identity swaps']['decode_tok_per_s']:.1f}), after swapping the solved "
+        f"model in ({swap_ms:.3f} ms) {rates['after swap']['tokens_per_sec']:.1f} "
+        f"({rates['after swap']['decode_tok_per_s']:.1f}); phase 4: "
+        f"{res['metrics']['coala']['tokens_per_sec']:.1f} "
+        f"({res['metrics']['coala']['decode_tok_per_s']:.1f}); greedy tokens before and "
+        f"with identity swaps {'identical to' if ok else 'DIFFERENT from'} phase 4's, "
+        f"{e2.post_warmup_compiles()} post-warmup compiles")
+    if not ok:
+        raise Failure("recalib: an identity swap changed tokens or a swap captured")
+    out.update(rates=rates, swap_ms_warm=swap_ms)
+
+    # (d) capture throughput of traffic calibration alone (the dense model,
+    # flash attention), on the trace's prompts
+    tcal = TrafficCalibrator(res["models"]["dense"], ctx=ParallelCtx(use_pallas=True))
+    prompts = [p for _, p, _ in trace[:CAPTURE_PROMPTS]]
+    n_tok = sum(map(len, prompts))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        tcal.capture_tokens(p)
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    log(f"  [capture] {smi}: {len(prompts)} prompts, {n_tok} tokens through the "
+        f"dense model into {len(tcal.streams)} R factors in {cap_s:.3f} s: "
+        f"{n_tok / cap_s:.1f} tokens/s")
+    out.update(capture_tokens=n_tok, capture_seconds=cap_s,
+               capture_tokens_per_s=n_tok / cap_s)
+    changed = [k for k, v in coala.state_dict().items() if not torch.equal(v, before[k])]
+    if changed:
+        raise Failure(f"recalib: the caller's COALA model changed: {changed[:3]}")
+    log("  the caller's COALA model is bit-equal to what it was before the phase")
+    del rec, eng, e2, oracle, new, solved, before, tcal
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_dtypes_path(torch, res):
@@ -731,6 +1044,7 @@ def serve_dtypes_path(torch, res):
         log(f"  [{label}] graphs: {_serve_line(met)}; warmup {met['warmup_seconds']:.2f} s; "
             f"{same}/{len(pairs)} greedy tokens equal to the fp32 run's, first divergent "
             f"(request, position): {first}")
+        del eng
     torch.cuda.empty_cache()
     return out
 
@@ -1378,6 +1692,16 @@ def run(args) -> int:
         "serve-dtypes", ("lowrank_linear", "paged_attention", "chunked_prefill"),
         lambda: serve_dtypes_path(torch, res))
     dtypes["peak_memory_gb"] = peak
+
+    log("[4d serve-recalib] python -m repro_torch.launch.serve " + " ".join(
+        LAUNCHER_ARGS + RECALIB_ARGS) + f" on {RECALIB_REQUESTS} requests of phase 4's "
+        "ranges, handed phase 4's models and calibrator; then the swapped graphs "
+        "against the solved model, swaps on a fresh engine, capture throughput")
+    recalib, recalib_counts, peak = path_window(
+        "serve-recalib", ("lowrank_linear", "paged_attention", "chunked_prefill",
+                          "flash_attention"), lambda: serve_recalib_path(torch, ops, res, smi))
+    recalib["peak_memory_gb"] = peak
+    log(f"  phases (s): {recalib['seconds']}")
     if not args.profile:
         del res
         torch.cuda.empty_cache()
@@ -1429,8 +1753,8 @@ def run(args) -> int:
                 "chunked_prefill": "src/repro/kernels/chunked_prefill.py:121",
                 "flash_attention": "src/repro/kernels/flash_attention.py:69",
                 "gram_accum": "src/repro/kernels/gram_accum.py:37"}
-    launches = {k: serve_counts[k] + spec_counts[k] + dtype_counts[k] + comp_counts[k]
-                + gram_counts[k] for k in replaces}
+    launches = {k: serve_counts[k] + spec_counts[k] + dtype_counts[k]
+                + recalib_counts[k] + comp_counts[k] + gram_counts[k] for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
@@ -1438,10 +1762,12 @@ def run(args) -> int:
                 "bound_by": results[k]["bound_by"],
                 "library_ms": results[k]["library_ms"]} for k in replaces]
     log(json.dumps({"main_path": {"serve": serve, "serve_spec": spec,
-                                  "serve_dtypes": dtypes, "compress": comp, "gram": gram},
+                                  "serve_dtypes": dtypes, "serve_recalib": recalib,
+                                  "compress": comp, "gram": gram},
                     "launches": {"serve": serve_counts, "serve_spec": spec_counts,
-                                 "serve_dtypes": dtype_counts, "compress": comp_counts,
-                                 "gram": gram_counts},
+                                 "serve_dtypes": dtype_counts,
+                                 "serve_recalib": recalib_counts,
+                                 "compress": comp_counts, "gram": gram_counts},
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

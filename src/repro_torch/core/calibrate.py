@@ -56,6 +56,10 @@ class Calibrator:
                 h.remove()
 
     def record(self, path: str, x: torch.Tensor) -> None:
+        """Fold one captured input ``x`` (..., n) of the linear at ``path``
+        into its R (and Gram). Every capture hook calls this method, so a
+        subclass can narrow what is folded (``serve/recalibrate.py``'s
+        ``TrafficCalibrator`` slices the positions it has not seen)."""
         n = x.shape[-1]
         flat = x.float().reshape(-1, n)
         if path not in self.streams:

@@ -6,15 +6,18 @@ context-aware low-rank problem — COALA (Algorithm 1/2 with the per-layer μ
 of Eq. 5, full or randomized SVD) or one of the baselines (svd, svd_llm,
 svd_llm_v2, asvd) — and swap the dense ``w`` for the factored ``b_t``/``a_t``
 pair. ``compress_model_pair`` builds a speculative-decoding target and its
-harder-compressed draft from one calibration pass. Adaptive ranks, the
-``rank_map`` override and per-expert compression wait for later slices.
+harder-compressed draft from one calibration pass. ``rank_map`` (full
+path -> rank, from ``rank_map_from_reports``) pins per-layer ranks over
+``ratio`` and ``rank``, so a recompression keeps every factor's shape (live
+recalibration's hot swap needs that). Adaptive ranks and per-expert
+compression wait for later slices.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,11 +89,14 @@ def _solve(w_mat, r_factor, rank, ccfg: CompressConfig):
 
 
 @torch.no_grad()
-def compress_model(model, calibrator, ccfg: CompressConfig):
+def compress_model(model, calibrator, ccfg: CompressConfig, *,
+                   rank_map: Optional[Dict[str, int]] = None):
     """Calibrator R factors -> (compressed copy of ``model``, reports).
 
     Paths are the calibrator's ('blocks/2/sub0/mixer/wq'); every rep of the
-    stack is compressed from its own activations, as in the paper."""
+    stack is compressed from its own activations, as in the paper.
+    ``rank_map`` (full path -> rank) overrides ``ccfg.ratio`` and
+    ``ccfg.rank`` for the paths it names."""
     r_factors = calibrator.r_factors()
     new_model = copy.deepcopy(model)
     reports: List[LayerReport] = []
@@ -102,8 +108,11 @@ def compress_model(model, calibrator, ccfg: CompressConfig):
             continue
         d_in, d_out = w.shape
         w_mat = w.T.float()                               # (d_out, d_in)
-        rank = (ccfg.rank if ccfg.rank > 0
-                else rank_for_ratio(d_in, d_out, ccfg.ratio))
+        if rank_map is not None and p in rank_map:
+            rank = rank_map[p]
+        else:
+            rank = (ccfg.rank if ccfg.rank > 0
+                    else rank_for_ratio(d_in, d_out, ccfg.ratio))
         rank = min(rank, min(d_in, d_out))
         r_f = r_factors[p].float()
         a, b, mu = _solve(w_mat, r_f, rank, ccfg)

@@ -17,8 +17,21 @@ and ``--temperature`` samples instead of taking the argmax.
 COALA-compressed at ratio R from the same calibration pass proposes K
 tokens a round and the served model verifies them (greedy tokens are those
 of the non-speculative run). Like the JAX launcher it serves in fp32:
-the serving dtypes are the engine's ``compute_dtype``/``cache_dtype``. The
-fixed-batch engine, recalibration and telemetry wait for later slices.
+the serving dtypes are the engine's ``compute_dtype``/``cache_dtype``.
+
+``--calibrate-from-traffic`` streams the COALA engine's sampled traffic
+(``--recalib-sample-rate``) through the dense model into calibration and
+hot-swaps recompressed factors, at the initial compression's ranks, into
+the live engine once the error bound clears (``--recalib-min-token-factor``,
+``--recalib-max-residual-excess``, polled every ``--recalib-check-every``
+steps, solved on a background thread with ``--recalib-async on``); with
+``--draft-ratio`` the draft is recompressed and swapped with it. Telemetry:
+``--trace-out`` writes the span trace (``--trace-max-events`` caps it as a
+ring), ``--metrics-out`` the last engine's registry as Prometheus text,
+``--flight-recorder N`` keeps N lifecycle events for postmortems, and
+``--slo-ttft-ms``/``--slo-tpot-ms`` grade requests into the goodput gauge.
+The fixed-batch engine, the offline lane, async detokenize and the live
+telemetry endpoints wait for later slices.
 """
 from __future__ import annotations
 
@@ -34,10 +47,14 @@ from repro_torch.config import CompressConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.calibrate import calibrate_model
 from repro_torch.core.compress import (compress_model, compress_model_pair,
-                                       compression_summary)
+                                       compression_summary,
+                                       rank_map_from_reports)
 from repro_torch.models import build_model
 from repro_torch.models.common import ParallelCtx
-from repro_torch.serve import ContinuousEngine
+from repro_torch.obs import FlightRecorder
+from repro_torch.obs import trace as obs_trace
+from repro_torch.serve import (ContinuousEngine, RecalibPolicy, RecalibWorker,
+                               TrafficCalibrator)
 
 
 def synthetic_trace(n_requests: int, vocab_size: int, *, seed: int = 0,
@@ -107,7 +124,7 @@ def _compressed_params(model, batches, ratio: float, draft_ratio: float = 0.0):
     reports, calibrator, seconds of calibration and of compression)."""
     cal, cal_s = _seconds(model.device, lambda: calibrate_model(
         model, batches, ctx=ParallelCtx(use_pallas=True)))
-    dmodel = None
+    dmodel = dreports = None
     if draft_ratio > 0:
         (cmodel, dmodel, reports, dreports), comp_s = _seconds(
             model.device, lambda: compress_model_pair(
@@ -120,7 +137,8 @@ def _compressed_params(model, batches, ratio: float, draft_ratio: float = 0.0):
     print(f"calibration {cal_s:.2f}s, compression of "
           f"{len(reports) * (2 if dmodel is not None else 1)} linears "
           f"{comp_s:.2f}s")
-    return cmodel, dmodel, reports, cal, {"calibrate": cal_s, "compress": comp_s}
+    return (cmodel, dmodel, reports, dreports, cal,
+            {"calibrate": cal_s, "compress": comp_s})
 
 
 def _parse_buckets(spec: str):
@@ -131,12 +149,17 @@ def _parse_buckets(spec: str):
 def run_continuous(args, cfg, model, trace=None, reuse=None):
     """Calibrate, compress, then serve ``trace`` (default: the launcher's
     synthetic trace) with the dense and the compressed model, speculatively
-    with ``--draft-ratio``. Returns a dict with the compression ``reports``,
-    the ``calibrator``, the ``draft`` (or None) and, per model name
-    ("dense", "coala"), its ``models``, ``engines`` and ``metrics``, plus
-    the ``seconds`` of each phase. ``reuse``, an earlier result of the same
-    arguments, supplies the calibrator and the compressed model, so that
-    only the draft is compressed."""
+    with ``--draft-ratio``; with ``--calibrate-from-traffic`` the compressed
+    model's engine recalibrates from its own traffic. Returns a dict with
+    the compression ``reports``, the ``calibrator``,
+    the ``draft`` (or None), the ``flight`` recorder (or None) and, per model
+    name ("dense", "coala"), its ``models``, ``engines``, ``metrics`` and
+    recalibration ``workers`` (None without one), plus the ``seconds`` of
+    each phase. The last engine keeps its CUDA graphs (``release_graphs``
+    frees them); the others release theirs before the next one captures.
+    ``reuse``, an earlier result of the same arguments, supplies the
+    calibrator and the compressed model, so that only the draft is
+    compressed."""
     if args.requests <= 0:
         print("no requests to serve")
         return None
@@ -146,12 +169,13 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
                                       batch=args.requests,
                                       seq_len=args.prompt_len, seed=args.seed,
                                       device=model.device)
-        cmodel, dmodel, reports, cal, seconds = _compressed_params(
+        cmodel, dmodel, reports, dreports, cal, seconds = _compressed_params(
             model, batches, ratio, args.draft_ratio)
     else:
         cal, cmodel, reports = (reuse["calibrator"], reuse["models"]["coala"],
                                 reuse["reports"])
-        dmodel, seconds = None, {}
+        dmodel = dreports = None
+        seconds = {}
         if args.draft_ratio > 0:
             dcfg = dataclasses.replace(_ccfg(ratio), ratio=args.draft_ratio)
             (dmodel, dreports), seconds["compress_draft"] = _seconds(
@@ -162,13 +186,21 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
                                 max_new=args.new_tokens,
                                 shared_prefix=args.shared_prefix)
     prefix = {"auto": None, "on": True, "off": False}[args.prefix_cache]
+    # one flight recorder accumulates lifecycle events across both engines
+    flight = (FlightRecorder(capacity=args.flight_recorder)
+              if args.flight_recorder > 0 else None)
+    slo_ttft = args.slo_ttft_ms / 1e3 if args.slo_ttft_ms > 0 else None
+    slo_tpot = args.slo_tpot_ms / 1e3 if args.slo_tpot_ms > 0 else None
     # warm for exactly the worst per-request cache need this trace can hit
     warm_len = max(len(p) + nn for _, p, nn in trace)
-    out = {"reports": reports, "calibrator": cal, "draft": dmodel,
-           "trace": trace, "seconds": seconds,
-           "models": {"dense": model, "coala": cmodel},
-           "engines": {}, "metrics": {}, "warmup": {}}
+    out = {"reports": reports, "calibrator": cal,
+           "draft": dmodel, "trace": trace, "seconds": seconds,
+           "models": {"dense": model, "coala": cmodel}, "flight": flight,
+           "engines": {}, "metrics": {}, "warmup": {}, "workers": {}}
     for name, m in out["models"].items():
+        if out["engines"]:
+            # free the last engine's graphs before this one captures its own
+            out["engines"][next(reversed(out["engines"]))].release_graphs()
         # the dense and the compressed target serve with the same draft
         eng = ContinuousEngine(m, block_size=args.block_size,
                                num_blocks=args.num_blocks,
@@ -177,7 +209,30 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
                                prefix_cache=prefix,
                                prefill_bucket_sizes=_parse_buckets(
                                    args.prefill_bucket_sizes),
-                               draft_model=dmodel, spec_k=args.spec_k)
+                               draft_model=dmodel, spec_k=args.spec_k,
+                               slo_ttft_s=slo_ttft, slo_tpot_s=slo_tpot,
+                               flight_recorder=flight)
+        worker = None
+        if args.calibrate_from_traffic and name == "coala":
+            # stream this engine's own traffic through the dense model into
+            # calibration and swap refreshed factors in once the bound
+            # clears; the dense engine serves unmodified, as the reference
+            policy = RecalibPolicy(
+                sample_rate=args.recalib_sample_rate,
+                min_token_factor=args.recalib_min_token_factor,
+                max_residual_excess=args.recalib_max_residual_excess,
+                check_every=args.recalib_check_every)
+            tcal = TrafficCalibrator(model, ctx=ParallelCtx(use_pallas=True),
+                                     policy=policy, seed=args.seed)
+            worker = RecalibWorker(
+                model, tcal, _ccfg(ratio),
+                rank_map=rank_map_from_reports(reports),
+                draft_ratio=args.draft_ratio,
+                draft_rank_map=rank_map_from_reports(dreports)
+                if dreports else None,
+                async_solve=args.recalib_async == "on")
+            eng.attach_recalibrator(worker)
+        out["workers"][name] = worker
         if args.warmup == "on":
             w = out["warmup"][name] = eng.warmup(max_len=warm_len)
             print(f"[{name}] warmup: {w['warmup_seconds']:.2f}s for "
@@ -187,8 +242,8 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
         met, seconds[f"serve_{name}"] = _seconds(
             m.device, lambda: serve_trace(eng, trace,
                                           temperature=args.temperature))
-        # free this engine's graphs before the next model captures its own
-        eng.release_graphs()
+        if worker is not None and not worker.join(timeout=3600):
+            raise RuntimeError("recalibration: the async solve did not end")
         out["engines"][name], out["metrics"][name] = eng, met
         print(f"[{name}] per-request TTFT (s):")
         for r in sorted(eng.finished, key=lambda r: r.req_id):
@@ -203,19 +258,34 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
               f"({met['decode_tok_per_s']:.1f} decode tok/s steady-state), "
               f"mean TTFT {met['mean_ttft_s']:.3f}s, "
               f"{met['decode_compiles']} decode captures over "
-              f"{met['decode_steps']} steps, "
-              f"{met['preemptions']} preemptions"
+              f"{met['decode_steps']} steps ({met['decode_shapes']} shape "
+              f"buckets), {met['preemptions']} preemptions"
               + (f"; {met['post_warmup_compiles']} post-warmup compiles"
                  if args.warmup == "on" else ""))
+        if slo_ttft is not None or slo_tpot is not None:
+            print(f"[{name}] SLO goodput {met['slo_goodput']:.2f} "
+                  f"(ttft <= {slo_ttft if slo_ttft is not None else '-'}s, "
+                  f"tpot <= {slo_tpot if slo_tpot is not None else '-'}s)")
         if dmodel is not None:
             print(f"[{name}] speculative (draft ratio {args.draft_ratio}, "
                   f"k={int(met['spec_k'])}): {met['spec_rounds']} rounds, "
                   f"accept rate {met['spec_accept_rate']:.2f} "
                   f"({met['spec_accepted_tokens']}/"
                   f"{met['spec_proposed_tokens']} draft tokens)")
+        if worker is not None:
+            sm = worker.summary()
+            print(f"[{name}] recalibration: {sm['swaps']} hot-swaps over "
+                  f"{sm['solve_attempts']} solve attempts, "
+                  f"{sm['sampled_requests']} sampled requests / "
+                  f"{sm['captured_tokens']} captured tokens, "
+                  f"data clearance {sm['clearance']:.2f}, "
+                  f"residual excess {sm['residual_excess']:.2f}, "
+                  f"status {sm['status']}; "
+                  f"{met['post_warmup_compiles']} post-warmup compiles")
         print(f"[{name}] prefill: {met['prefill_tok_per_s']:.1f} suffix "
               f"tok/s steady-state, {met['prefill_compiles']} captures / "
-              f"{met['prefill_batches']} batched calls; prefix cache "
+              f"{met['prefill_batches']} batched calls "
+              f"({met['prefill_shapes']} length buckets); prefix cache "
               f"{'on' if eng.prefix_cache else 'off'}: "
               f"hit rate {met['prefix_hit_rate']:.2f} "
               f"({met['prefix_hit_tokens']} tokens), "
@@ -272,6 +342,50 @@ def main(argv=None, trace=None, reuse=None):
                          "before serving (CUDA graphs; nothing on the CPU)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature of every request (0 = greedy)")
+    ap.add_argument("--calibrate-from-traffic", action="store_true",
+                    help="stream a sampled fraction of served activations "
+                         "into COALA calibration and hot-swap recompressed "
+                         "factors into the live engine (no drain, no "
+                         "capture) once the error bound clears; applies to "
+                         "the coala engine, and to the draft too when "
+                         "--draft-ratio is set")
+    ap.add_argument("--recalib-sample-rate", type=float, default=1.0,
+                    help="fraction of requests whose token streams feed "
+                         "traffic calibration (sticky per request)")
+    ap.add_argument("--recalib-min-token-factor", type=float, default=0.25,
+                    help="data gate: recompress only once every target "
+                         "layer has streamed at least this factor times "
+                         "its feature count in calibration tokens")
+    ap.add_argument("--recalib-max-residual-excess", type=float, default=2.0,
+                    help="bound gate: ship recompressed factors only if "
+                         "every layer's achieved residual is within this "
+                         "factor of the attainable error bound")
+    ap.add_argument("--recalib-check-every", type=int, default=2,
+                    help="poll the recalibration gates every N engine steps")
+    ap.add_argument("--recalib-async", choices=("on", "off"), default="off",
+                    help="solve on a background thread (its own CUDA stream "
+                         "on the GPU) that stages the swap for the next "
+                         "step boundary (off: inline between steps)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "serving spans to this path")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the last engine's metrics registry in "
+                         "Prometheus text exposition format to this path")
+    ap.add_argument("--trace-max-events", type=int, default=0,
+                    help="cap the tracer's in-memory events as a ring of "
+                         "the most recent N (0 = unbounded)")
+    ap.add_argument("--flight-recorder", type=int, default=0,
+                    help="record per-request lifecycle events into a ring "
+                         "of this capacity and dump a postmortem bundle "
+                         "(POSTMORTEM_serve.json) on engine failure paths "
+                         "(0 = off)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="time-to-first-token SLO in milliseconds; feeds "
+                         "the serve_slo_goodput gauge (0 = unset)")
+    ap.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                    help="per-output-token latency SLO in milliseconds; "
+                         "feeds the serve_slo_goodput gauge (0 = unset)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
@@ -279,6 +393,8 @@ def main(argv=None, trace=None, reuse=None):
     if not args.continuous:
         ap.error("only --continuous serving is ported so far")
     device = resolve_device(args.device)
+    if args.trace_out:
+        obs_trace.enable(max_events=args.trace_max_events or None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if reuse is not None:
         model, init_s = reuse["models"]["dense"], 0.0
@@ -289,6 +405,14 @@ def main(argv=None, trace=None, reuse=None):
     out = run_continuous(args, cfg, model, trace=trace, reuse=reuse)
     if out is not None:
         out["seconds"]["init"] = init_s
+    if args.trace_out:
+        n = obs_trace.save(args.trace_out)
+        obs_trace.disable()
+        print(f"wrote {n} trace events to {args.trace_out}")
+    if args.metrics_out and out is not None:
+        with open(args.metrics_out, "w") as f:
+            f.write(out["engines"]["coala"].registry.prometheus())
+        print(f"wrote metrics exposition to {args.metrics_out}")
     return out
 
 

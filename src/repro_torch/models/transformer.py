@@ -188,12 +188,28 @@ class LM(torch.nn.Module):
 
     @torch.no_grad()
     def capture_forward(self, tokens, calibrator, *,
-                        ctx: ParallelCtx = CPU_CTX):
+                        ctx: ParallelCtx = CPU_CTX,
+                        compute_dtype=torch.float32):
         """Forward that streams every target linear's input activations into
-        ``calibrator`` (per-layer R factors, never X). Returns the final
-        hidden states."""
+        ``calibrator`` (per-layer R factors, never X), activations in
+        ``compute_dtype``. Returns the final hidden states."""
         with calibrator.capture(self):
-            return self._backbone(tokens, ctx=ctx)
+            return self._backbone(tokens, ctx=ctx, compute_dtype=compute_dtype)
+
+    @torch.no_grad()
+    def capture_prefill(self, tokens, calibrator, *,
+                        ctx: ParallelCtx = CPU_CTX,
+                        compute_dtype=torch.float32):
+        """Capture hook of the serving path (``repro/models/transformer.py:
+        406-420``): one request's token stream ``tokens`` (T,) as a (1, T)
+        batch through ``capture_forward``. Causality makes it the exact
+        replay of what serving computed: position p depends only on tokens
+        <= p, so a calibrator recording positions [start, T) sees the rows
+        a live prefill and decode over them produced (``serve/recalibrate.py``
+        slices in its ``record`` override)."""
+        tokens = torch.as_tensor(tokens, device=self.device).reshape(1, -1)
+        return self.capture_forward(tokens, calibrator, ctx=ctx,
+                                    compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def prefill_chunk(self, tokens, cache, pos, lens, block_tables, *,

@@ -54,15 +54,38 @@ whose graph holds the draft's ``spec_k + 1`` decode steps (each choosing the
 next proposal on the device), the verify and its argmax: one replay and one
 copy to the host per round.
 
-Waiting for later slices: recalibration (``hot_swap``), async detokenize,
-SLOs and telemetry, the fixed-batch engine.
+Telemetry (the JAX engine's, ``repro/obs``'s port in ``repro_torch.obs``):
+one ``Registry`` per engine holds the engine's, the scheduler's and the
+pool's series under the JAX names, and ``metrics()`` is the JAX
+compatibility view over it; the serving spans and instants go to the
+process tracer (a capture emits the compile instant, since a capture is the
+port's compile); an optional ``FlightRecorder`` gets the JAX lifecycle
+events and ``dump_postmortem`` writes its bundle (a raising ``step()`` does
+so before propagating); ``slo_ttft_s``/``slo_tpot_s`` grade finished
+requests into ``serve_slo_goodput``.
+
+Live recompression (``attach_recalibrator``, ``hot_swap``): a
+``serve/recalibrate.py`` worker streams sampled traffic into calibration on
+the dense base model and recompresses with pinned ranks once the bound
+clears; ``hot_swap`` then writes the new values into the served copy's
+tensors in place (``copy_``, cast to ``compute_dtype``), on the stream the
+graphs replay on, between steps. The captured graphs read those very
+tensors, so a swap needs no capture and in-flight requests keep their pages.
+The caller's model is never written: an engine serving it as it is (the
+compute dtype is the model's) makes its own copy before its first capture
+or swap (``_own_weights``), so the graphs read the engine's tensors.
+
+Waiting for later slices: async detokenize and streaming, the live HTTP
+telemetry endpoints, the offline lane and the fixed-batch engine.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import math
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +95,8 @@ from repro_torch.kernels import lowrank_linear as _ll
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.models.linear import Linear
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import LATENCY_BUCKETS, Registry
 from repro_torch.serve.paged_cache import BlockPool
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -160,6 +185,20 @@ def compute_copy(model, dtype):
     return copy.deepcopy(model, memo)
 
 
+def _weak_gauge(obj, read):
+    """A gauge callback returning ``read(obj)`` that does not keep ``obj``
+    alive (nan once it is gone). The registry belongs to ``obj``: a strong
+    reference would make a cycle, leaving the engine's pages, weight copies
+    and graphs to the cyclic collector, which may run anywhere — inside a
+    CUDA-graph capture too."""
+    ref = weakref.ref(obj)
+
+    def value():
+        o = ref()
+        return float("nan") if o is None else read(o)
+    return value
+
+
 def _layout(sig) -> Tuple[Tuple[str, tuple], ...]:
     """Named int32 inputs of a step signature, in packed order (a spec
     round's temperatures travel as their fp32 bits)."""
@@ -225,12 +264,19 @@ class ContinuousEngine:
                  prefix_cache: Optional[bool] = None,
                  prefill_bucket_sizes: Optional[Sequence[int]] = None,
                  cuda_graphs: Optional[bool] = None,
-                 draft_model=None, spec_k: int = 4):
+                 draft_model=None, spec_k: int = 4,
+                 slo_ttft_s: Optional[float] = None,
+                 slo_tpot_s: Optional[float] = None,
+                 flight_recorder=None):
         """``compute_dtype``/``cache_dtype``: activations and KV pool (None:
         the model's dtype; the JAX engine's defaults are bf16 for both).
         ``draft_model``: an ``LM`` of the target's config, served as the
-        speculative draft proposing ``spec_k`` tokens a round."""
+        speculative draft proposing ``spec_k`` tokens a round.
+        ``slo_ttft_s``/``slo_tpot_s``: latency SLOs feeding the goodput
+        gauge (None: met by every request). ``flight_recorder``: an
+        ``obs.FlightRecorder`` receiving the lifecycle events."""
         self.model = model
+        self.draft_model = draft_model
         self.device = model.device
         self.compute_dtype = compute_dtype or model.dtype
         self.cache_dtype = cache_dtype or model.dtype
@@ -244,6 +290,11 @@ class ContinuousEngine:
                 raise ValueError("the draft must be an LM of the target's "
                                  "config on the target's device")
             self._draft = compute_copy(draft_model, self.compute_dtype)
+        self.flight = flight_recorder
+        self.slo_ttft_s = slo_ttft_s
+        self.slo_tpot_s = slo_tpot_s
+        self._step_idx = 0
+        self._swap_epoch = 0
         self.block_size = block_size
         # every model the port serves is a pure-attention GQA LM, so the
         # chunked suffix prefill a cached prefix needs is always there
@@ -252,14 +303,20 @@ class ContinuousEngine:
         self.cuda_graphs = is_cuda if cuda_graphs is None else cuda_graphs
         if self.cuda_graphs and not is_cuda:
             raise ValueError("cuda_graphs needs a model on a CUDA device")
+        # one registry per engine: the pool and the scheduler register
+        # their own series into it, and metrics() is a view over it
+        self.registry = Registry()
         pool_kw = dict(num_blocks=num_blocks, block_size=block_size,
                        max_requests=max_running, dtype=self.cache_dtype,
                        prefix_cache=self.prefix_cache)
-        self.pool = BlockPool(model, **pool_kw)
+        self.pool = BlockPool(model, registry=self.registry, **pool_kw)
         self.scheduler = Scheduler(self.pool, max_running=max_running,
+                                   registry=self.registry,
                                    headroom_tokens=self.spec_k
-                                   if self._spec else 0)
-        # the draft decodes against its own pool, kept in lockstep with the
+                                   if self._spec else 0,
+                                   flight=flight_recorder)
+        # the draft decodes against its own pool (a private registry: the
+        # pool_* series describe the target's), kept in lockstep with the
         # target's, so cached-prefix hits and table shapes mirror exactly
         self.draft_pool = (BlockPool(draft_model, **pool_kw) if self._spec
                            else None)
@@ -271,13 +328,12 @@ class ContinuousEngine:
         self.finished: List[Request] = []
         self._next_id = 0
         self._start_time: Optional[float] = None
-        self.counters = {"decode_steps": 0, "decode_tokens": 0,
-                         "decode_seconds": 0.0, "prefill_batches": 0,
-                         "prefill_tokens": 0, "prefill_seconds": 0.0,
-                         "prompt_tokens": 0, "prefix_hit_tokens": 0}
+        self._recalib = None            # attach_recalibrator() installs one
+        # step signatures seen (warmed or served): decode, prefill, spec
+        self._decode_shapes: set = set()
+        self._prefill_shapes: set = set()
+        self._spec_shapes: set = set()
         if self._spec:
-            self.counters.update(spec_rounds=0, spec_proposed=0,
-                                 spec_accepted=0)
             # Exp(1) noise of the draft's sampled proposals, drawn on the
             # host's side before a round (a capture cannot hold per-row
             # generators); greedy rows never read it
@@ -292,6 +348,76 @@ class ContinuousEngine:
         self._captures = {"decode": 0, "prefill": 0, "spec": 0, "dprefill": 0}
         self._warmed = 0
         self._warmup_seconds = 0.0
+        self._register_series()
+
+    def _register_series(self) -> None:
+        """The engine's registry series, under the JAX engine's names
+        (``repro/serve/engine.py:338-396``); the steady-state pairs (tokens
+        + seconds) leave out steps that captured a graph."""
+        reg = self.registry
+        self._c_decode_steps = reg.counter(
+            "serve_decode_steps_total", "decode steps run")
+        self._c_decode_tokens = reg.counter(
+            "serve_decode_tokens_total",
+            "steady-state decoded tokens (capture steps excluded)")
+        self._c_decode_seconds = reg.counter(
+            "serve_decode_seconds_total",
+            "steady-state decode wall time (capture steps excluded)")
+        self._c_prefill_batches = reg.counter(
+            "serve_prefill_batches_total", "batched suffix prefill calls")
+        self._c_prefill_tokens = reg.counter(
+            "serve_prefill_tokens_total",
+            "steady-state prefilled suffix tokens (captures excluded)")
+        self._c_prefill_seconds = reg.counter(
+            "serve_prefill_seconds_total",
+            "steady-state batched-prefill wall time (captures excluded)")
+        self._c_prompt_tokens = reg.counter(
+            "serve_prompt_tokens_total", "prompt tokens submitted to prefill")
+        self._c_prefix_hit_tokens = reg.counter(
+            "serve_prefix_hit_tokens_total",
+            "prompt tokens satisfied from the prefix cache")
+        self._c_finished = reg.counter(
+            "serve_requests_finished_total", "requests run to completion")
+        self._c_new_tokens = reg.counter(
+            "serve_new_tokens_total", "tokens generated by finished requests")
+        if self._spec:
+            # registered only in speculative mode, as in the JAX engine
+            self._c_spec_rounds = reg.counter(
+                "serve_spec_rounds_total", "speculative draft+verify rounds")
+            self._c_spec_proposed = reg.counter(
+                "serve_spec_proposed_tokens_total",
+                "draft tokens proposed to the verifier")
+            self._c_spec_accepted = reg.counter(
+                "serve_spec_accepted_tokens_total",
+                "draft tokens accepted by the target")
+        self._h_ttft = reg.histogram(
+            "serve_ttft_seconds", LATENCY_BUCKETS,
+            "arrival -> first generated token")
+        self._h_step = reg.histogram(
+            "serve_decode_step_seconds", LATENCY_BUCKETS,
+            "steady-state decode step wall time (inter-token latency)")
+        self._h_tpot = reg.histogram(
+            "serve_tpot_seconds", LATENCY_BUCKETS,
+            "per-request mean time per output token after the first")
+        self._h_e2e = reg.histogram(
+            "serve_request_e2e_seconds", LATENCY_BUCKETS,
+            "arrival -> request completion")
+        eng = ContinuousEngine
+        reg.gauge("serve_slo_goodput",
+                  "fraction of finished requests meeting the TTFT/TPOT "
+                  "SLOs (1.0 with no SLO set or nothing finished)",
+                  fn=_weak_gauge(self, eng._slo_goodput))
+        reg.gauge("serve_running_requests", "requests in the decode batch",
+                  fn=_weak_gauge(self, lambda e: len(e.scheduler.running)))
+        reg.gauge("serve_decode_compiles", "decode graph captures",
+                  fn=_weak_gauge(self, eng.decode_compile_count))
+        reg.gauge("serve_prefill_compiles", "prefill graph captures",
+                  fn=_weak_gauge(self, eng.prefill_compile_count))
+        reg.gauge("serve_warmup_seconds", "wall time spent in warmup()",
+                  fn=_weak_gauge(self, lambda e: e._warmup_seconds))
+        reg.gauge("serve_post_warmup_compiles",
+                  "graph captures not covered by warmup()",
+                  fn=_weak_gauge(self, eng.post_warmup_compiles))
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt_tokens, max_new_tokens: int, *,
@@ -318,6 +444,10 @@ class ContinuousEngine:
         if self._start_time is None:
             self._start_time = req.arrival_time
         self.scheduler.submit(req)
+        if self.flight is not None:
+            self.flight.record("submit", req_id=req.req_id,
+                               prompt_tokens=int(prompt.size),
+                               max_new_tokens=int(max_new_tokens))
         return req.req_id
 
     def has_work(self) -> bool:
@@ -327,7 +457,25 @@ class ContinuousEngine:
         """Admit + prefill joiners (each looks up its cached prefix once, at
         allocation; same-length-bucket suffixes are batched into one call),
         then one decode step over the running batch; returns the requests
-        that finished during this step."""
+        that finished during this step. A raising step dumps the postmortem
+        bundle (with a flight recorder attached) before propagating."""
+        self._step_idx += 1
+        if self.flight is not None:
+            self.flight.begin_step(self._step_idx)
+        try:
+            done = self._step_inner()
+        except Exception as e:
+            if self.flight is not None:
+                self.flight.record("step_exception", error=repr(e))
+                self.dump_postmortem("step_exception")
+            raise
+        return done
+
+    def _step_inner(self) -> List[Request]:
+        if self._recalib is not None:
+            # between-steps hook: staged swaps land first, so a swap always
+            # falls on a step boundary
+            self._recalib.on_step(self)
         done: List[Request] = []
         admitted = self.scheduler.admit()
         groups: Dict[int, list] = {}
@@ -337,8 +485,15 @@ class ContinuousEngine:
             if self._spec and self.draft_pool.alloc(
                     req.req_id, len(toks), tokens=toks) != cached:
                 raise RuntimeError("the draft pool diverged from the target's")
-            self.counters["prompt_tokens"] += len(toks)
-            self.counters["prefix_hit_tokens"] += cached
+            self._c_prompt_tokens.inc(len(toks))
+            self._c_prefix_hit_tokens.inc(cached)
+            if self.flight is not None and cached:
+                self.flight.record("prefix_hit", req_id=req.req_id,
+                                   cached_tokens=int(cached))
+            if self._recalib is not None:
+                # capture rides admission: the recalibrator replays exactly
+                # the tokens this prefill is about to compute over
+                self._recalib.on_prefill(self, req)
             groups.setdefault(self._bucket_prefill(len(toks) - cached),
                               []).append((req, toks, cached))
         for _, group in sorted(groups.items()):
@@ -392,7 +547,91 @@ class ContinuousEngine:
         if self._spec:
             self.draft_pool.fork(parent.req_id, child.req_id)
         self.scheduler.adopt(child)
+        if self.flight is not None:
+            self.flight.record("fork", req_id=child.req_id,
+                               parent=parent.req_id,
+                               at_tokens=len(child.out_tokens))
         return child.req_id
+
+    # ------------------------------------------------------- recalibration
+    def attach_recalibrator(self, worker) -> None:
+        """Install a live-traffic recalibrator (``serve/recalibrate.py``'s
+        ``RecalibWorker``): every ``step()`` calls its ``on_step`` (which
+        applies staged swaps and polls the bound gates), admission and
+        completion route sampled streams into its calibrator, and the
+        ``serve_recalib_*`` series join the registry — only once attached,
+        as in the JAX engine."""
+        self._recalib = worker
+        # reject-path flight/postmortem wiring; weak, as the gauges below
+        # hold the worker
+        worker._engine = weakref.ref(self)
+        reg = self.registry
+        worker.bind_metrics(
+            swaps=reg.counter("serve_recalib_swaps_total",
+                              "factor hot-swaps applied to the live engine"),
+            sampled=reg.counter("serve_recalib_sampled_requests_total",
+                                "requests sampled into traffic calibration"),
+            tokens=reg.counter("serve_recalib_captured_tokens_total",
+                               "served token positions streamed into "
+                               "calibration"))
+        reg.gauge("serve_recalib_tokens_seen_min",
+                  "min calibration tokens streamed over target layers",
+                  fn=worker.min_tokens_seen)
+        reg.gauge("serve_recalib_bound_clearance",
+                  "min tokens_seen / (min_token_factor x n) over target "
+                  "layers; the data gate clears at >= 1",
+                  fn=worker.clearance)
+        reg.gauge("serve_recalib_residual_excess",
+                  "worst residual/bound ratio of the last recompression",
+                  fn=lambda: worker.last_excess)
+
+    @torch.no_grad()
+    def hot_swap(self, model, draft_model=None) -> None:
+        """Swap refreshed weights into the live engine between steps — no
+        drain, no capture. ``model`` (and ``draft_model`` in speculative
+        mode) must match the engine's model exactly: the same ``state_dict``
+        keys and per-tensor shapes and dtypes. Its values are written in
+        place (``copy_``, cast to ``compute_dtype``) into the served copy's
+        tensors, which the captured graphs read, on the stream the graphs
+        replay on; on the card the host then waits for the copies, so the
+        sources may go once this returns. In-flight requests keep their KV
+        pages; their next step runs the new weights. Neither ``model`` nor
+        the engine's own model is written."""
+        if draft_model is not None and not self._spec:
+            raise ValueError("hot_swap: draft_params given but the engine "
+                             "is not in speculative mode")
+        pairs = [("params", self.model, model)]
+        if draft_model is not None:
+            pairs.append(("draft_params", self.draft_model, draft_model))
+        for name, ref, new in pairs:
+            old_sd, new_sd = ref.state_dict(), new.state_dict()
+            if list(old_sd) != list(new_sd):
+                raise ValueError(f"hot_swap: {name} treedef mismatch "
+                                 "(state_dict keys differ: rank-unstable "
+                                 "recompression?)")
+            for key, lo in old_sd.items():
+                ln = new_sd[key]
+                if lo.shape != ln.shape or lo.dtype != ln.dtype:
+                    raise ValueError(
+                        f"hot_swap: {name} leaf {key} changed "
+                        f"{tuple(lo.shape)}/{lo.dtype} -> "
+                        f"{tuple(ln.shape)}/{ln.dtype}; swaps must be "
+                        "shape/dtype-stable")
+        self._own_weights()
+        with trace.span("serve.recalib_swap",
+                        draft=draft_model is not None):
+            for name, _, new in pairs:
+                served = self._draft if name == "draft_params" else self._target
+                live = served.state_dict()
+                for key, t in new.state_dict().items():
+                    live[key].copy_(t)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        self._swap_epoch += 1
+        if self.flight is not None:
+            self.flight.record("recalib_swap", epoch=self._swap_epoch,
+                               draft=draft_model is not None,
+                               in_flight=len(self.scheduler.running))
 
     # -------------------------------------------------------------- warm start
     def warmup_signatures(self, max_len: int):
@@ -451,18 +690,27 @@ class ContinuousEngine:
         max_len = cap if max_len is None else min(max_len, cap)
         t0 = time.perf_counter()
         decode_sigs, prefill_sigs = self.warmup_signatures(max_len)
-        if self.cuda_graphs:
-            for b, nb in decode_sigs:
-                if self._spec and nb * self.block_size < self.spec_k + 1:
-                    # a round writes spec_k + 1 positions, so no real table
-                    # is this small (and the trash writes would overrun it)
-                    continue
-                self._graph(("spec" if self._spec else "decode", b, nb))
-            for b, l, nb in prefill_sigs:
-                self._graph(("prefill", b, l, nb))
-                if self._spec:
-                    self._graph(("dprefill", b, l, nb))
-            torch.cuda.synchronize(self.device)
+        with trace.span("serve.warmup", max_len=max_len,
+                        decode_sigs=len(decode_sigs),
+                        prefill_sigs=len(prefill_sigs)):
+            kind = "spec" if self._spec else "decode"
+            (self._spec_shapes if self._spec else self._decode_shapes).update(
+                (kind, b, nb) for b, nb in decode_sigs)
+            self._prefill_shapes.update(("prefill",) + sig
+                                        for sig in prefill_sigs)
+            if self.cuda_graphs:
+                for b, nb in decode_sigs:
+                    if self._spec and nb * self.block_size < self.spec_k + 1:
+                        # a round writes spec_k + 1 positions, so no real
+                        # table is this small (and the trash writes would
+                        # overrun it)
+                        continue
+                    self._graph((kind, b, nb))
+                for b, l, nb in prefill_sigs:
+                    self._graph(("prefill", b, l, nb))
+                    if self._spec:
+                        self._graph(("dprefill", b, l, nb))
+                torch.cuda.synchronize(self.device)
         self._warmed = sum(self._captures.values())
         dt = time.perf_counter() - t0
         self._warmup_seconds += dt
@@ -475,6 +723,14 @@ class ContinuousEngine:
         under admissible traffic (before any warmup it counts them all)."""
         return sum(self._captures.values()) - self._warmed
 
+    def decode_compile_count(self) -> int:
+        """Decode and speculative-round graphs captured."""
+        return self._captures["decode"] + self._captures["spec"]
+
+    def prefill_compile_count(self) -> int:
+        """Prefill graphs captured (the draft's included)."""
+        return self._captures["prefill"] + self._captures["dprefill"]
+
     def release_graphs(self) -> None:
         """Drop the captured graphs, their memory pool and the capture
         stream's scratch; later steps capture again as needed."""
@@ -486,55 +742,71 @@ class ContinuousEngine:
 
     # -------------------------------------------------------------- metrics
     def reset_metrics(self) -> None:
-        """Zero everything request-level — finished requests, timers,
-        preemptions, hit-rate and pool counters — keeping the graphs and the
-        prefix registry warm."""
+        """Zero everything request-level — the finished list (and with it
+        the TTFT samples), timers, queue and preemption series, hit-rate and
+        pool counters: the whole registry, whose callback gauges keep
+        reading live state — keeping the graphs and the prefix registry
+        warm."""
         self.finished = []
         self._start_time = None
-        for k, v in self.counters.items():
-            self.counters[k] = type(v)(0)
-        self.scheduler.preemptions = 0
-        for k in self.pool.stats:
-            self.pool.stats[k] = 0
+        self.registry.reset()
 
     def metrics(self) -> Dict[str, float]:
-        """Aggregate serving metrics over finished requests (the JAX keys
-        of what is ported). The steady-state rates leave out steps that
-        captured a graph."""
-        c, caps = self.counters, self._captures
+        """Aggregate serving metrics over finished requests: the JAX
+        engine's compatibility view over ``self.registry``
+        (``registry.snapshot()`` is the superset), with its keys. The
+        steady-state rates leave out steps that captured a graph; a capture
+        is the port's compile, and the chunked-prefill kernel is the only
+        prefill path (``prefill_kernel`` 1.0)."""
+        decode_s = self._c_decode_seconds.value
+        prefill_s = self._c_prefill_seconds.value
         m = {
-            "decode_compiles": caps["decode"] + caps["spec"],
-            "decode_steps": c["decode_steps"],
-            "decode_tok_per_s": (c["decode_tokens"] / c["decode_seconds"]
-                                 if c["decode_seconds"] > 0 else 0.0),
-            "prefill_compiles": caps["prefill"] + caps["dprefill"],
-            "prefill_batches": c["prefill_batches"],
-            "prefill_tok_per_s": (c["prefill_tokens"] / c["prefill_seconds"]
-                                  if c["prefill_seconds"] > 0 else 0.0),
-            "decode_seconds": c["decode_seconds"],
-            "prefill_seconds": c["prefill_seconds"],
-            "prefix_hit_rate": (c["prefix_hit_tokens"]
-                                / max(c["prompt_tokens"], 1)),
-            "prefix_hit_tokens": c["prefix_hit_tokens"],
+            "decode_compiles": self.decode_compile_count(),
+            "decode_shapes": len(self._decode_shapes),
+            "decode_steps": int(self._c_decode_steps.value),
+            "decode_tok_per_s": (self._c_decode_tokens.value / decode_s
+                                 if decode_s > 0.0 else 0.0),
+            "prefill_compiles": self.prefill_compile_count(),
+            "prefill_shapes": len(self._prefill_shapes),
+            "prefill_batches": int(self._c_prefill_batches.value),
+            "prefill_tok_per_s": (self._c_prefill_tokens.value / prefill_s
+                                  if prefill_s > 0.0 else 0.0),
+            "prefill_kernel": 1.0,
+            "prefix_hit_rate": (self._c_prefix_hit_tokens.value
+                                / max(self._c_prompt_tokens.value, 1)),
+            "prefix_hit_tokens": int(self._c_prefix_hit_tokens.value),
             "cached_blocks": self.pool.cached_blocks,
             "cow_copies": self.pool.stats["cow_copies"],
             "prefix_evictions": self.pool.stats["evictions"],
+            "queue_depth": len(self.scheduler.waiting),
             "preemptions": self.scheduler.preemptions,
             "warmup_seconds": self._warmup_seconds,
             "post_warmup_compiles": self.post_warmup_compiles(),
+            "slo_goodput": self._slo_goodput(),
         }
         if self._spec:
-            proposed = c["spec_proposed"]
+            proposed = self._c_spec_proposed.value
             m.update({
                 "spec_k": float(self.spec_k),
-                "spec_rounds": c["spec_rounds"],
-                "spec_proposed_tokens": proposed,
-                "spec_accepted_tokens": c["spec_accepted"],
-                "spec_accept_rate": (c["spec_accepted"] / proposed
+                "spec_rounds": int(self._c_spec_rounds.value),
+                "spec_proposed_tokens": int(proposed),
+                "spec_accepted_tokens": int(self._c_spec_accepted.value),
+                "spec_accept_rate": (self._c_spec_accepted.value / proposed
                                      if proposed > 0 else 0.0),
+            })
+        if self._recalib is not None:
+            w = self._recalib
+            m.update({
+                "recalib_swaps": int(w.swaps),
+                "recalib_sampled_requests": int(w.cal.sampled_requests),
+                "recalib_captured_tokens": int(w.cal.captured_tokens),
+                "recalib_clearance": float(w.clearance()),
+                "recalib_residual_excess": float(w.last_excess),
             })
         fin = self.finished
         if not fin:
+            # TTFT is undefined with nothing finished: None, never NaN, so
+            # the dict stays strict JSON
             return {"requests": 0, "requests_per_sec": 0.0, "new_tokens": 0,
                     "tokens_per_sec": 0.0, "mean_ttft_s": None,
                     "max_ttft_s": None, **m}
@@ -546,12 +818,99 @@ class ContinuousEngine:
                 "mean_ttft_s": float(np.mean(ttfts)) if ttfts else None,
                 "max_ttft_s": float(np.max(ttfts)) if ttfts else None, **m}
 
+    @staticmethod
+    def _req_tpot(req: Request) -> Optional[float]:
+        """Per-request mean time per output token after the first; None
+        until finished or with fewer than two tokens."""
+        if req.first_token_time is None or req.finish_time is None:
+            return None
+        n = len(req.out_tokens)
+        if n < 2:
+            return None
+        return (req.finish_time - req.first_token_time) / (n - 1)
+
+    def _meets_slo(self, req: Request) -> bool:
+        """Did a finished request meet the SLOs? An unset SLO is met; so is
+        a TPOT SLO by a request too short to have a TPOT."""
+        if self.slo_ttft_s is not None:
+            t = req.ttft
+            if t is None or t > self.slo_ttft_s:
+                return False
+        if self.slo_tpot_s is not None:
+            tp = self._req_tpot(req)
+            if tp is not None and tp > self.slo_tpot_s:
+                return False
+        return True
+
+    def _slo_goodput(self) -> float:
+        """Fraction of finished requests meeting the SLOs (1.0 with nothing
+        finished)."""
+        fin = self.finished
+        if not fin:
+            return 1.0
+        return sum(1 for r in fin if self._meets_slo(r)) / len(fin)
+
+    def dump_postmortem(self, reason: str,
+                        path: Optional[str] = None) -> Optional[str]:
+        """Write the flight recorder's postmortem bundle (ring tail, metrics,
+        engine config, trace tail); returns its path, or None without a
+        recorder. Wired to step exceptions and recalibration rejections."""
+        if self.flight is None:
+            return None
+        try:
+            metrics = self.metrics()
+        except Exception:            # never let a broken metric eat the dump
+            metrics = {}
+        config = {
+            "block_size": self.block_size,
+            "num_blocks": self.pool.num_blocks,
+            "max_running": self.scheduler.max_running,
+            "bucket_sizes": list(self.bucket_sizes),
+            "prefill_bucket_sizes": list(self.prefill_bucket_sizes),
+            "cuda_graphs": self.cuda_graphs,
+            "prefix_cache": self.prefix_cache,
+            "spec": self._spec,
+            "spec_k": self.spec_k,
+            "slo_ttft_s": self.slo_ttft_s,
+            "slo_tpot_s": self.slo_tpot_s,
+            "compute_dtype": str(self.compute_dtype),
+            "cache_dtype": str(self.cache_dtype),
+            "device": str(self.device),
+            "step": self._step_idx,
+            "swap_epoch": self._swap_epoch,
+        }
+        return self.flight.dump(reason=reason, metrics=metrics,
+                                config=config, path=path)
+
     # ------------------------------------------------------------ internals
     def _finish(self, req: Request) -> None:
         self.scheduler.evict(req)
         if self._spec:
             self.draft_pool.free(req.req_id)
         self.finished.append(req)
+        self._c_finished.inc()
+        self._c_new_tokens.inc(len(req.out_tokens))
+        self._h_e2e.observe(req.finish_time - req.arrival_time)
+        tpot = self._req_tpot(req)
+        if tpot is not None:
+            self._h_tpot.observe(tpot)
+        if self.flight is not None:
+            self.flight.record("finish", req_id=req.req_id,
+                               new_tokens=len(req.out_tokens),
+                               preemptions=req.preemptions,
+                               ttft_s=req.ttft, tpot_s=tpot,
+                               slo_ok=self._meets_slo(req))
+        if self._recalib is not None:
+            # completion capture: the generated inputs (out_tokens[:-1])
+            # stream into calibration once the request's tail is known
+            self._recalib.on_finish(self, req)
+
+    @staticmethod
+    def _seen(shapes: set, sig) -> bool:
+        """Add ``sig`` to a signature set; True when it is new there."""
+        new = sig not in shapes
+        shapes.add(sig)
+        return new
 
     def _bucket_batch(self, n: int) -> int:
         return bucket_batch(n, self.bucket_sizes)
@@ -644,6 +1003,7 @@ class ContinuousEngine:
             return g
         dev = self.device
         if self._stream is None:
+            self._own_weights()
             self._stream = torch.cuda.Stream(dev)
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._reserve_scratch()
@@ -654,14 +1014,32 @@ class ContinuousEngine:
         with torch.cuda.stream(s):
             self._forward(sig, inputs)
         graph = torch.cuda.CUDAGraph()
-        with ops.captured_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._graph_pool, stream=s):
-                out = self._forward(sig, inputs)
+        # no cyclic collection inside the capture: freeing another object's
+        # graphs or memory there invalidates it
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with ops.captured_launches() as launches:
+                with torch.cuda.graph(graph, pool=self._graph_pool, stream=s):
+                    out = self._forward(sig, inputs)
+        finally:
+            if gc_was_on:
+                gc.enable()
         torch.cuda.current_stream(dev).wait_stream(s)
         g = StepGraph(graph, ints, out, launches)
         self._graphs[sig] = g
         self._captures[sig[0]] += 1
         return g
+
+    def _own_weights(self) -> None:
+        """Serve the engine's own copies of the target and the draft: a
+        captured graph holds the addresses of the tensors it reads and
+        ``hot_swap`` writes into them, so neither may be the caller's.
+        (A copy in another compute dtype is the engine's already.)"""
+        if self._target is self.model:
+            self._target = copy.deepcopy(self.model)
+        if self._spec and self._draft is self.draft_model:
+            self._draft = copy.deepcopy(self.draft_model)
 
     def _reserve_scratch(self) -> None:
         """Size the capture stream's kernel scratch for the largest
@@ -709,6 +1087,12 @@ class ContinuousEngine:
         nb_pad = _pow2_at_least(max(self.pool.blocks_for(s + l_pad)
                                     for s in starts))
         sig = ("prefill", b_pad, l_pad, nb_pad)
+        if self.flight is not None:
+            for r, ln_i in zip(reqs, lens):
+                self.flight.record("prefill", req_id=r.req_id,
+                                   suffix_tokens=int(ln_i), bucket=l_pad,
+                                   batch=len(group))
+        new_sig = self._seen(self._prefill_shapes, sig)
         tok = np.zeros((b_pad, l_pad), np.int32)
         for i, s in enumerate(suffixes):
             tok[i, :len(s)] = s
@@ -718,25 +1102,35 @@ class ContinuousEngine:
                      tables=self.pool.padded_tables(ids, rows=b_pad,
                                                   blocks=nb_pad))
         t0 = time.perf_counter()
-        logits, fresh = self._run(sig, host)
-        nxt = self._sample_tokens(logits, reqs)
-        if self._spec:
-            dsig = ("dprefill",) + sig[1:]
-            _, dfresh = self._run(dsig, _pack(
-                dsig, tok=tok, pos=starts + [0] * pad, lens=lens + [1] * pad,
-                tables=self.draft_pool.padded_tables(ids, rows=b_pad,
-                                                     blocks=nb_pad)))
-            fresh = fresh or dfresh
+        with trace.span("serve.prefill_batch", batch=len(group),
+                        tokens=sum(lens), sig=str(sig[1:])):
+            logits, fresh = self._run(sig, host)
+            nxt = self._sample_tokens(logits, reqs)
+            if self._spec:
+                dsig = ("dprefill",) + sig[1:]
+                with trace.span("serve.spec_draft_prefill", batch=len(group)):
+                    _, dfresh = self._run(dsig, _pack(
+                        dsig, tok=tok, pos=starts + [0] * pad,
+                        lens=lens + [1] * pad,
+                        tables=self.draft_pool.padded_tables(
+                            ids, rows=b_pad, blocks=nb_pad)))
+                fresh = fresh or dfresh
+        if new_sig or fresh:
+            trace.instant("serve.prefill_compile", sig=str(sig[1:]))
         if not fresh:                       # steady-state timer: skip captures
-            self.counters["prefill_seconds"] += time.perf_counter() - t0
-            self.counters["prefill_tokens"] += sum(lens)
-        self.counters["prefill_batches"] += 1
+            self._c_prefill_seconds.inc(time.perf_counter() - t0)
+            self._c_prefill_tokens.inc(sum(lens))
+        self._c_prefill_batches.inc()
         now = time.perf_counter()
         for r, start, ln_i, t in zip(reqs, starts, lens, nxt):
             r.cache_len = start + ln_i
             r.out_tokens.append(int(t))
             if r.first_token_time is None:
                 r.first_token_time = now
+                self._h_ttft.observe(r.ttft)
+                if self.flight is not None:
+                    self.flight.record("first_token", req_id=r.req_id,
+                                       ttft_s=r.ttft)
             self.pool.commit(r.req_id, r.prefill_tokens()[:r.cache_len])
             if self._spec:
                 self.draft_pool.commit(r.req_id,
@@ -761,18 +1155,24 @@ class ContinuousEngine:
         b_pad = self._bucket_batch(b_real)
         nb_pad = _pow2_at_least(self.pool.max_table_blocks(ids))
         sig = ("decode", b_pad, nb_pad)
+        new_sig = self._seen(self._decode_shapes, sig)
         pad = b_pad - b_real
         host = _pack(sig, tok=[r.out_tokens[-1] for r in running] + [0] * pad,
                      pos=[r.cache_len for r in running] + [0] * pad,
                      tables=self.pool.padded_tables(ids, rows=b_pad,
                                                   blocks=nb_pad))
         t0 = time.perf_counter()
-        logits, fresh = self._run(sig, host)
-        nxt = self._sample_tokens(logits, running)
+        with trace.span("serve.decode_step", batch=b_real, sig=str(sig[1:])):
+            logits, fresh = self._run(sig, host)
+            nxt = self._sample_tokens(logits, running)
+        if new_sig or fresh:
+            trace.instant("serve.decode_compile", sig=str(sig[1:]))
+        self._c_decode_steps.inc()
         if not fresh:                       # steady-state timer: skip captures
-            self.counters["decode_seconds"] += time.perf_counter() - t0
-            self.counters["decode_tokens"] += b_real
-        self.counters["decode_steps"] += 1
+            dt = time.perf_counter() - t0
+            self._c_decode_seconds.inc(dt)
+            self._c_decode_tokens.inc(b_real)
+            self._h_step.observe(dt)
         done = []
         for r, t in zip(running, nxt):
             r.cache_len += 1
@@ -824,6 +1224,7 @@ class ContinuousEngine:
         b_pad = self._bucket_batch(b_real)
         nb_pad = _pow2_at_least(self.pool.max_table_blocks(ids))
         sig = ("spec", b_pad, nb_pad)
+        new_sig = self._seen(self._spec_shapes, sig)
         pad = b_pad - b_real
         temps = np.asarray([r.temperature for r in running] + [0.0] * pad,
                            np.float32)
@@ -844,13 +1245,16 @@ class ContinuousEngine:
                     running[i].seed, _DRAFT_FOLD,
                     len(running[i].out_tokens) + step))
                 self._noise[i, step].exponential_(generator=self._noise_gen)
-        (ints, vlogits, dlogits), fresh = self._run(sig, host)
-        ints = ints[:b_real].cpu().numpy()
-        if hot:
-            # full distributions cross to the host only for sampled rows
-            rows = torch.as_tensor(hot, device=self.device)
-            vlog = vlogits[rows].cpu().numpy()          # (n, k+1, V)
-            dlog = dlogits[:, rows].cpu().numpy()       # (k+1, n, V)
+        with trace.span("serve.spec_step", batch=b_real, sig=str(sig[1:])):
+            (ints, vlogits, dlogits), fresh = self._run(sig, host)
+            ints = ints[:b_real].cpu().numpy()
+            if hot:
+                # full distributions cross to the host only for sampled rows
+                rows = torch.as_tensor(hot, device=self.device)
+                vlog = vlogits[rows].cpu().numpy()          # (n, k+1, V)
+                dlog = dlogits[:, rows].cpu().numpy()       # (k+1, n, V)
+        if new_sig or fresh:
+            trace.instant("serve.spec_compile", sig=str(sig[1:]))
         emitted = 0
         done: List[Request] = []
         for i, r in enumerate(running):
@@ -867,8 +1271,11 @@ class ContinuousEngine:
                                                         dlog[:, j])
             r.spec_proposed += k
             r.spec_accepted += n_acc
-            self.counters["spec_proposed"] += k
-            self.counters["spec_accepted"] += n_acc
+            self._c_spec_proposed.inc(k)
+            self._c_spec_accepted.inc(n_acc)
+            if self.flight is not None:
+                self.flight.record("spec_round", req_id=r.req_id,
+                                   proposed=k, accepted=n_acc)
             keep: List[int] = []
             for t in toks:
                 if len(r.out_tokens) + len(keep) >= r.max_new_tokens:
@@ -890,11 +1297,13 @@ class ContinuousEngine:
             if r.done:
                 self._finish(r)
                 done.append(r)
-        self.counters["decode_steps"] += 1
-        self.counters["spec_rounds"] += 1
+        self._c_decode_steps.inc()
+        self._c_spec_rounds.inc()
         if not fresh:                       # steady-state timer: skip captures
-            self.counters["decode_seconds"] += time.perf_counter() - t0
-            self.counters["decode_tokens"] += emitted
+            dt = time.perf_counter() - t0
+            self._c_decode_seconds.inc(dt)
+            self._c_decode_tokens.inc(emitted)
+            self._h_step.observe(dt)
         return done
 
     def _spec_accept_sampled(self, r: Request, d: List[int],

@@ -28,10 +28,12 @@ position, which ``extend`` makes exclusive by copy-on-write (``fork``
 shares a whole table, e.g. best-of-n; the first write to the shared tail
 block copies it, one in-place page ``copy_`` per store).
 
-The host-side accounting is the JAX pool's, line for line. What the port
-leaves out: the recurrent-state slot stores (the port serves only
-pure-attention LMs, so ``fork`` copies no state slot), ``CacheLayout.probe``
-and the gather/scatter oracle path.
+The host-side accounting is the JAX pool's, line for line, and so are its
+``pool_*`` registry series (``registry=``: the owning engine's, a private
+one standalone), of which ``stats`` is a view. What the port leaves out:
+the recurrent-state slot stores (the port serves only pure-attention LMs, so
+``fork`` copies no state slot), ``CacheLayout.probe`` and the gather/scatter
+oracle path.
 """
 from __future__ import annotations
 
@@ -40,6 +42,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import Registry
 
 _ROOT = -1                      # parent id of a prefix chain's first block
 
@@ -53,7 +58,7 @@ class BlockPool:
 
     def __init__(self, model, *, num_blocks: int, block_size: int,
                  max_requests: int, dtype=torch.float32,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, registry=None):
         if num_blocks < 2 or block_size < 1:
             raise ValueError("need num_blocks >= 2 and block_size >= 1")
         self.block_size = block_size
@@ -76,10 +81,29 @@ class BlockPool:
         self._lru: "collections.OrderedDict[int, None]" = \
             collections.OrderedDict()           # cached refcount-0 blocks
         self._chain: Dict[int, List[int]] = {}  # req -> prefix ids committed
-        self.stats: Dict[str, int] = {"cow_copies": 0, "evictions": 0}
+        reg = registry if registry is not None else Registry()
+        self.registry = reg
+        self._c_cow = reg.counter("pool_cow_copies_total",
+                                  "copy-on-write block copies")
+        self._c_evict = reg.counter("pool_prefix_evictions_total",
+                                    "prefix-cache blocks LRU-evicted")
+        # the callbacks hold the (never rebound) containers, not the pool:
+        # a pool <-> registry cycle would leave the page stores to the
+        # cyclic collector
+        reg.gauge("pool_free_blocks", "blocks on the free list",
+                  fn=lambda free=self._free: len(free))
+        reg.gauge("pool_cached_blocks",
+                  "evictable prefix-cache blocks (refcount 0)",
+                  fn=lambda lru=self._lru: len(lru))
         self.pages = model.init_cache(num_blocks, block_size, dtype=dtype)
 
     # ------------------------------------------------------------ accounting
+    @property
+    def stats(self) -> Dict[str, int]:
+        """The JAX pool's ``stats`` dict, read from the registry series."""
+        return {"cow_copies": int(self._c_cow.value),
+                "evictions": int(self._c_evict.value)}
+
     @property
     def usable_blocks(self) -> int:
         return self.num_blocks - 1             # page 0 reserved as trash
@@ -144,7 +168,8 @@ class BlockPool:
         if self._lru:
             block, _ = self._lru.popitem(last=False)     # least recently freed
             self._deregister(block)
-            self.stats["evictions"] += 1
+            self._c_evict.inc()
+            trace.instant("pool.prefix_evict", block=block)
             return block
         raise MemoryError("block pool exhausted")
 
@@ -308,12 +333,13 @@ class BlockPool:
         blk = table[i]
         if self._ref[blk] <= 1:
             return
-        new = self._take_block()
-        self._copy_page(blk, new)
-        self._ref[new] = 1
-        self._decref(blk)
-        table[i] = new
-        self.stats["cow_copies"] += 1
+        with trace.span("pool.cow_copy", req_id=req_id, block=blk):
+            new = self._take_block()
+            self._copy_page(blk, new)
+            self._ref[new] = 1
+            self._decref(blk)
+            table[i] = new
+            self._c_cow.inc()
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Page ``src`` into page ``dst`` in every layer's k and v store (a

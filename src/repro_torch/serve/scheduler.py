@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: request queue + admission control (port of
-``repro/serve/scheduler.py:33-212``, without the metrics registry, tracing
-and flight recorder).
+``repro/serve/scheduler.py:33-212``).
 
 Requests join the running batch as soon as a slot and enough cache blocks
 for their worst case are available (FIFO, no overtaking), and leave it the
@@ -12,6 +11,12 @@ registered) and it goes back to the front of the queue, to be re-prefilled
 over prompt + tokens generated so far (sampling keys are folded per output
 index, so it resumes on the same trajectory, and its own committed blocks
 are prefix-cache hits).
+
+The queue series (``serve_queue_depth``, ``serve_queue_wait_seconds``,
+``serve_requests_admitted_total``, ``serve_preemptions_total``) go into the
+engine's registry, admission and preemption are traced (``serve.admit``,
+``serve.preempt``), and an attached flight recorder gets the ``admit``,
+``evict`` and ``preempt`` events, all as in the JAX scheduler.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ import time
 from typing import Deque, List, Optional
 
 import numpy as np
+
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import LATENCY_BUCKETS, Registry
 
 
 @dataclasses.dataclass
@@ -73,9 +81,14 @@ class Request:
 class Scheduler:
     """FIFO admission against pool capacity and a running-slot cap."""
 
-    def __init__(self, pool, max_running: int = 8, headroom_tokens: int = 0):
+    def __init__(self, pool, max_running: int = 8,
+                 registry: Optional[Registry] = None,
+                 headroom_tokens: int = 0, flight=None):
         self.pool = pool
         self.max_running = max_running
+        # optional obs.flight.FlightRecorder: admission, preemption and
+        # eviction land here so a postmortem shows the scheduling history
+        self.flight = flight
         # extra cache positions every running request may transiently write
         # past its budget (speculative decoding: a verify round can land up
         # to spec_k uncommitted tail tokens before rollback)
@@ -83,7 +96,22 @@ class Scheduler:
         self.waiting: Deque[Request] = collections.deque()
         self.running: List[Request] = []
         self._admit_seq = 0
-        self.preemptions = 0
+        reg = registry if registry is not None else Registry()
+        self.registry = reg
+        reg.gauge("serve_queue_depth", "requests waiting for admission",
+                  fn=lambda waiting=self.waiting: len(waiting))
+        self._h_queue_wait = reg.histogram(
+            "serve_queue_wait_seconds", LATENCY_BUCKETS,
+            "arrival -> (latest) admission wait")
+        self._c_admitted = reg.counter(
+            "serve_requests_admitted_total",
+            "admissions (re-admission after preemption counts again)")
+        self._c_preemptions = reg.counter(
+            "serve_preemptions_total", "requests preempted under pool pressure")
+
+    @property
+    def preemptions(self) -> int:
+        return int(self._c_preemptions.value)
 
     def submit(self, req: Request) -> None:
         self.waiting.append(req)
@@ -98,22 +126,34 @@ class Scheduler:
         blocks twice."""
         admitted: List[Request] = []
         reserved = 0
-        # prefix-cached blocks in the LRU are evictable on demand, so they
-        # count as admissible capacity (a hit needs even less)
-        avail = self.pool.available_blocks
-        while self.waiting and len(self.running) < self.max_running:
-            req = self.waiting[0]
-            need = self.pool.blocks_for(req.cache_budget()
-                                        + self.headroom_tokens)
-            if (need + reserved > avail
-                    or len(admitted) + 1 > self.pool.free_slots):
-                break
-            reserved += need
-            self.waiting.popleft()
-            req.admit_seq = self._admit_seq
-            self._admit_seq += 1
-            self.running.append(req)
-            admitted.append(req)
+        if not self.waiting:
+            # nothing to admit: no span either (every steady decode step)
+            return admitted
+        with trace.span("serve.admit", waiting=len(self.waiting),
+                        running=len(self.running)):
+            # prefix-cached blocks in the LRU are evictable on demand, so
+            # they count as admissible capacity (a hit needs even less)
+            avail = self.pool.available_blocks
+            while self.waiting and len(self.running) < self.max_running:
+                req = self.waiting[0]
+                need = self.pool.blocks_for(req.cache_budget()
+                                            + self.headroom_tokens)
+                if (need + reserved > avail
+                        or len(admitted) + 1 > self.pool.free_slots):
+                    break
+                reserved += need
+                self.waiting.popleft()
+                req.admit_seq = self._admit_seq
+                self._admit_seq += 1
+                self.running.append(req)
+                admitted.append(req)
+                self._c_admitted.inc()
+                wait = time.perf_counter() - req.arrival_time
+                self._h_queue_wait.observe(wait)
+                if self.flight is not None:
+                    self.flight.record("admit", req_id=req.req_id,
+                                       queue_wait_s=wait, blocks=need,
+                                       preemptions=req.preemptions)
         return admitted
 
     def adopt(self, req: Request) -> None:
@@ -130,6 +170,9 @@ class Scheduler:
         self.pool.free(req.req_id)
         self.running.remove(req)
         req.finish_time = time.perf_counter()
+        if self.flight is not None:
+            self.flight.record("evict", req_id=req.req_id,
+                               out_tokens=len(req.out_tokens))
 
     def preempt_youngest(self) -> Optional[Request]:
         """Free the most recently admitted request and requeue it at the
@@ -137,10 +180,16 @@ class Scheduler:
         if not self.running:
             return None
         victim = max(self.running, key=lambda r: r.admit_seq)
-        self.pool.free(victim.req_id)
-        self.running.remove(victim)
-        victim.cache_len = 0
-        victim.preemptions += 1
-        self.preemptions += 1
-        self.waiting.appendleft(victim)
+        with trace.span("serve.preempt", req_id=victim.req_id,
+                        generated=len(victim.out_tokens)):
+            self.pool.free(victim.req_id)
+            self.running.remove(victim)
+            victim.cache_len = 0
+            victim.preemptions += 1
+            self._c_preemptions.inc()
+            self.waiting.appendleft(victim)
+            if self.flight is not None:
+                self.flight.record("preempt", req_id=victim.req_id,
+                                   generated=len(victim.out_tokens),
+                                   preemptions=victim.preemptions)
         return victim

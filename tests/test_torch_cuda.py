@@ -6,7 +6,9 @@ pair of q and page dtypes (fp32 / bf16), the chunked kernel at the
 speculative verifier's shape. The last ones serve a staggered trace on
 llama3_1b SMOKE through the engine's CUDA graphs and hold it against the
 eager engine (the same kernels, launched call by call), also speculatively
-and in bf16. JAX-free, so they run on the GPU machine:
+and in bf16, and swap recompressed factors into the captured graphs
+(``hot_swap``, inline and from an async recalibration solve). JAX-free, so
+they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -25,8 +27,8 @@ import torch
 
 from repro_torch.config import CompressConfig
 from repro_torch.configs import get_smoke_config
-from repro_torch.core.calibrate import calibrate_model
-from repro_torch.core.compress import compress_model_pair
+from repro_torch.core.calibrate import calibrate_model, linear_paths
+from repro_torch.core.compress import compress_model, compress_model_pair
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gram_accum as ga
 from repro_torch.kernels import lowrank_linear as ll
@@ -40,6 +42,7 @@ from repro_torch.launch.serve import serve_trace, synthetic_trace
 from repro_torch.models import build_model
 from repro_torch.models.linear import Linear
 from repro_torch.serve import ContinuousEngine
+from repro_torch.serve.engine import _pack
 
 torch.set_num_threads(1)
 
@@ -628,3 +631,97 @@ def test_engine_cuda_bf16_cache_graphs_match_eager(smoke_models, compute):
     _, ref_toks, _ = _serve(smoke_models["coala"], cuda_graphs=False, **kw)
     assert toks == ref_toks and eng.metrics()["post_warmup_compiles"] == 0
     assert eng.pool.pages[0]["k"].dtype == torch.bfloat16
+
+
+def _rank_map(model):
+    """The factored projections' ranks by calibrator path."""
+    return {p: lin.b_t.shape[1] for p, lin in linear_paths(model)
+            if lin.is_factored}
+
+
+def _replay_logits(eng, tok):
+    """Logits of one decode step of ``tok`` at position 0 over the trash
+    page (a graph replay, or the eager forward of a ``cuda_graphs=False``
+    engine)."""
+    sig = ("decode", 1, 1)
+    logits, _ = eng._run(sig, _pack(sig, tok=[[tok]], pos=[0], tables=[[0]]))
+    return logits.clone()
+
+
+@pytest.mark.cuda
+def test_engine_cuda_hot_swap_reaches_graphs(smoke_models):
+    """A swap writes into the tensors the captured graphs read: the next
+    replay's logits are the eager engine's on the new model (within the
+    fp32 serve tolerance, 1e-3) and differ from the old ones; no capture,
+    no scratch reallocated, the caller's models untouched; a trace served
+    after the swap gives the new model's eager tokens."""
+    coala = smoke_models["coala"]
+    cal = calibrate_model(smoke_models["dense"], [torch.as_tensor(
+        np.random.RandomState(5).randint(0, 256, (4, 32)), device="cuda")])
+    new, _ = compress_model(smoke_models["dense"], cal,
+                            CompressConfig(ratio=0.6, lam=4.0, mu=-1.0),
+                            rank_map=_rank_map(coala))
+    before = {k: v.clone() for k, v in coala.state_dict().items()}
+    trace = _engine_trace()
+    eng = ContinuousEngine(coala, **ENGINE_KNOBS)
+    eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
+    key = (eng.device, eng._stream.cuda_stream)
+    scratch = [t.data_ptr() for t in ll._scratch[key]]
+    old_logits = _replay_logits(eng, 7)
+    _close(old_logits, _replay_logits(
+        ContinuousEngine(coala, cuda_graphs=False, **ENGINE_KNOBS), 7), 1e-3)
+    eng.hot_swap(new)
+    new_logits = _replay_logits(eng, 7)
+    _close(new_logits, _replay_logits(
+        ContinuousEngine(new, cuda_graphs=False, **ENGINE_KNOBS), 7), 1e-3)
+    assert (new_logits - old_logits).abs().max().item() > 1e-2
+    assert eng.post_warmup_compiles() == 0
+    assert [t.data_ptr() for t in ll._scratch[key]] == scratch
+    serve_trace(eng, trace)
+    _, ref_toks, _ = _serve(new, cuda_graphs=False)
+    assert {r.req_id: list(r.out_tokens) for r in eng.finished} == ref_toks
+    assert eng.post_warmup_compiles() == 0
+    assert all(torch.equal(v, before[k]) for k, v in coala.state_dict().items())
+    eng.release_graphs()
+
+
+@pytest.mark.cuda
+def test_engine_cuda_async_recalibration_swap_matches(smoke_models):
+    """Live recalibration with the solve on a background thread and its own
+    CUDA stream: the staged swap lands between steps, captures nothing and
+    leaves the graphs computing the solved model's logits."""
+    from repro_torch.serve import RecalibPolicy, RecalibWorker, TrafficCalibrator
+    coala = smoke_models["coala"]
+    trace = _engine_trace()
+    eng = ContinuousEngine(coala, **ENGINE_KNOBS)
+    eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
+    key = (eng.device, eng._stream.cuda_stream)
+    scratch = [t.data_ptr() for t in ll._scratch[key]]
+    tcal = TrafficCalibrator(smoke_models["dense"],
+                             policy=RecalibPolicy(check_every=1,
+                                                  min_new_tokens=8))
+    worker = RecalibWorker(smoke_models["dense"], tcal,
+                           CompressConfig(ratio=0.6, lam=4.0, mu=-1.0),
+                           rank_map=_rank_map(coala), async_solve=True)
+    eng.attach_recalibrator(worker)
+    solved = []
+    solve = worker._solve
+    worker._solve = lambda snap: solved.append(solve(snap)) or solved[-1]
+    pending, step = list(trace), 0
+    while pending or eng.has_work():
+        while pending and pending[0][0] <= step:
+            _, prompt, nn = pending.pop(0)
+            eng.submit(prompt, nn)
+        eng.step()
+        assert worker.join(timeout=120)
+        step += 1
+    assert worker.swaps >= 1, worker.summary()
+    assert len(eng.finished) == len(trace)
+    assert eng.post_warmup_compiles() == 0
+    assert [t.data_ptr() for t in ll._scratch[key]] == scratch
+    if worker._staged is not None:           # solved after the last step
+        eng.step()
+    last = [r for r in solved if r is not None][-1][0]
+    _close(_replay_logits(eng, 11), _replay_logits(
+        ContinuousEngine(last, cuda_graphs=False, **ENGINE_KNOBS), 11), 1e-3)
+    eng.release_graphs()
