@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~11 min on one H100
+    python3 chip_smoke.py              # full run, ~15 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -18,7 +18,12 @@ Phases, each printing its own lines:
              (1e-4), the calibration Grams (1e-4), and a speculative engine's
              greedy tokens (a ratio-0.3 draft, k 4; graphs on the card,
              eager on the CPU): identical, and identical to the CPU's
-             non-speculative tokens;
+             non-speculative tokens; then each attention-only family's SMOKE
+             config (mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
+             gemma2_27b, deepseek_moe_16b), dense and COALA: prefill and
+             decode logits card vs CPU (1e-3) over rows past gemma2's SMOKE
+             window, and a staggered shared-prefix trace through the card's
+             graphs against the CPU's eager engine (identical tokens);
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
@@ -85,7 +90,30 @@ Phases, each printing its own lines:
              as phase 4b called it); paged_attention, gram_accum and
              flash_attention must give the same bits on a second identical
              call;
-8. profile — only with ``--profile N``: wall and per-kernel device time of
+8. gemma2 path — the serving launcher on gemma2_27b at full width, its
+             depth cut to 2 of 46 layers (one local layer with the 4096
+             window, one global; softcaps 50 / 30, sandwich norms, query
+             scale 144^-0.5, hd 128, G 2), handed as ``cfg``: calibration
+             2 x 8 x 256 tokens, COALA ratio 0.6, λ 4, dense and COALA
+             through CUDA graphs after warmup on phase 4's trace plus one
+             4400-token prompt (the window bites in chunked_prefill and
+             paged_attention), 0 post-warmup captures, then both through the
+             eager engine: identical greedy tokens;
+9. deepseek path — the compression launcher on deepseek_moe_16b at full
+             width, its depth cut to 4 of 28 layers (the dense-FFN layer and
+             3 MoE layers of 64 routed experts top-6 and 2 shared), handed
+             as ``cfg``, 10 pretrain steps, 4 x 8 x 64 calibration tokens,
+             coala and svd_llm compressing every routed expert from its own
+             tokens: non-finite factors (coala must have none), CE before
+             and after, routed tokens per expert, plain-SVD fallbacks; then
+             the COALA model serves phase 4's trace through graphs and
+             eagerly, identical greedy tokens, 0 post-warmup captures.
+             Phase 7 also holds lowrank_linear on gemma2's seven projections
+             (M 8, M 256; `down` at d_in 36864 takes 72 split-K chunks),
+             paged_attention and chunked_prefill at phase 8's shapes with its
+             window, softcap and scale (local and global), and flash at
+             gemma2's calibration shape with softcap 50;
+10. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
              of the speculative draft served alone and of speculative
@@ -98,8 +126,9 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Launch counts are zeroed just before each of the paths 4-6 (4b, 4c and 4d
-included) and read just after: eager launches plus the kernels of every
+Phases run in the order 1-6, 8, 9, 7, 10. Launch counts are zeroed just
+before each of the paths 4-6, 8 and 9 (4b, 4c and 4d included) and read
+just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it.
 The shapes of the kernel calls are noted on the way for phase 7 (on the
 serve paths in their eager-engine runs: a graph's wrapper calls see only the
@@ -114,6 +143,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import math
 import subprocess
@@ -127,6 +157,9 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+GEMMA2_PROJECTIONS = {      # gemma2_27b's projections: (d_in, d_out)
+    "wq": (4608, 4096), "wk": (4608, 2048), "wv": (4608, 2048), "wo": (4096, 4608),
+    "gate": (4608, 36864), "up": (4608, 36864), "down": (36864, 4608)}
 LOWRANK_SHAPES = {          # llama3_1b projections at ratio 0.6: (d_in, r, d_out)
     "wq": (2048, 614, 2048), "wk": (2048, 245, 512), "wv": (2048, 245, 512),
     "wo": (2048, 614, 2048), "gate": (2048, 983, 8192), "up": (2048, 983, 8192),
@@ -202,17 +235,22 @@ COMPRESS_ARGS = ["--arch", "llama3_1b", "--ratio", "0.6", "--lam", "4",
                  "--pretrain-steps", "100", "--calib-batches", "4", "--device", "cuda"]
 EXTRA_METHODS = ("svd", "svd_llm_v2", "asvd")
 EXTRA_PREFIX = "blocks/0/"   # the extra methods compress block 0's linears only
-# flash_attention cases (name, B, T, Hq, Hkv, hd, cap, timed): the compress
-# path's evaluation/calibration and the serving calibration first
-FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, True),
-               ("path B8 T256", 8, 256, 32, 8, 64, 0.0, True),
-               ("B1 T4096", 1, 4096, 32, 8, 64, 0.0, True),
-               ("ragged T100", 2, 100, 32, 8, 64, 0.0, False),
-               ("softcap 20", 2, 256, 32, 8, 64, 20.0, False),
-               ("G1", 2, 128, 8, 8, 64, 0.0, False),
-               ("G4 hd128 ragged", 1, 77, 16, 4, 128, 0.0, False),
-               ("T1", 4, 1, 32, 8, 64, 0.0, False),
-               ("G8 T1000", 1, 1000, 64, 8, 64, 0.0, False)]
+# flash_attention cases (name, B, T, Hq, Hkv, hd, cap, scale, timed): the
+# compress path's evaluation/calibration and the serving calibration first;
+# scale None is hd^-0.5
+FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
+               ("path B8 T256", 8, 256, 32, 8, 64, 0.0, None, True),
+               ("B1 T4096", 1, 4096, 32, 8, 64, 0.0, None, True),
+               ("ragged T100", 2, 100, 32, 8, 64, 0.0, None, False),
+               ("softcap 20", 2, 256, 32, 8, 64, 20.0, None, False),
+               ("G1", 2, 128, 8, 8, 64, 0.0, None, False),
+               ("G4 hd128 ragged", 1, 77, 16, 4, 128, 0.0, None, False),
+               ("T1", 4, 1, 32, 8, 64, 0.0, None, False),
+               ("G8 T1000", 1, 1000, 64, 8, 64, 0.0, None, False),
+               # gemma2's calibration forward on its global layer (phase 8), at
+               # its query scale (d_model / n_heads)^-0.5
+               ("gemma2 B8 T256 hd128 cap50", 8, 256, 32, 16, 128, 50.0,
+                (4608 / 32) ** -0.5, True)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
@@ -322,6 +360,92 @@ def reference_check(torch, dev):
             for i, (a, b) in enumerate(zip(*outs)):
                 compare(f"reference {name} {cdt}/{kdt} cache step {i} (card kernels vs "
                         "CPU plain)", b, a, tol)
+
+
+# the attention-only families of this slice, held card vs CPU at SMOKE size
+FAMILIES = ("mistral_7b", "smollm_135m", "olmo_1b", "minicpm_2b", "gemma2_27b",
+            "deepseek_moe_16b")
+FAMILY_KNOBS = dict(block_size=4, num_blocks=48, max_running=3, bucket_sizes=(1, 2, 3),
+                    prefill_bucket_sizes=(16, 64))
+FAMILY_TRACE = dict(seed=2, min_prompt=20, max_prompt=60, max_new=8, arrival_every=1,
+                    shared_prefix=8)
+
+
+def reference_families(torch, dev):
+    """Each family's SMOKE config, dense and COALA-compressed on the CPU (per
+    expert for the MoE): the logits of a prefill of rows past gemma2's SMOKE
+    window (32) and of two decode steps through the kernels on the card
+    against the plain versions on the CPU (fp32, ``TOL_SERVE``'s fp32
+    tolerance), then a staggered trace with a shared prefix through the
+    engine's CUDA graphs on the card: greedy tokens identical to the eager
+    engine's on the CPU, 0 post-warmup captures."""
+    import copy
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model
+    from repro_torch.launch.serve import serve_trace, synthetic_trace
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousEngine
+
+    tol = TOL_SERVE[("float32", "float32")]
+    lens, l_pad, bs = [45, 12, 37], 48, 8
+    tables = np.zeros((4, 8), np.int32)
+    nxt = 1
+    for i, n in enumerate(lens):
+        for j in range(-(-(n + 2) // bs)):
+            tables[i, j] = nxt
+            nxt += 1
+    for arch in FAMILIES:
+        cfg = get_smoke_config(arch)
+        cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+        rng = np.random.RandomState(SEED)
+        batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 40)))
+                   for _ in range(2)]
+        ccpu, _ = compress_model(cpu, calibrate_model(cpu, batches),
+                                 CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+        tok = np.zeros((4, l_pad), np.int32)
+        for i, n in enumerate(lens):
+            tok[i, :n] = rng.randint(0, cfg.vocab_size, n)
+        ln = np.array(lens + [1], np.int32)
+        trace = synthetic_trace(5, cfg.vocab_size, **FAMILY_TRACE)
+        for name, m_cpu in (("dense", cpu), ("coala", ccpu)):
+            m_gpu = copy.deepcopy(m_cpu).to(dev)
+            outs = []
+            for m, d in ((m_cpu, torch.device("cpu")), (m_gpu, dev)):
+                cache = m.init_cache(nxt + 1, bs)
+                t = lambda a: torch.as_tensor(a, device=d)   # noqa: E731
+                lg = [m.prefill_chunk(t(tok), cache, t(np.zeros(4, np.int32)), t(ln),
+                                      t(tables))]
+                pos = np.array(lens + [0], np.int32)
+                step = np.array([[5], [7], [11], [0]], np.int32)
+                for _ in range(2):
+                    lg.append(m.decode_step(t(step), cache, t(pos), t(tables)))
+                    pos[:3] += 1
+                outs.append([x[:3].cpu() for x in lg])
+            for i, (a, b) in enumerate(zip(*outs)):
+                compare(f"reference {arch} {name} fp32 step {i} (card kernels vs CPU "
+                        "plain)", b, a, tol)
+            toks = []
+            for m, graphs in ((m_gpu, True), (m_cpu, False)):
+                eng = ContinuousEngine(m, **FAMILY_KNOBS)
+                if graphs:
+                    eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
+                serve_trace(eng, trace)
+                toks.append({r.req_id: list(r.out_tokens) for r in eng.finished})
+                met = eng.metrics()
+                eng.release_graphs()
+                if graphs and met["post_warmup_compiles"] != 0:
+                    raise Failure(f"{arch} {name}: {met['post_warmup_compiles']} "
+                                  "post-warmup captures")
+            same = toks[0] == toks[1] and len(toks[0]) == len(trace)
+            log(f"  reference {arch} {name} engine (card graphs vs CPU eager): greedy "
+                f"tokens {'identical' if same else 'DIFFER'}, prefix hit rate "
+                f"{met['prefix_hit_rate']:.3f}")
+            if not same:
+                raise Failure(f"{arch} {name}: card engine tokens differ from the CPU's")
+            del m_gpu
 
 
 def reference_spec(torch, dev):
@@ -1169,28 +1293,312 @@ def gram_path(torch, ops, coala):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: gemma2_27b at full width through the serve launcher
+# ---------------------------------------------------------------------------
+
+# gemma2_27b (src/repro_torch/configs/gemma2_27b.py) at full width, its depth
+# cut from 46 layers to 2: layer 0 local (window 4096), layer 1 global. The
+# launcher calibrates on 2 x 8 x 256 seeded tokens (the global layer through
+# the flash kernel, the local one through the masked einsum) and compresses
+# with COALA at ratio 0.6, λ 4. Traffic: phase 4's 8 staggered requests plus
+# one of 4400 prompt tokens arriving after them, whose prefill and decode
+# attend past the local layer's window. Length buckets up to 4608 (the long
+# suffix), the prefix cache off (phase 4 holds it), a 512-page pool (no
+# preemption).
+GEMMA_LAYERS, LONG_PROMPT = 2, 4400
+GEMMA_KNOBS = dict(block_size=16, num_blocks=512, max_running=8,
+                   prefill_bucket_sizes=(16, 32, 64, 128, 256, 4608), prefix_cache=False)
+GEMMA_ARGS = ["--continuous", "--arch", "gemma2_27b", "--compress-ratio", "0.6",
+              "--requests", str(REQUESTS), "--prompt-len", "256",
+              "--new-tokens", str(NEW_TOKENS),
+              "--block-size", str(GEMMA_KNOBS["block_size"]),
+              "--num-blocks", str(GEMMA_KNOBS["num_blocks"]),
+              "--max-running", str(GEMMA_KNOBS["max_running"]),
+              "--prefill-bucket-sizes",
+              ",".join(map(str, GEMMA_KNOBS["prefill_bucket_sizes"])),
+              "--prefix-cache", "off", "--warmup", "on", "--seed", str(SEED),
+              "--device", "cuda"]
+SERVE_KEYS = ("requests", "new_tokens", "tokens_per_sec", "decode_tok_per_s",
+              "prefill_tok_per_s", "mean_ttft_s", "max_ttft_s", "decode_steps",
+              "prefill_batches", "preemptions", "decode_compiles", "prefill_compiles",
+              "post_warmup_compiles", "warmup_seconds")
+
+
+STEP_PEAKS = []             # per-step peaks (GB) of the path running now
+
+
+class SolveTimes:
+    """Seconds of each compression solve (``core.compress._solve``: one
+    projection, or one expert's slice of a bank) made inside the ``with``
+    block, by the shape (d_out, d_in) of W; the card is synchronised around
+    each solve, so a solve's time is its own."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.by_shape = collections.defaultdict(list)
+
+    def __enter__(self):
+        from repro_torch.core import compress as cm
+        self._cm, orig = cm, cm._solve
+
+        def solve(w_mat, r_factor, rank, ccfg):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(w_mat, r_factor, rank, ccfg)
+            self.torch.cuda.synchronize()
+            self.by_shape[tuple(w_mat.shape)].append(time.perf_counter() - t0)
+            return out
+        self._orig, cm._solve = orig, solve
+        return self
+
+    def __exit__(self, *exc):
+        self._cm._solve = self._orig
+
+    def summary(self) -> dict:
+        return {f"{o}x{i}": dict(solves=len(s), mean_s=sum(s) / len(s), max_s=max(s))
+                for (o, i), s in self.by_shape.items()}
+
+
+def _peak_step(torch, peaks: dict, key: str) -> None:
+    """Peak memory (GB) since the last reset under ``key`` (also noted for
+    the path's own peak, ``path_window``); then reset for the next step."""
+    peaks[key] = torch.cuda.max_memory_allocated() / 1e9
+    STEP_PEAKS.append(peaks[key])
+    torch.cuda.reset_peak_memory_stats()
+
+
+def gemma2_path(torch, ops):
+    """``repro_torch.launch.serve.main`` with ``GEMMA_ARGS`` on the
+    depth-cut gemma2_27b (handed as ``cfg``): dense and COALA through CUDA
+    graphs (warmup, 0 post-warmup captures), then both through the eager
+    engine, greedy tokens identical (the kernel shapes are noted there for
+    phase 7). Returns (summary, noted kernel shapes)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import compression_summary
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = dataclasses.replace(get_config("gemma2_27b"), n_layers=GEMMA_LAYERS)
+    if [cfg.layer_is_local_attn(i) for i in range(GEMMA_LAYERS)] != [True, False]:
+        raise Failure("gemma2 depth cut: expected one local and one global layer")
+    trace = launcher.synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED,
+                                     min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                                     min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    long_prompt = np.random.RandomState(SEED + 7).randint(
+        0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+    trace.append((trace[-1][0] + 2, long_prompt, NEW_TOKENS))
+    t0 = time.perf_counter()
+    with SolveTimes(torch) as solves:
+        res = launcher.main(GEMMA_ARGS, trace=trace, cfg=cfg)
+    torch.cuda.synchronize()
+    res["engines"]["coala"].release_graphs()
+    out = {"layers": GEMMA_LAYERS, "seconds": dict(res["seconds"]),
+           "compression": compression_summary(res["reports"]),
+           "warmup": res["warmup"], "peak_gb": {}, "solve_s": solves.summary()}
+    log(f"  COALA solves by W shape (d_out x d_in): {json.dumps(out['solve_s'])}")
+    out["seconds"]["launcher"] = time.perf_counter() - t0
+    _peak_step(torch, out["peak_gb"], "launcher")
+    for r in res["reports"]:
+        if not all(math.isfinite(v) for v in (r.mu, r.rel_err_weighted, r.rel_err_bound)):
+            raise Failure(f"gemma2 compression report not finite: {r}")
+    tokens = {}
+    for name, eng in res["engines"].items():
+        met = res["metrics"][name]
+        out[f"serve_{name}"] = {k: met[k] for k in SERVE_KEYS}
+        _check_finished(f"gemma2 {name}", eng, trace, cfg.vocab_size)
+        if not eng.cuda_graphs or met["post_warmup_compiles"] != 0:
+            raise Failure(f"gemma2 {name}: expected CUDA graphs and 0 post-warmup "
+                          f"captures, got {met['post_warmup_compiles']}")
+        tokens[name] = {r.req_id: list(r.out_tokens) for r in eng.finished}
+        log(f"  [gemma2 {name}] graphs: {_serve_line(met)}; warmup "
+            f"{met['warmup_seconds']:.2f} s for "
+            f"{int(res['warmup'][name]['decode_signatures'])} decode + "
+            f"{int(res['warmup'][name]['prefill_signatures'])} prefill signatures")
+    models = res["models"]
+    del res, eng
+    torch.cuda.empty_cache()
+    with KernelCalls(ops) as calls:
+        for name, m in models.items():
+            eng = ContinuousEngine(m, cuda_graphs=False, **GEMMA_KNOBS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = launcher.serve_trace(eng, trace)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            _check_finished(f"gemma2 {name} eager", eng, trace, cfg.vocab_size)
+            toks = {r.req_id: list(r.out_tokens) for r in eng.finished}
+            out[f"serve_{name}_eager"] = dict({k: met[k] for k in SERVE_KEYS},
+                                              seconds=secs)
+            _peak_step(torch, out["peak_gb"], f"eager_{name}")
+            ok = toks == tokens[name]
+            log(f"  [gemma2 {name}] eager: {_serve_line(met)}; {secs:.3f} s; greedy tokens "
+                f"{'identical to' if ok else 'DIFFER from'} the graphs'")
+            if not ok:
+                raise Failure(f"gemma2 {name}: CUDA graphs and the eager engine disagree")
+            del eng
+    shapes = calls.shapes()
+    long_rows = [n for n in shapes.get("paged_lengths", []) if n > cfg.local_window]
+    if shapes.get("chunked_l", 0) < LONG_PROMPT or not long_rows:
+        raise Failure(f"gemma2: no noted call attended past the window: {shapes}")
+    log(f"  seconds: {json.dumps(out['seconds'])}; peak memory (GB): "
+        f"{json.dumps(out['peak_gb'])}")
+    del models
+    torch.cuda.empty_cache()
+    return out, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 9: deepseek_moe_16b at full width through the compress launcher
+# ---------------------------------------------------------------------------
+
+# deepseek_moe_16b (src/repro_torch/configs/deepseek_moe_16b.py) at full
+# width, its depth cut from 28 layers to 4: the dense-FFN prefix layer and 3
+# MoE layers (64 routed experts top-6, 2 shared). The compress launcher's
+# path with 10 pretrain steps and 4 x 8 x 64 calibration tokens, so a routed
+# expert sees ~190 tokens against d_model 2048: per-expert COALA on
+# rank-deficient R factors. Then the COALA model serves phase 4's trace.
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_ARGS = ["--arch", "deepseek_moe_16b", "--ratio", "0.6", "--lam", "4",
+                 "--pretrain-steps", "10", "--calib-batches", "4", "--device", "cuda"]
+
+
+def _nonfinite_factors(torch, model):
+    """Compressed projections holding a non-finite factor: each factored
+    Linear, and each expert of a factored bank."""
+    from repro_torch.core.calibrate import block_modules
+    from repro_torch.models.ffn import ExpertBank
+    from repro_torch.models.linear import Linear
+    bad = []
+    for path, mod in block_modules(model, (Linear, ExpertBank)):
+        if not mod.is_factored:
+            continue
+        lead = mod.b_t.shape[0] if mod.b_t.ndim == 3 else 1
+        ok = (torch.isfinite(mod.b_t.reshape(lead, -1)).all(dim=1)
+              & torch.isfinite(mod.a_t.reshape(lead, -1)).all(dim=1)).tolist()
+        bad += [path if lead == 1 else f"{path}/e{e}" for e in range(lead) if not ok[e]]
+    return bad
+
+
+def deepseek_path(torch, ops):
+    """``repro_torch.launch.compress.main`` with ``DEEPSEEK_ARGS`` on the
+    depth-cut deepseek_moe_16b (handed as ``cfg``), with coala and with
+    svd_llm: non-finite compressed projections (factors), CE before and
+    after, routed calibration tokens per expert and the plain-SVD
+    fallbacks; coala must leave no non-finite factor and no non-finite
+    report but the fallbacks'. Then the COALA model serves phase 4's trace
+    through CUDA graphs and eagerly: identical greedy tokens, 0 post-warmup
+    captures. Returns the summary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibrate import moe_paths
+    from repro_torch.launch import compress as launcher
+    from repro_torch.launch.serve import synthetic_trace
+
+    cfg = dataclasses.replace(get_config("deepseek_moe_16b"), n_layers=DEEPSEEK_LAYERS)
+    if cfg.first_k_dense != 1 or not all(cfg.layer_is_moe(i)
+                                         for i in range(1, DEEPSEEK_LAYERS)):
+        raise Failure("deepseek depth cut: expected 1 dense-FFN layer and 3 MoE layers")
+    out = {"layers": DEEPSEEK_LAYERS, "seconds": {}, "summaries": {}, "nonfinite": {},
+           "nan_reports": {}, "peak_gb": {}, "solve_s": {}}
+    keep = None
+    for method in ("coala", "svd_llm"):
+        t0 = time.perf_counter()
+        with SolveTimes(torch) as solves:
+            res = launcher.main(DEEPSEEK_ARGS + ["--method", method], cfg=cfg)
+        torch.cuda.synchronize()
+        out["seconds"][method] = dict(res["seconds"], total=time.perf_counter() - t0)
+        out["solve_s"][method] = solves.summary()
+        log(f"  {method} solves by W shape (d_out x d_in; experts and linears): "
+            f"{json.dumps(out['solve_s'][method])}")
+        _peak_step(torch, out["peak_gb"], method)
+        tokens = res["calibrator"].tokens_seen()
+
+        def routed(path):        # 'blocks/0/sub0/ffn/w_up/e7' -> its expert's tokens
+            head, mat, e = path.rsplit("/", 2)
+            return tokens.get(f"{head}/expert{e[1:]}/in", 0)
+        experts = [r for r in res["reports"] if "/w_" in r.path]
+        fallback = [r.path for r in experts if routed(r.path) == 0]
+        nan_rep = [r.path for r in res["reports"] if r.path not in fallback
+                   and not all(math.isfinite(v) for v in (r.rel_err_weighted, r.mu))]
+        bad = _nonfinite_factors(torch, res["compressed"])
+        out["summaries"][method] = res["summary"]
+        out["nonfinite"][method] = len(bad)
+        out["nan_reports"][method] = len(nan_rep)
+        log(f"  {method}: {json.dumps(res['summary'])}")
+        log(f"  {method}: {len(bad)} of {len(res['reports'])} compressed projections "
+            f"(linears and experts) with non-finite factors"
+            + (f", e.g. {bad[:4]}" if bad else "")
+            + f"; {len(nan_rep)} non-finite reports besides the {len(fallback)} of the "
+            f"plain-SVD fallbacks (CE {res['summary']['base_ce']:.4f} -> "
+            f"{res['summary']['compressed_ce']:.4f}); {out['seconds'][method]}")
+        if method == "coala":
+            per_layer = {}
+            for path, _ in moe_paths(res["model"]):
+                n = [tokens.get(f"{path}/expert{e}/in", 0)
+                     for e in range(cfg.moe.num_experts)]
+                per_layer[path] = dict(min=int(min(n)), median=float(np.median(n)),
+                                       max=int(max(n)), unrouted=sum(x == 0 for x in n))
+                log(f"  {path}: routed calibration tokens per expert min {min(n)}, "
+                    f"median {np.median(n):.1f}, max {max(n)} against d_model "
+                    f"{cfg.d_model}; {per_layer[path]['unrouted']} experts unrouted")
+            out["expert_tokens"] = per_layer
+            out["fallback_experts"] = len(fallback) // 3
+            if bad or nan_rep or not math.isfinite(res["summary"]["compressed_ce"]):
+                raise Failure(f"deepseek coala: {len(bad)} non-finite factors, "
+                              f"{len(nan_rep)} non-finite reports")
+            keep = res["compressed"]
+        del res
+        torch.cuda.empty_cache()
+
+    trace = synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED, min_prompt=MIN_PROMPT,
+                            max_prompt=MAX_PROMPT, min_new=NEW_TOKENS,
+                            max_new=NEW_TOKENS)
+    eng, met, toks, secs = _serve_run(torch, keep, trace, warmup=True)
+    _check_finished("deepseek coala", eng, trace, cfg.vocab_size)
+    ref, rmet, ref_toks, ref_secs = _serve_run(torch, keep, trace, cuda_graphs=False)
+    ok = toks == ref_toks and met["post_warmup_compiles"] == 0 and eng.cuda_graphs
+    _peak_step(torch, out["peak_gb"], "serve")
+    log(f"  peak memory (GB): {json.dumps(out['peak_gb'])}")
+    for label, m, sec in (("graphs", met, secs), ("eager", rmet, ref_secs)):
+        out[f"serve_coala_{label}"] = dict({k: m[k] for k in SERVE_KEYS}, seconds=sec)
+        log(f"  [deepseek coala] {label}: {_serve_line(m)}; {sec:.3f} s")
+    log(f"  [deepseek coala] greedy tokens through graphs "
+        f"{'identical to' if toks == ref_toks else 'DIFFER from'} the eager engine's; "
+        f"{met['post_warmup_compiles']} post-warmup captures")
+    if not ok:
+        raise Failure("deepseek coala: graphs and eager disagree, or captures after warmup")
+    del eng, ref, keep
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: each kernel against its plain version, at the paths' shapes
 # ---------------------------------------------------------------------------
 
-def check_lowrank(torch, ops, ref, dev, gen, shapes, flush):
-    """lowrank_linear in fp32 and bf16 on one llama3_1b layer's seven
-    projections at the serve path's decode and largest prefill rows; the
-    line's numbers are one layer at decode, fp32."""
+def check_lowrank(torch, ops, ref, dev, gen, shapes, flush, proj=None,
+                  model="llama3_1b", extra_rows=()):
+    """lowrank_linear in fp32 and bf16 on one ``model`` layer's seven
+    projections ``proj`` (name -> (d_in, r, d_out); llama3_1b's by default)
+    at the path's decode and largest prefill rows, and at ``extra_rows``;
+    the line's numbers are one layer at decode, fp32."""
+    proj = LOWRANK_SHAPES if proj is None else proj
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "bound_by": "bytes"}
     m_dec, m_max = shapes["lowrank_m_decode"], shapes["lowrank_m_max"]
-    rows = list(dict.fromkeys((m_dec, m_max)))
+    rows = list(dict.fromkeys((m_dec, *extra_rows, m_max)))
     layer = {m: {"m": m, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
              for m in rows}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for m in rows:
-            for name, (d_in, r, d_out) in LOWRANK_SHAPES.items():
+            for name, (d_in, r, d_out) in proj.items():
                 x = torch.randn((m, d_in), generator=gen, device=dev).to(dt)
                 bt = (torch.randn((d_in, r), generator=gen, device=dev) / d_in ** 0.5).to(dt)
                 at = (torch.randn((r, d_out), generator=gen, device=dev) / r ** 0.5).to(dt)
                 got = ops.lowrank_linear(x, bt, at)
-                err = compare(f"lowrank_linear {dtype} M={m} {name} "
+                err = compare(f"lowrank_linear {dtype} M={m} {model} {name} "
                               f"({d_in}x{r}x{d_out})", got, ref(x, bt, at), TOL[dtype])
                 if dtype != "float32":
                     continue
@@ -1210,7 +1618,7 @@ def check_lowrank(torch, ops, ref, dev, gen, shapes, flush):
                 fig["bound_by"] = b_by
     for m, fig in layer.items():
         what = "decode" if m == m_dec else "prefill"
-        log(f"  lowrank_linear, one llama3_1b layer at {what} (M={m}, 7 projections): "
+        log(f"  lowrank_linear, one {model} layer at {what} (M={m}, 7 projections): "
             f"kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, multi_dot "
             f"{fig['library_ms']:.4f} ms, bound {fig['bound_ms']:.4f} ms ({fig['bound_by']})")
     res.update({k: layer[m_dec][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -1418,6 +1826,116 @@ def check_chunked(torch, ops, cp_ref, dev, gen, shapes, flush):
     return res
 
 
+# gemma2_27b's attention (phase 8): Hq 32, Hkv 16 (G 2), hd 128, query scale
+# (4608/32)^-0.5, logit softcap 50, the local layers' window 4096
+GEMMA_HEADS = (32, 16, 128)
+GEMMA_SCALE, GEMMA_CAP, GEMMA_WINDOW = (4608 / 32) ** -0.5, 50.0, 4096
+
+
+def _window_keys(start: int, n: int, window: int) -> int:
+    """Keys the queries at positions start..start+n-1 attend (row total)."""
+    if n <= 0:
+        return 0
+    return start + n - (max(0, start - window + 1) if window > 0 else 0)
+
+
+def check_gemma2_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush):
+    """paged_attention and chunked_prefill at gemma2's heads, query scale and
+    softcap, with the local layer's window 4096 and without it (the global
+    layer), at phase 8's largest decode batch (a row past the window among
+    them) and largest prefill (the 4400-token row at L 4608), in fp32 and
+    bf16; timed in fp32 against the plain version, SDPA (the same masks and
+    scale, but no softcap: no library call has one) and the bound."""
+    import torch.nn.functional as F
+    hq, hkv, hd = GEMMA_HEADS
+    bs, g = 16, hq // hkv
+    kw = dict(scale=GEMMA_SCALE, cap=GEMMA_CAP)
+    res = {"paged": {}, "chunked": {}}
+    lengths, pads = shapes["paged_lengths"], shapes["paged_pad_rows"]
+    starts, lens, cpads, lq = (shapes["chunked_starts"], shapes["chunked_lens"],
+                               shapes["chunked_pad_rows"], shapes["chunked_l"])
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for window in (GEMMA_WINDOW, 0):
+            layer = "local" if window else "global"
+            kp, vp, tables = _pages(torch, dev, gen, lengths, bs, hkv, hd, dt, pads)
+            q = torch.randn((len(lengths), hq, hd), generator=gen, device=dev).to(dt)
+            ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            args = (q, kp, vp, tables, ln)
+            got = ops.paged_attention(*args, window=window, **kw)
+            err = compare(f"paged_attention gemma2 {dtype} {layer} B={len(lengths)} "
+                          f"max length {max(lengths)}", got,
+                          pa_ref(*args, window=window, **kw), TOL_ATTN[dtype])
+            if not torch.equal(ops.paged_attention(*args, window=window, **kw), got):
+                raise Failure("paged_attention gemma2: two identical calls differ")
+            if dtype == "float32":
+                ms = timed(torch, lambda: ops.paged_attention(*args, window=window, **kw),
+                           flush)
+                plain = timed(torch, lambda: pa_ref(*args, window=window, **kw), flush)
+                k, v = _sdpa_inputs(torch, q, kp, vp, tables, g)
+                ik = torch.arange(k.shape[2], device=dev)[None, :]
+                keep = ik < ln[:, None]
+                if window:
+                    keep &= ik >= ln[:, None] - window
+                mask = keep[:, None, None, :]
+                q4 = q[:, :, None, :]
+                lib = timed(torch, lambda: F.scaled_dot_product_attention(
+                    q4, k, v, attn_mask=mask, scale=GEMMA_SCALE), flush)
+                del k, v
+                toks = sum(_window_keys(n - 1, 1, window) for n in lengths)
+                nbytes = (4 * (sum(1 for n in lengths if n > 0) + len(lengths)) * hq * hd
+                          + 4 * 2 * toks * hkv * hd + 4 * (tables.numel() + len(lengths)))
+                b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, "float32")
+                log(f"    gemma2 paged {layer} B={len(lengths)} lengths={lengths}: kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA (no softcap) {lib:.4f} ms, "
+                    f"bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
+                res["paged"][layer] = dict(ms=ms, plain_ms=plain, sdpa_no_softcap_ms=lib,
+                                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                           lengths=lengths)
+            totals = [s + lq for s in starts]
+            kp, vp, tables = _pages(torch, dev, gen, totals, bs, hkv, hd, dt, cpads)
+            q = torch.randn((len(lens), lq, hq, hd), generator=gen, device=dev).to(dt)
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            args = (q, kp, vp, tables, st, cl)
+            got = ops.chunked_prefill(*args, window=window, **kw)
+            want = cp_ref(*args, window=window, **kw)
+            err = compare(f"chunked_prefill gemma2 {dtype} {layer} B={len(lens)} L={lq} "
+                          f"lens={lens}", got, want, TOL_ATTN[dtype])
+            del want
+            if dtype == "float32":
+                ms = timed(torch, lambda: ops.chunked_prefill(*args, window=window, **kw),
+                           flush)
+                plain = timed(torch, lambda: cp_ref(*args, window=window, **kw), flush)
+                k, v = _sdpa_inputs(torch, q, kp, vp, tables, g)
+                iq = st[:, None] + torch.arange(lq, device=dev)
+                ik = torch.arange(k.shape[2], device=dev)
+                keep = ((ik[None, None, :] <= iq[..., None])
+                        & (iq[..., None] < (st + cl)[:, None, None]))
+                if window:
+                    keep &= ik[None, None, :] > iq[..., None] - window
+                mask = keep[:, None]
+                q4 = q.transpose(1, 2).contiguous()
+                lib = timed(torch, lambda: F.scaled_dot_product_attention(
+                    q4, k, v, attn_mask=mask, scale=GEMMA_SCALE), flush)
+                del k, v, q4, mask
+                real_q = sum(lens)
+                toks = sum(_window_keys(s, n, window) for s, n in zip(starts, lens))
+                nbytes = (4 * (real_q + q.shape[0] * lq) * hq * hd + 4 * 2 * toks * hkv * hd
+                          + 4 * (tables.numel() + 2 * len(lens)))
+                ops_n = 4 * hq * hd * _prefill_pairs(starts, lens, window)
+                b_ms, b_by = bound(nbytes, ops_n, "float32")
+                log(f"    gemma2 chunked {layer} B={len(lens)} L={lq} lens={lens}: kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA (no softcap) {lib:.4f} ms, "
+                    f"bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
+                res["chunked"][layer] = dict(ms=ms, plain_ms=plain, sdpa_no_softcap_ms=lib,
+                                             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                             lens=lens, L=lq)
+            del kp, vp, q, args
+            torch.cuda.empty_cache()
+    return res
+
+
 def check_flash(torch, ops, ref, dev, gen, flush):
     """flash_attention in fp32 and bf16; each case must repeat its bits on a
     second identical call. The line's numbers are the compress path's fp32
@@ -1428,25 +1946,26 @@ def check_flash(torch, ops, ref, dev, gen, flush):
     res = {"max_abs_err": 0.0, "per_shape": []}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for name, b, t, hq, hkv, hd, cap, timed_case in FLASH_CASES:
+        for name, b, t, hq, hkv, hd, cap, scale, timed_case in FLASH_CASES:
             q = torch.randn((b, t, hq, hd), generator=gen, device=dev).to(dt)
             k = torch.randn((b, t, hkv, hd), generator=gen, device=dev).to(dt)
             v = torch.randn((b, t, hkv, hd), generator=gen, device=dev).to(dt)
-            got = ops.flash_attention(q, k, v, cap=cap)
+            got = ops.flash_attention(q, k, v, scale=scale, cap=cap)
             err = compare(f"flash_attention {dtype} {name} (B{b} T{t} Hq{hq} Hkv{hkv} "
-                          f"hd{hd} cap{cap:g})", got, ref(q, k, v, cap=cap),
-                          TOL_ATTN[dtype])
-            if not torch.equal(ops.flash_attention(q, k, v, cap=cap), got):
+                          f"hd{hd} cap{cap:g} scale{scale or hd ** -0.5:.5f})", got,
+                          ref(q, k, v, scale=scale, cap=cap), TOL_ATTN[dtype])
+            if not torch.equal(ops.flash_attention(q, k, v, scale=scale, cap=cap), got):
                 raise Failure(f"flash_attention {dtype} {name}: two identical calls differ")
             if dtype == "float32":
                 res["max_abs_err"] = max(res["max_abs_err"], err)
             if not timed_case:
                 continue
-            ms = timed(torch, lambda: ops.flash_attention(q, k, v), flush)
-            plain = timed(torch, lambda: ref(q, k, v), flush)
+            ms = timed(torch, lambda: ops.flash_attention(q, k, v, scale=scale, cap=cap),
+                       flush)
+            plain = timed(torch, lambda: ref(q, k, v, scale=scale, cap=cap), flush)
             q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = timed(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, enable_gqa=True), flush)
+                q4, k4, v4, is_causal=True, scale=scale, enable_gqa=True), flush)
             del q4, k4, v4
             # q, k, v read and o written once; 4*hd FLOPs per causal pair
             nbytes = q.element_size() * 2 * b * t * hd * (hq + hkv)
@@ -1647,16 +2166,22 @@ def run(args) -> int:
     reference_check(torch, dev)
     reference_loss_grams(torch, dev)
     reference_spec(torch, dev)
+    log(f"[3 reference] {', '.join(FAMILIES)} SMOKE: kernels on the card vs plain "
+        "versions on the CPU, graphs on the card vs the eager engine on the CPU")
+    reference_families(torch, dev)
 
     def path_window(name, kernels, fn):
         """Run one path with the launch counts zeroed just before and read
         just after; every kernel in ``kernels`` must have launched."""
         torch.cuda.reset_peak_memory_stats()
+        STEP_PEAKS.clear()
         ops.reset_launch_counts()
+        t0 = time.perf_counter()
         out = fn()
         counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        log(f"  launches on the {name} path: {counts}; peak memory {peak:.2f} GB")
+        peak = max([torch.cuda.max_memory_allocated() / 1e9] + STEP_PEAKS)
+        log(f"  launches on the {name} path: {counts}; peak memory {peak:.2f} GB; "
+            f"{time.perf_counter() - t0:.1f} s")
         missing = [k for k in kernels if counts[k] <= 0]
         if missing:
             raise Failure(f"kernels never launched on the {name} path: {missing}")
@@ -1727,6 +2252,25 @@ def run(args) -> int:
     del coala
     torch.cuda.empty_cache()
 
+    log(f"[8 gemma2 path] python -m repro_torch.launch.serve " + " ".join(GEMMA_ARGS)
+        + f" on gemma2_27b at full width, depth cut to {GEMMA_LAYERS} of 46 layers (one "
+        f"local, one global), on phase 4's trace plus one {LONG_PROMPT}-token prompt; "
+        "then the eager engine")
+    (gemma, gemma_shapes), gemma_counts, peak = path_window(
+        "gemma2", ("lowrank_linear", "paged_attention", "chunked_prefill",
+                   "flash_attention"), lambda: gemma2_path(torch, ops))
+    gemma["peak_memory_gb"] = peak
+    log(f"  kernel shapes noted on the gemma2 path: {json.dumps(gemma_shapes)}")
+
+    log("[9 deepseek path] python -m repro_torch.launch.compress " + " ".join(DEEPSEEK_ARGS)
+        + f" --method coala, then --method svd_llm, on deepseek_moe_16b at full width, "
+        f"depth cut to {DEEPSEEK_LAYERS} of 28 layers (the dense-FFN layer and 3 MoE "
+        "layers); then the COALA model serves phase 4's trace")
+    moe, moe_counts, peak = path_window(
+        "deepseek", ("lowrank_linear", "paged_attention", "chunked_prefill",
+                     "flash_attention"), lambda: deepseek_path(torch, ops))
+    moe["peak_memory_gb"] = peak
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -1740,10 +2284,21 @@ def run(args) -> int:
         "flash_attention": check_flash(torch, ops, flash_attention_ref, dev, gen, flush),
         "gram_accum": check_gram(torch, ops, gram_accum_ref, dev, gen, flush),
     }
+    log("[7 kernels] at gemma2_27b's shapes (phase 8)")
+    from repro_torch.models.linear import rank_for_ratio
+    gemma_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                  for name, (d_in, d_out) in GEMMA2_PROJECTIONS.items()}
+    gemma_kernels = {
+        "lowrank_linear": check_lowrank(torch, ops, lowrank_linear_ref, dev, gen,
+                                        gemma_shapes, flush, proj=gemma_proj,
+                                        model="gemma2_27b", extra_rows=(256,)),
+        "attention": check_gemma2_attention(torch, ops, paged_attention_ref,
+                                            chunked_prefill_ref, dev, gen, gemma_shapes,
+                                            flush)}
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[8 profile] {args.profile} decode steps per model")
+        log(f"[10 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
         del res
@@ -1753,21 +2308,25 @@ def run(args) -> int:
                 "chunked_prefill": "src/repro/kernels/chunked_prefill.py:121",
                 "flash_attention": "src/repro/kernels/flash_attention.py:69",
                 "gram_accum": "src/repro/kernels/gram_accum.py:37"}
-    launches = {k: serve_counts[k] + spec_counts[k] + dtype_counts[k]
-                + recalib_counts[k] + comp_counts[k] + gram_counts[k] for k in replaces}
+    by_phase = {"serve": serve_counts, "serve_spec": spec_counts,
+                "serve_dtypes": dtype_counts, "serve_recalib": recalib_counts,
+                "compress": comp_counts, "gram": gram_counts, "gemma2": gemma_counts,
+                "deepseek": moe_counts}
+    launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
                 "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
                 "bound_by": results[k]["bound_by"],
-                "library_ms": results[k]["library_ms"]} for k in replaces]
+                "library_ms": results[k]["library_ms"],
+                "launches_by_phase": {p: c[k] for p, c in by_phase.items()}}
+               for k in replaces]
     log(json.dumps({"main_path": {"serve": serve, "serve_spec": spec,
                                   "serve_dtypes": dtypes, "serve_recalib": recalib,
-                                  "compress": comp, "gram": gram},
-                    "launches": {"serve": serve_counts, "serve_spec": spec_counts,
-                                 "serve_dtypes": dtype_counts,
-                                 "serve_recalib": recalib_counts,
-                                 "compress": comp_counts, "gram": gram_counts},
+                                  "compress": comp, "gram": gram, "gemma2": gemma,
+                                  "deepseek": moe},
+                    "launches": by_phase,
+                    "gemma2_kernels": gemma_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

@@ -1,13 +1,28 @@
 """Configuration dataclasses of the port (copy of ``repro/config.py``).
 
-Only the fields the port reads are kept: the dense GQA decoder of
-``ModelConfig``, ``TrainConfig`` and the COALA / baseline settings of
-``CompressConfig``. The family knobs of MoE, SSM, MLA, enc-dec and VLM
-models wait with those families.
+Only the fields the port reads are kept: ``MoEConfig``, the attention-only
+decoders of ``ModelConfig`` (dense GQA, gemma2's local/global alternation,
+softcaps and sandwich norms, olmo's non-parametric norm, minicpm's scaling,
+and the MoE layer pattern), ``TrainConfig`` and the COALA / baseline
+settings of ``CompressConfig``. The knobs of the SSM, hybrid, MLA, enc-dec
+and VLM families wait with those families.
 """
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings for one FFN layer family."""
+    num_experts: int = 0              # routed experts (0 = dense FFN)
+    top_k: int = 0
+    num_shared: int = 0               # always-on shared experts
+    d_ff_expert: int = 0              # per-expert hidden dim
+    capacity_factor: float = 1.25
+    min_capacity: int = 4
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,16 +40,57 @@ class ModelConfig:
     max_seq_len: int = 8192
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+
+    moe: MoEConfig = MoEConfig()
+
+    # gemma2-style
     local_window: int = 0             # 0 = all-global; else alternate local/global
     query_scale: float = 0.0          # 0 -> 1/sqrt(head_dim)
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
+    post_block_norm: bool = False     # sandwich norms (gemma2)
+
+    # olmo: non-parametric LayerNorm
+    nonparametric_norm: bool = False
+
+    # minicpm mup-ish scaling
+    scale_emb: float = 1.0
+    scale_depth: float = 0.0          # 0 = off; else residual scaled by scale_depth/sqrt(L)
+    dim_model_base: int = 0           # 0 = off; logits scaled by d_model/dim_model_base
+
+    # MoE layer pattern: layer i uses MoE if i >= first_dense and pattern hit
+    moe_every: int = 1                # MoE FFN if (i % moe_every == moe_offset)
+    moe_offset: int = 0
+    first_k_dense: int = 0            # first k layers use dense FFN (deepseek)
+
+    # ffn activation: "silu" | "gelu" | "gelu_tanh"
     act: str = "silu"
     tie_embeddings: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def uses_moe(self) -> bool:
+        return self.moe.num_experts > 0
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' for every decoder layer of the ported families (the
+        recurrent kinds of the ssm and hybrid families are not ported). The
+        reference config's API: the port's ``LM`` admits only the dense and
+        moe families, all attention, so its model code does not call it."""
+        if self.family == "ssm":
+            raise NotImplementedError(
+                "family 'ssm' (xLSTM mLSTM/sLSTM layers) is not ported yet")
+        return "attn"
+
+    def layer_is_moe(self, i: int) -> bool:
+        if not self.uses_moe:
+            return False
+        if i < self.first_k_dense:
+            return False
+        return i % self.moe_every == self.moe_offset
 
     def layer_is_local_attn(self, i: int) -> bool:
         """gemma2 alternation: even layers local, odd global."""

@@ -1,12 +1,16 @@
 """Convert between the JAX package's parameter pytree and the port's ``LM``.
 
-The JAX tree is nested dicts (and the empty ``prefix`` list) of numpy
-arrays — the caller maps ``np.asarray`` over the JAX params — with a leading
-``n_rep`` axis stacked on every ``blocks`` leaf (``models/transformer.py:240``
-of the JAX package). Linear leaves are dense ``{"w"}`` or factored
-``{"b_t", "a_t"}``. The port's ``state_dict`` names are the same paths with
-``/`` replaced by ``.`` and the ``n_rep`` axis unstacked into
-``blocks.<rep>``, so the conversion is mechanical and bit-exact both ways.
+The JAX tree is nested dicts (and the ``prefix`` list of unrolled layers)
+of numpy arrays — the caller maps ``np.asarray`` over the JAX params — with
+a leading ``n_rep`` axis stacked on every ``blocks`` leaf
+(``models/transformer.py:240`` of the JAX package). Linear leaves are dense
+``{"w"}`` or factored ``{"b_t", "a_t"}``; an MoE expert bank is a bare
+(E, d_in, d_out) array or, factored per expert, the tuple ``(b_t, a_t)``;
+olmo's norms are empty dicts. The port's ``state_dict`` names are the same
+paths with ``/`` replaced by ``.``, the ``n_rep`` axis unstacked into
+``blocks.<rep>``, prefix layers at ``prefix.<i>``, and an expert bank's
+leaves under ``….w_gate.w`` (dense) or ``….w_gate.b_t`` / ``….w_gate.a_t``
+(factored), so the conversion is mechanical and bit-exact both ways.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import LM, build_model
+from repro_torch.models.common import NonParametricLN
+from repro_torch.models.ffn import ExpertBank
 from repro_torch.models.linear import Linear
 
 
@@ -24,9 +30,13 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
     if isinstance(tree, dict):
         for k, v in tree.items():
             _flatten(v, f"{prefix}{k}.", out)
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, list):
         for i, v in enumerate(tree):
             _flatten(v, f"{prefix}{i}.", out)
+    elif isinstance(tree, tuple):            # a factored expert bank
+        b_t, a_t = tree
+        out[prefix + "b_t"] = np.asarray(b_t)
+        out[prefix + "a_t"] = np.asarray(a_t)
     else:
         out[prefix[:-1]] = np.asarray(tree)
 
@@ -45,32 +55,33 @@ def _unstack_blocks(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda",
                       dtype=torch.float32) -> LM:
-    """Build an ``LM`` on ``device`` holding the JAX tree's parameters."""
-    if tree.get("prefix"):
-        raise NotImplementedError("unrolled prefix layers are not ported")
-    flat = _unstack_blocks(_collect(tree))
+    """Build an ``LM`` on ``device`` holding the JAX tree's parameters.
+    The MoE routers stay fp32 whatever ``dtype`` is, as in the reference."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    flat = _unstack_blocks(flat)
     model = build_model(cfg, device=device, dtype=dtype)
 
-    def take(key):
+    def take(key, dt=dtype):
         if key not in flat:
             raise KeyError(f"parameter {key!r} missing from the tree")
-        return torch.tensor(np.asarray(flat.pop(key)), dtype=dtype,
+        return torch.tensor(np.asarray(flat.pop(key)), dtype=dt,
                             device=model.device)
 
-    linears = set()
+    owners = set()
     for name, mod in model.named_modules():
-        if not isinstance(mod, Linear):
-            continue
-        linears.add(name)
-        if f"{name}.b_t" in flat:
-            mod.set_factors(take(f"{name}.b_t"), take(f"{name}.a_t"))
-        else:
-            mod.set_dense(take(f"{name}.w"))
+        if isinstance(mod, (Linear, ExpertBank)):
+            owners.add(name)
+            if f"{name}.b_t" in flat:
+                mod.set_factors(take(f"{name}.b_t"), take(f"{name}.a_t"))
+            else:
+                mod.set_dense(take(f"{name}.w" if isinstance(mod, Linear)
+                                   else name))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.rsplit(".", 1)[0] in linears:
+            if name.rsplit(".", 1)[0] in owners:
                 continue
-            src = take(name)
+            src = take(name, p.dtype)
             if src.shape != p.shape:
                 raise ValueError(f"{name}: tree has {tuple(src.shape)}, "
                                  f"model {tuple(p.shape)}")
@@ -80,33 +91,52 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda",
     return model
 
 
-def _collect(tree) -> Dict[str, np.ndarray]:
-    flat: Dict[str, np.ndarray] = {}
-    _flatten(tree, "", flat)
-    return flat
-
-
 def params_to_numpy(model: LM):
     """Inverse of ``params_from_numpy``: the JAX-layout tree of numpy arrays."""
-    tree: dict = {"prefix": []}
+    def arr(p):
+        return p.detach().cpu().numpy()
+
+    leaves: Dict[str, object] = {}
+    banks = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, ExpertBank):
+            banks.add(name)
+            leaves[name] = ((arr(mod.b_t), arr(mod.a_t)) if mod.is_factored
+                            else arr(mod.w))
+        elif isinstance(mod, NonParametricLN):
+            leaves[name] = {}
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[0] not in banks:
+            leaves[name] = arr(p)
+    tree: dict = {"prefix": [{} for _ in model.prefix]}
     stacked: Dict[str, list] = {}
-    for name, p in model.state_dict().items():
-        arr = p.detach().cpu().numpy()
+    for name, leaf in leaves.items():
         parts = name.split(".")
         if parts[0] == "blocks":
             stacked.setdefault(".".join(parts[2:]), []).append(
-                (int(parts[1]), arr))
-            continue
-        _put(tree, parts, arr)
+                (int(parts[1]), leaf))
+        elif parts[0] == "prefix":
+            _put(tree["prefix"][int(parts[1])], parts[2:], leaf)
+        else:
+            _put(tree, parts, leaf)
     for rest, items in stacked.items():
         items.sort(key=lambda it: it[0])
         _put(tree, ["blocks"] + rest.split("."),
-             np.stack([a for _, a in items]))
+             _stack([leaf for _, leaf in items]))
     return tree
 
 
-def _put(tree: dict, parts, arr) -> None:
+def _stack(leaves):
+    first = leaves[0]
+    if isinstance(first, tuple):
+        return tuple(np.stack(xs) for xs in zip(*leaves))
+    if isinstance(first, dict):
+        return {}
+    return np.stack(leaves)
+
+
+def _put(tree: dict, parts, leaf) -> None:
     node = tree
     for k in parts[:-1]:
         node = node.setdefault(k, {})
-    node[parts[-1]] = arr
+    node[parts[-1]] = leaf

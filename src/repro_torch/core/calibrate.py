@@ -4,7 +4,11 @@
 Each target linear owns an ``RStreamer``; every captured activation chunk
 folds into a running n×n R via TSQR, so the calibration matrix X is never
 materialized. Capture is a forward pre-hook on every ``Linear`` of the
-decoder blocks, keyed by the JAX parameter path ('blocks/3/sub0/mixer/wq').
+decoder blocks, keyed by the JAX parameter path ('blocks/3/sub0/mixer/wq',
+'prefix/0/ffn/up'), and each MoE layer's ``expert_sink``, which records per
+expert the inputs of the tokens it took with a non-zero gate and their GLU
+hidden states ('blocks/0/sub0/ffn/expert5/in', '…/expert5/hid'), as the
+reference's ``CaptureDict`` does.
 With ``collect_gram`` each record also adds its Gram contribution aᵀa
 (``ops.gram_accum``, the CUDA kernel on the card) for the SVD-LLM family.
 """
@@ -18,14 +22,28 @@ import torch
 from repro_torch.core.tsqr import RStreamer, square_r
 from repro_torch.kernels import ops
 from repro_torch.models.common import CPU_CTX, ParallelCtx
+from repro_torch.models.ffn import MoE
 from repro_torch.models.linear import Linear
 
 
+def block_modules(model, kind):
+    """(JAX-style path, module) of every module of type ``kind`` in the
+    decoder blocks, in depth order (prefix layers first)."""
+    for head in ("prefix", "blocks"):
+        for name, mod in getattr(model, head).named_modules(prefix=head):
+            if isinstance(mod, kind):
+                yield name.replace(".", "/"), mod
+
+
 def linear_paths(model):
-    """(JAX-style path, Linear) for every projection in the decoder blocks."""
-    for name, mod in model.blocks.named_modules(prefix="blocks"):
-        if isinstance(mod, Linear):
-            yield name.replace(".", "/"), mod
+    """(JAX-style path, Linear) for every projection in the decoder blocks,
+    prefix layers first."""
+    yield from block_modules(model, Linear)
+
+
+def moe_paths(model):
+    """(JAX-style path, MoE) for every MoE FFN ('blocks/0/sub0/ffn')."""
+    yield from block_modules(model, MoE)
 
 
 MAX_TOKENS_PER_RECORD = 8192     # rows folded per QR (bounds the QR stack)
@@ -42,18 +60,25 @@ class Calibrator:
 
     @contextlib.contextmanager
     def capture(self, model):
-        """Record the inputs of every dense block linear while active."""
+        """Record the inputs of every dense block linear, and every MoE
+        layer's per-expert inputs and hidden states, while active."""
         handles = []
         for path, mod in linear_paths(model):
             if mod.is_factored:
                 continue
             handles.append(mod.register_forward_pre_hook(
                 lambda _mod, args, path=path: self.record(path, args[0])))
+        moes = list(moe_paths(model))
+        for path, moe in moes:
+            moe.expert_sink = (lambda name, x, path=path:
+                               self.record(f"{path}/{name}", x))
         try:
             yield self
         finally:
             for h in handles:
                 h.remove()
+            for _, moe in moes:
+                moe.expert_sink = None
 
     def record(self, path: str, x: torch.Tensor) -> None:
         """Fold one captured input ``x`` (..., n) of the linear at ``path``

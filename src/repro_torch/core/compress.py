@@ -9,8 +9,15 @@ pair. ``compress_model_pair`` builds a speculative-decoding target and its
 harder-compressed draft from one calibration pass. ``rank_map`` (full
 path -> rank, from ``rank_map_from_reports``) pins per-layer ranks over
 ``ratio`` and ``rank``, so a recompression keeps every factor's shape (live
-recalibration's hot swap needs that). Adaptive ranks and per-expert
-compression wait for later slices.
+recalibration's hot swap needs that).
+
+MoE expert banks are compressed per expert (``repro/core/compress.py:
+99-146``), each from the R factor of the tokens routed to it — the paper's
+limited-data regime, where μ carries the solve: a routed expert sees few
+tokens, so its R is rank-deficient. An expert no calibration token reached
+keeps the plain-SVD (Eckart–Young–Mirsky) factors and a NaN report. As in
+the reference, a per-expert report records ``mu=0.0`` whatever μ its solve
+used. Adaptive ranks wait for a later slice.
 """
 from __future__ import annotations
 
@@ -25,9 +32,10 @@ import torch
 from repro_torch.config import CompressConfig
 from repro_torch.core import baselines as bl
 from repro_torch.core import coala as coala_lib
-from repro_torch.core.calibrate import linear_paths
+from repro_torch.core.calibrate import block_modules
 from repro_torch.core.theory import optimal_weighted_error
-from repro_torch.models.linear import rank_for_ratio
+from repro_torch.models.ffn import MoE
+from repro_torch.models.linear import Linear, rank_for_ratio
 
 # layer-name roles eligible for compression (Q,K,V,O,Up,Gate,Down and the
 # other families' projections; embeddings, heads and norms stay)
@@ -37,8 +45,10 @@ COMPRESSIBLE_KEYS = {"wq", "wk", "wv", "wo", "up", "gate", "down",
 MIN_DIM = 32
 
 
-def compressible(path: Tuple[str, ...], shape) -> bool:
-    """Is the linear at ``path`` (to its dict or its 'w' leaf) a target?"""
+def compressible(path: Tuple[str, ...], shape, cfg=None) -> bool:
+    """Is the linear at ``path`` (to its dict or its 'w' leaf) a target?
+    ``cfg`` is unused and no caller passes it: it is kept only for the
+    reference's signature (``launch/dryrun.py`` there passes it)."""
     names = [str(p) for p in path]
     if names and names[-1] == "w":
         names = names[:-1]
@@ -88,6 +98,48 @@ def _solve(w_mat, r_factor, rank, ccfg: CompressConfig):
     raise ValueError(f"unknown method {ccfg.method}")
 
 
+def _rank(d_in: int, d_out: int, ccfg: CompressConfig) -> int:
+    rank = (ccfg.rank if ccfg.rank > 0
+            else rank_for_ratio(d_in, d_out, ccfg.ratio))
+    return min(rank, min(d_in, d_out))
+
+
+def _compress_experts(moe: MoE, p: str, r_factors, ccfg: CompressConfig,
+                      reports: List[LayerReport]) -> None:
+    """Per-expert solve of each dense bank of ``moe`` at path ``p``; the
+    stacks become factored banks b_t (E, d_in, r), a_t (E, r, d_out)."""
+    for mat, rf_kind in (("w_gate", "in"), ("w_up", "in"), ("w_down", "hid")):
+        bank = getattr(moe, mat)
+        if bank.is_factored:
+            continue
+        w_stack = bank.w
+        bts, ats = [], []
+        for e in range(w_stack.shape[0]):
+            rf = r_factors.get(f"{p}/expert{e}/{rf_kind}")
+            w = w_stack[e]
+            d_in, d_out = w.shape
+            rank = _rank(d_in, d_out, ccfg)
+            if rf is None:
+                # expert never routed to during calibration: keep the
+                # EYM projection (X=I ⇒ μ-regularized limit, Prop. 3)
+                a, b = bl.plain_svd(w.T.float(), rank)
+                rel_err = bound = float("nan")
+            else:
+                rf = rf.float()
+                a, b, _ = _solve(w.T.float(), rf, rank, ccfg)
+                den = torch.clamp(torch.linalg.norm(w.T @ rf.T), min=1e-9)
+                rel_err = float(torch.linalg.norm((w.T - a @ b) @ rf.T) / den)
+                bound = float(optimal_weighted_error(w.T.float(), rf.T, rank)
+                              / den)
+            bts.append(b.T.to(w.dtype))
+            ats.append(a.T.to(w.dtype))
+            reports.append(LayerReport(
+                path=f"{p}/{mat}/e{e}", rank=rank, mu=0.0,
+                rel_err_weighted=rel_err, params_before=d_in * d_out,
+                params_after=rank * (d_in + d_out), rel_err_bound=bound))
+        bank.set_factors(torch.stack(bts), torch.stack(ats))
+
+
 @torch.no_grad()
 def compress_model(model, calibrator, ccfg: CompressConfig, *,
                    rank_map: Optional[Dict[str, int]] = None):
@@ -96,11 +148,19 @@ def compress_model(model, calibrator, ccfg: CompressConfig, *,
     Paths are the calibrator's ('blocks/2/sub0/mixer/wq'); every rep of the
     stack is compressed from its own activations, as in the paper.
     ``rank_map`` (full path -> rank) overrides ``ccfg.ratio`` and
-    ``ccfg.rank`` for the paths it names."""
+    ``ccfg.rank`` for the paths it names (not for expert banks, whose ranks
+    always come from ``ccfg``)."""
     r_factors = calibrator.r_factors()
     new_model = copy.deepcopy(model)
     reports: List[LayerReport] = []
-    for p, lin in linear_paths(new_model):
+    # the reference walk's order: prefix layers, then the reps; in a block
+    # the mixer, then the FFN (an MoE layer before its shared experts)
+    for p, mod in block_modules(new_model, (Linear, MoE)):
+        if isinstance(mod, MoE):
+            if any(k.startswith(p + "/expert") for k in r_factors):
+                _compress_experts(mod, p, r_factors, ccfg, reports)
+            continue
+        lin = mod
         if lin.is_factored or p not in r_factors:
             continue
         w = lin.w
@@ -109,11 +169,9 @@ def compress_model(model, calibrator, ccfg: CompressConfig, *,
         d_in, d_out = w.shape
         w_mat = w.T.float()                               # (d_out, d_in)
         if rank_map is not None and p in rank_map:
-            rank = rank_map[p]
+            rank = min(rank_map[p], min(d_in, d_out))
         else:
-            rank = (ccfg.rank if ccfg.rank > 0
-                    else rank_for_ratio(d_in, d_out, ccfg.ratio))
-        rank = min(rank, min(d_in, d_out))
+            rank = _rank(d_in, d_out, ccfg)
         r_f = r_factors[p].float()
         a, b, mu = _solve(w_mat, r_f, rank, ccfg)
         num = torch.linalg.norm((w_mat - a @ b) @ r_f.T)

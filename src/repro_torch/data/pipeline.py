@@ -61,7 +61,7 @@ class TokenPipeline:
     """get_batch(step) -> {"tokens": (B, T) int32 on ``device``}."""
 
     def __init__(self, dcfg: DataConfig, model_cfg=None, *, device="cuda"):
-        if model_cfg is not None and model_cfg.family != "dense":
+        if model_cfg is not None and model_cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {model_cfg.family!r} has no ported batch extras")
         self.dcfg = dcfg

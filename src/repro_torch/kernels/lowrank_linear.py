@@ -28,11 +28,16 @@ launches = 0          # calls that launched the CUDA kernel
 SMALL_M = 16          # rows up to which a product takes the decode kernel
 _BIG = 1 << 30
 # Per kernel, as in csrc/lowrank_linear.cu: (BM, BN, BK, least k per split,
-# most k per split, most splits, blocks wanted); BM is also the tile code the
-# CUDA side is given. The fp32 decode kernel keeps x's K slice in shared
-# memory (hence its cap of 512 k). The split-K sum of a tile is read by one
-# block, so splits x tile stays <= 256 KB of partials (512 KB at decode). The
-# fp32 prefill tile is 64 x 64 (two warps), eight blocks to an SM.
+# most k per split, splits aimed under, blocks wanted); BM is also the tile
+# code the CUDA side is given. The fp32 decode kernel keeps x's K slice in
+# shared memory (hence its hard cap of 512 k). The split-K sum of a tile is
+# read by one block, so the planner keeps splits x tile <= 256 KB of
+# partials (512 KB at decode) where it can; the split count is not a limit
+# of the kernels (``plan_ok`` in the CUDA source checks only that the splits
+# cover K), and a K past splits x k_max takes more splits: gemma2's down
+# projection (K 36864) takes 72 splits of 512 k at fp32 decode, 590 KB of
+# partials per 16 x 128 tile. The fp32 prefill tile is 64 x 64 (two warps),
+# eight blocks to an SM.
 TILES = {
     ("decode", torch.float32): (16, 128, 16, 48, 512, 64, 264),
     ("prefill", torch.float32): (64, 64, 8, 64, _BIG, 8, 528),

@@ -5,6 +5,10 @@ calibrate → compress with COALA or a Gram-based baseline → evaluate again.
   PYTHONPATH=src python -m repro_torch.launch.compress --arch llama3_1b \\
       --smoke --method coala --ratio 0.6 --lam 4 [--device cpu]
 
+``--arch`` is any of ``repro_torch.configs.ARCH_IDS``; an MoE model
+(deepseek_moe_16b) is compressed per expert, each from the tokens routed to
+it, and its training loss carries the load-balance aux term.
+
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 Pretraining runs the dense attention path (the flash kernel has no
 backward); evaluation and calibration run with ``ParallelCtx(use_pallas=
@@ -59,11 +63,13 @@ def eval_ce(model, pipe: TokenPipeline, *, ctx: ParallelCtx = KERNEL_CTX,
             for i in range(n_batches)]))
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
     """Command-line entry point. Prints the JSON summary and returns a dict
     with ``summary``, ``reports``, the trained ``model``, the ``compressed``
     model, the ``calibrator``, the ``calib_batches`` and the ``seconds`` of
-    each phase (pretrain, eval, calibrate, compress)."""
+    each phase (pretrain, eval, calibrate, compress). ``cfg``, a
+    ModelConfig, replaces the one ``--arch``/``--smoke`` name (a
+    full-width configuration cut in depth, say)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_1b")
     ap.add_argument("--smoke", action="store_true")
@@ -80,7 +86,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     seconds = {}
     model = build_model(cfg, device=device)
     pipe = make_pipeline(cfg, device)

@@ -7,6 +7,10 @@ aggregate throughput.
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
       --arch llama3_1b --smoke --requests 4 --new-tokens 8 [--device cpu]
 
+``--arch`` is any of ``repro_torch.configs.ARCH_IDS``: the dense GQA
+families (llama3_1b, mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
+gemma2_27b) and deepseek_moe_16b's MoE.
+
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 On the GPU each engine replays one CUDA graph per step signature;
 ``--warmup on`` captures the whole set the trace can reach before serving.
@@ -295,10 +299,12 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
     return out
 
 
-def main(argv=None, trace=None, reuse=None):
-    """Command-line entry point; ``trace`` replaces the synthetic trace and
+def main(argv=None, trace=None, reuse=None, cfg=None):
+    """Command-line entry point; ``trace`` replaces the synthetic trace,
     ``reuse`` an earlier result supplies the models, the calibrator and the
-    compressed model (see ``run_continuous``, whose result it returns)."""
+    compressed model (see ``run_continuous``, whose result it returns), and
+    ``cfg`` a ModelConfig replaces the one ``--arch``/``--smoke`` name (a
+    full-width configuration cut in depth, say)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_1b")
     ap.add_argument("--smoke", action="store_true")
@@ -395,7 +401,8 @@ def main(argv=None, trace=None, reuse=None):
     device = resolve_device(args.device)
     if args.trace_out:
         obs_trace.enable(max_events=args.trace_max_events or None)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if reuse is not None:
         model, init_s = reuse["models"]["dense"], 0.0
     else:

@@ -1,5 +1,6 @@
-"""Shared model building blocks: parallel context, norms, RoPE, softcap,
-activations, init (port of ``repro/models/common.py:11-36`` and ``:84-185``)."""
+"""Shared model building blocks: parallel context, norms (RMSNorm and olmo's
+non-parametric LayerNorm), RoPE, softcap, activations, init (port of
+``repro/models/common.py:11-36`` and ``:84-185``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -51,7 +52,29 @@ class RMSNorm(torch.nn.Module):
         return rmsnorm(self.scale, x, self.eps)
 
 
-def make_norm(cfg, *, device=None, dtype=torch.float32) -> RMSNorm:
+def nonparametric_ln(x, eps: float = 1e-5):
+    """OLMo-style LayerNorm without learnable scale/bias."""
+    dt = x.dtype
+    xf = x.float()
+    c = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    return (c * torch.rsqrt(var + eps)).to(dt)
+
+
+class NonParametricLN(torch.nn.Module):
+    """olmo's norm: no parameters at all (an empty dict in the JAX tree)."""
+
+    def __init__(self, eps: float):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        return nonparametric_ln(x, self.eps)
+
+
+def make_norm(cfg, *, device=None, dtype=torch.float32) -> torch.nn.Module:
+    if cfg.nonparametric_norm:
+        return NonParametricLN(cfg.norm_eps)
     return RMSNorm(cfg.d_model, cfg.norm_eps, device=device, dtype=dtype)
 
 

@@ -75,6 +75,12 @@ The caller's model is never written: an engine serving it as it is (the
 compute dtype is the model's) makes its own copy before its first capture
 or swap (``_own_weights``), so the graphs read the engine's tensors.
 
+Model families: every attention-only decoder of ``repro_torch.configs``
+(dense GQA, gemma2's local window and softcaps, deepseek's MoE). An MoE
+layer's capacity comes from the step's padded token count, so a signature
+fixes it and its graph is static; its combine adds without atomics, so a
+replay gives the eager engine's bits.
+
 Waiting for later slices: async detokenize and streaming, the live HTTP
 telemetry endpoints, the offline lane and the fixed-batch engine.
 """
@@ -94,6 +100,7 @@ import torch
 from repro_torch.kernels import lowrank_linear as _ll
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.models.ffn import ExpertBank
 from repro_torch.models.linear import Linear
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import LATENCY_BUCKETS, Registry
@@ -170,15 +177,15 @@ def sample_rows(logits: torch.Tensor, temps, seeds, indices) -> torch.Tensor:
 
 def compute_copy(model, dtype):
     """``model`` with the weights its forward casts on every call — each
-    projection's ``w`` or ``b_t``/``a_t`` and the embedding (also the tied
-    LM head) — stored in ``dtype`` once: the same rounding the per-call cast
+    projection's ``w`` or ``b_t``/``a_t``, each MoE expert bank and the
+    embedding (also the tied LM head) — stored in ``dtype`` once: the same rounding the per-call cast
     applies, so the outputs do not change. Norm scales stay as they are (the
     norms compute in fp32 from them). ``model`` itself when it is already in
     ``dtype``."""
     if dtype == model.dtype:
         return model
     cast = [model.embed] + [p for mod in model.modules()
-                            if isinstance(mod, Linear)
+                            if isinstance(mod, (Linear, ExpertBank))
                             for p in mod._parameters.values()]
     memo = {id(p): torch.nn.Parameter(p.detach().to(dtype), requires_grad=False)
             for p in cast}

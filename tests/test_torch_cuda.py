@@ -725,3 +725,107 @@ def test_engine_cuda_async_recalibration_swap_matches(smoke_models):
     _close(_replay_logits(eng, 11), _replay_logits(
         ContinuousEngine(last, cuda_graphs=False, **ENGINE_KNOBS), 11), 1e-3)
     eng.release_graphs()
+
+
+# ---------------------------------------------------------------------------
+# the attention-only families: gemma2 (window, softcaps, sandwich norms) and
+# deepseek's MoE through the engine's graphs
+# ---------------------------------------------------------------------------
+
+FAMILY_KNOBS = dict(block_size=4, num_blocks=48, max_running=3,
+                    bucket_sizes=(1, 2, 3), prefill_bucket_sizes=(16, 64))
+FAMILY_TRACE = dict(seed=2, min_prompt=20, max_prompt=60, max_new=8,
+                    arrival_every=1, shared_prefix=8)
+
+
+@pytest.fixture(scope="module")
+def family_models():
+    """gemma2_27b and deepseek_moe_16b SMOKE, dense and COALA-compressed
+    (per expert for the MoE) on the CPU, then moved to the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev = torch.device("cuda")
+    out = {}
+    for arch in ("gemma2_27b", "deepseek_moe_16b"):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        rng = np.random.RandomState(0)
+        batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 40)))
+                   for _ in range(2)]
+        cmodel, _ = compress_model(model, calibrate_model(model, batches),
+                                   CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+        for name, m in (("dense", model), ("coala", cmodel)):
+            out[(arch, name)] = copy.deepcopy(m).to(dev)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2_27b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_family_engine_cuda_graphs_match_eager(family_models, arch, name):
+    """Prompts past gemma2's SMOKE window and a shared prefix: graph replays
+    give the eager engine's greedy tokens, with nothing captured after
+    warmup."""
+    model = family_models[(arch, name)]
+    trace = synthetic_trace(5, model.cfg.vocab_size, **FAMILY_TRACE)
+    runs = []
+    for graphs in (True, False):
+        eng = ContinuousEngine(model, cuda_graphs=graphs, **FAMILY_KNOBS)
+        if graphs:
+            eng.warmup(max_len=max(len(p) + nn for _, p, nn in trace))
+        serve_trace(eng, trace)
+        runs.append((eng, {r.req_id: list(r.out_tokens) for r in eng.finished}))
+        eng.release_graphs()
+    (eng, toks), (ref, ref_toks) = runs
+    assert toks == ref_toks and len(toks) == 5
+    assert eng.metrics()["post_warmup_compiles"] == 0
+    assert eng.metrics()["prefix_hit_tokens"] == ref.metrics()["prefix_hit_tokens"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_cuda_repeats(cuda, dtype):
+    """The MoE layer at the full width's expert count and top-k, at a
+    prefill's token count, gives the same bits twice, and its combine the
+    plain scatter-add's sum (fp32, 1e-5 relative to max|ref|)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    cfg = get_config("deepseek_moe_16b")
+    cfg = dataclasses.replace(cfg, d_model=256, moe=dataclasses.replace(
+        cfg.moe, d_ff_expert=64))
+    layer = ffn.MoE(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 1.0, generator=gen).mul_(p.shape[-2] ** -0.5)
+        x = torch.randn((4, 300, cfg.d_model), generator=gen, device=cuda).to(dtype)
+        layer = layer.to(dtype)
+        layer.router.data = layer.router.data.float()
+        y1, aux1 = layer(x)
+        y2, aux2 = layer(x)
+        assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+        xf = x.reshape(-1, cfg.d_model)
+        gw, _ = ffn.route(xf, layer.router, cfg)
+        w_sel, idx = ffn.top_k(gw.T, ffn.capacity(xf.shape[0], cfg))
+        y_e = torch.randn((*idx.shape, cfg.d_model), generator=gen, device=cuda)
+        got = ffn.combine(y_e, idx, w_sel, xf.shape[0], cfg.moe.top_k)
+        want = torch.zeros_like(got).index_add_(
+            0, idx.reshape(-1), (y_e * (w_sel > 0)[..., None]).reshape(-1, cfg.d_model))
+        _close(got, want, 1e-5)
+        assert torch.equal(got, ffn.combine(y_e, idx, w_sel, xf.shape[0], cfg.moe.top_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_lowrank_linear_cuda_gemma2_down(cuda, dtype, tol):
+    """gemma2's down projection (d_in 36864) at decode M 8: 72 split-K
+    chunks of 512 at fp32, past the count the planner aims under."""
+    r = 2457                                   # rank at ratio 0.6
+    x = _randn(0, (8, 36864), cuda, dtype)
+    bt = _randn(1, (36864, r), cuda, dtype) / 36864 ** 0.5
+    at = _randn(2, (r, 4608), cuda, dtype) / r ** 0.5
+    p1, _ = ll.plan(8, 36864, r, 4608, dtype)
+    if dtype == torch.float32:
+        assert p1.splits == 72
+    _close(ll.lowrank_linear(x, bt, at), lowrank_linear_ref(x, bt, at), tol)
