@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~15 min on one H100
+    python3 chip_smoke.py              # full run, ~16 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -20,10 +20,11 @@ Phases, each printing its own lines:
              eager on the CPU): identical, and identical to the CPU's
              non-speculative tokens; then each attention-only family's SMOKE
              config (mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
-             gemma2_27b, deepseek_moe_16b), dense and COALA: prefill and
-             decode logits card vs CPU (1e-3) over rows past gemma2's SMOKE
-             window, and a staggered shared-prefix trace through the card's
-             graphs against the CPU's eager engine (identical tokens);
+             gemma2_27b, deepseek_moe_16b, deepseek_v2_lite_16b's MLA),
+             dense and COALA: prefill and decode logits card vs CPU (1e-3)
+             over rows past gemma2's SMOKE window, and a staggered
+             shared-prefix trace through the card's graphs against the CPU's
+             eager engine (identical tokens);
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
@@ -66,8 +67,9 @@ Phases, each printing its own lines:
              model in (the rates), capture tokens/s, and the caller's COALA
              model bit-equal;
 5. compress path — the compression launcher's entry point
-             (``repro_torch.launch.compress.main``) at full width with its
-             defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
+             (``repro_torch.launch.compress.main``) on llama3_1b at full
+             width, its depth cut to 4 of 16 layers (handed as ``cfg``), with
+             its defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
              tokens), compress, evaluate, once with COALA and once with
              SVD-LLM (whose Cholesky fails on the rank-deficient Grams; its
              non-finite layers are printed, not failed); then svd, svd_llm_v2
@@ -107,12 +109,27 @@ Phases, each printing its own lines:
              tokens: non-finite factors (coala must have none), CE before
              and after, routed tokens per expert, plain-SVD fallbacks; then
              the COALA model serves phase 4's trace through graphs and
-             eagerly, identical greedy tokens, 0 post-warmup captures.
+             eagerly, identical greedy tokens, 0 post-warmup captures;
+9b. MLA path — the serving launcher on deepseek_v2_lite_16b at full width,
+             its depth cut to 2 of 27 layers (the dense-FFN layer and one MoE
+             layer of 64 routed experts top-6 and 2 shared, both MLA:
+             latent KV of 512 + 64 floats a token and layer), handed as
+             ``cfg``: calibration 2 x 8 x 256 tokens through the flash kernel
+             at head dim 192, COALA ratio 0.6, λ 4, dense and COALA through
+             CUDA graphs after warmup on phase 4's trace plus one 2000-token
+             prompt (its latent envelope spans 128 pages), prefix cache on,
+             one preemption, 0 post-warmup captures, then both through the
+             eager engine: identical greedy tokens; no non-finite COALA
+             factor; flash_attention and lowrank_linear launch, and the paged
+             kernels (``{k, v}`` pages) launch 0 times.
              Phase 7 also holds lowrank_linear on gemma2's seven projections
              (M 8, M 256; `down` at d_in 36864 takes 72 split-K chunks),
              paged_attention and chunked_prefill at phase 8's shapes with its
-             window, softcap and scale (local and global), and flash at
-             gemma2's calibration shape with softcap 50;
+             window, softcap and scale (local and global), flash at
+             gemma2's calibration shape with softcap 50 and at MLA's (B 8,
+             T 256, H 16, hd 192; ragged T 200; SMOKE's hd 48), and
+             lowrank_linear on deepseek_v2_lite_16b's nine compressed dense
+             projections at M 8;
 10. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
@@ -126,8 +143,8 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 8, 9, 7, 10. Launch counts are zeroed just
-before each of the paths 4-6, 8 and 9 (4b, 4c and 4d included) and read
+Phases run in the order 1-6, 8, 9, 9b, 7, 10. Launch counts are zeroed just
+before each of the paths 4-6, 8, 9 and 9b (4b, 4c and 4d included) and read
 just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it.
 The shapes of the kernel calls are noted on the way for phase 7 (on the
@@ -157,6 +174,10 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+MLA_PROJECTIONS = {         # deepseek_v2_lite_16b's compressed dense projections
+    "wq": (2048, 3072), "w_dkv": (2048, 512), "wo": (2048, 2048),
+    "gate": (2048, 10944), "up": (2048, 10944), "down": (10944, 2048),
+    "shared gate": (2048, 2816), "shared up": (2048, 2816), "shared down": (2816, 2048)}
 GEMMA2_PROJECTIONS = {      # gemma2_27b's projections: (d_in, d_out)
     "wq": (4608, 4096), "wk": (4608, 2048), "wv": (4608, 2048), "wo": (4096, 4608),
     "gate": (4608, 36864), "up": (4608, 36864), "down": (36864, 4608)}
@@ -230,7 +251,9 @@ IDENTITY_SWAP_EVERY = 4     # phase 4d's identity swaps: every 4th step
 DTYPE_RUNS = [("coala", "float32", "bfloat16"), ("dense", "bfloat16", "bfloat16"),
               ("coala", "bfloat16", "bfloat16")]
 # The compression launcher with its own defaults (ratio 0.6, λ 4, 100
-# pretrain steps, 4 calibration batches of 8 x 64 tokens).
+# pretrain steps, 4 calibration batches of 8 x 64 tokens) on llama3_1b at full
+# width, its depth cut from 16 layers to 4 (the path's time is per layer).
+COMPRESS_LAYERS = 4
 COMPRESS_ARGS = ["--arch", "llama3_1b", "--ratio", "0.6", "--lam", "4",
                  "--pretrain-steps", "100", "--calib-batches", "4", "--device", "cuda"]
 EXTRA_METHODS = ("svd", "svd_llm_v2", "asvd")
@@ -250,7 +273,12 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
                # gemma2's calibration forward on its global layer (phase 8), at
                # its query scale (d_model / n_heads)^-0.5
                ("gemma2 B8 T256 hd128 cap50", 8, 256, 32, 16, 128, 50.0,
-                (4608 / 32) ** -0.5, True)]
+                (4608 / 32) ** -0.5, True),
+               # MLA's calibration forward (phase 9b): q/k of nope + rope = 192
+               # dims, V zero-padded to them, scale 192^-0.5; ragged; SMOKE's 48
+               ("mla B8 T256 hd192", 8, 256, 16, 16, 192, 0.0, None, True),
+               ("mla ragged T200 hd192", 8, 200, 16, 16, 192, 0.0, None, False),
+               ("mla SMOKE hd48", 2, 64, 4, 4, 48, 0.0, None, False)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
@@ -364,7 +392,7 @@ def reference_check(torch, dev):
 
 # the attention-only families of this slice, held card vs CPU at SMOKE size
 FAMILIES = ("mistral_7b", "smollm_135m", "olmo_1b", "minicpm_2b", "gemma2_27b",
-            "deepseek_moe_16b")
+            "deepseek_moe_16b", "deepseek_v2_lite_16b")
 FAMILY_KNOBS = dict(block_size=4, num_blocks=48, max_running=3, bucket_sizes=(1, 2, 3),
                     prefill_bucket_sizes=(16, 64))
 FAMILY_TRACE = dict(seed=2, min_prompt=20, max_prompt=60, max_new=8, arrival_every=1,
@@ -1188,14 +1216,16 @@ def compress_path(torch, ops):
     COALA's result; records SVD-LLM's non-finite layers (the paper's claim:
     its Cholesky breaks down on the rank-deficient Grams of 2048 tokens).
     Returns (summary, the COALA run's result, noted kernel shapes)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import compress as launcher
 
-    out = {"seconds": {}, "summaries": {}, "nonfinite": {}}
+    cfg = dataclasses.replace(get_config("llama3_1b"), n_layers=COMPRESS_LAYERS)
+    out = {"layers": COMPRESS_LAYERS, "seconds": {}, "summaries": {}, "nonfinite": {}}
     with KernelCalls(ops) as calls:
         runs = {}
         for method in ("coala", "svd_llm"):
             t0 = time.perf_counter()
-            res = launcher.main(COMPRESS_ARGS + ["--method", method])
+            res = launcher.main(COMPRESS_ARGS + ["--method", method], cfg=cfg)
             torch.cuda.synchronize()
             out["seconds"][method] = dict(res["seconds"],
                                           total=time.perf_counter() - t0)
@@ -1287,7 +1317,7 @@ def gram_path(torch, ops, coala):
     n_paths = len(cal.grams)
     log(f"  {n_paths} Grams in {secs:.2f} s; max ||G - RᵀR||_F / ||G||_F = "
         f"{worst:.3e} ({worst_path})")
-    if n_paths != 112 or not worst <= 1e-4:
+    if n_paths != 7 * COMPRESS_LAYERS or not worst <= 1e-4:
         raise Failure(f"gram path: {n_paths} Grams, max relative gap {worst}")
     return {"seconds": secs, "paths": n_paths, "max_rel_gap_to_rtr": worst}, calls.shapes()
 
@@ -1367,51 +1397,43 @@ def _peak_step(torch, peaks: dict, key: str) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def gemma2_path(torch, ops):
-    """``repro_torch.launch.serve.main`` with ``GEMMA_ARGS`` on the
-    depth-cut gemma2_27b (handed as ``cfg``): dense and COALA through CUDA
-    graphs (warmup, 0 post-warmup captures), then both through the eager
-    engine, greedy tokens identical (the kernel shapes are noted there for
-    phase 7). Returns (summary, noted kernel shapes)."""
-    import numpy as np
-    from repro_torch.configs import get_config
+def family_serve(torch, ops, label, cfg, args, knobs, trace, *, on_launch, on_graphs=None):
+    """``repro_torch.launch.serve.main`` with ``args`` on the depth-cut ``cfg``
+    (handed as ``cfg``): dense and COALA through CUDA graphs (warmup, 0
+    post-warmup captures), then both through the eager engine with ``knobs``,
+    greedy tokens identical. The kernel shapes of the eager runs are noted
+    for phase 7. ``on_launch(res, out)`` checks the launcher's result (its
+    models and reports) and adds to the summary ``out``; ``on_graphs(name,
+    eng, met)`` checks each graph engine. Returns (summary, noted kernel
+    shapes)."""
     from repro_torch.core.compress import compression_summary
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import ContinuousEngine
 
-    cfg = dataclasses.replace(get_config("gemma2_27b"), n_layers=GEMMA_LAYERS)
-    if [cfg.layer_is_local_attn(i) for i in range(GEMMA_LAYERS)] != [True, False]:
-        raise Failure("gemma2 depth cut: expected one local and one global layer")
-    trace = launcher.synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED,
-                                     min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
-                                     min_new=NEW_TOKENS, max_new=NEW_TOKENS)
-    long_prompt = np.random.RandomState(SEED + 7).randint(
-        0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
-    trace.append((trace[-1][0] + 2, long_prompt, NEW_TOKENS))
     t0 = time.perf_counter()
     with SolveTimes(torch) as solves:
-        res = launcher.main(GEMMA_ARGS, trace=trace, cfg=cfg)
+        res = launcher.main(args, trace=trace, cfg=cfg)
     torch.cuda.synchronize()
     res["engines"]["coala"].release_graphs()
-    out = {"layers": GEMMA_LAYERS, "seconds": dict(res["seconds"]),
+    out = {"layers": cfg.n_layers, "seconds": dict(res["seconds"]),
            "compression": compression_summary(res["reports"]),
            "warmup": res["warmup"], "peak_gb": {}, "solve_s": solves.summary()}
-    log(f"  COALA solves by W shape (d_out x d_in): {json.dumps(out['solve_s'])}")
     out["seconds"]["launcher"] = time.perf_counter() - t0
+    log(f"  COALA solves by W shape (d_out x d_in): {json.dumps(out['solve_s'])}")
     _peak_step(torch, out["peak_gb"], "launcher")
-    for r in res["reports"]:
-        if not all(math.isfinite(v) for v in (r.mu, r.rel_err_weighted, r.rel_err_bound)):
-            raise Failure(f"gemma2 compression report not finite: {r}")
+    on_launch(res, out)
     tokens = {}
     for name, eng in res["engines"].items():
         met = res["metrics"][name]
         out[f"serve_{name}"] = {k: met[k] for k in SERVE_KEYS}
-        _check_finished(f"gemma2 {name}", eng, trace, cfg.vocab_size)
+        _check_finished(f"{label} {name}", eng, trace, cfg.vocab_size)
         if not eng.cuda_graphs or met["post_warmup_compiles"] != 0:
-            raise Failure(f"gemma2 {name}: expected CUDA graphs and 0 post-warmup "
+            raise Failure(f"{label} {name}: expected CUDA graphs and 0 post-warmup "
                           f"captures, got {met['post_warmup_compiles']}")
+        if on_graphs is not None:
+            on_graphs(name, eng, met)
         tokens[name] = {r.req_id: list(r.out_tokens) for r in eng.finished}
-        log(f"  [gemma2 {name}] graphs: {_serve_line(met)}; warmup "
+        log(f"  [{label} {name}] graphs: {_serve_line(met)}; warmup "
             f"{met['warmup_seconds']:.2f} s for "
             f"{int(res['warmup'][name]['decode_signatures'])} decode + "
             f"{int(res['warmup'][name]['prefill_signatures'])} prefill signatures")
@@ -1420,31 +1442,60 @@ def gemma2_path(torch, ops):
     torch.cuda.empty_cache()
     with KernelCalls(ops) as calls:
         for name, m in models.items():
-            eng = ContinuousEngine(m, cuda_graphs=False, **GEMMA_KNOBS)
+            eng = ContinuousEngine(m, cuda_graphs=False, **knobs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             met = launcher.serve_trace(eng, trace)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            _check_finished(f"gemma2 {name} eager", eng, trace, cfg.vocab_size)
+            _check_finished(f"{label} {name} eager", eng, trace, cfg.vocab_size)
             toks = {r.req_id: list(r.out_tokens) for r in eng.finished}
             out[f"serve_{name}_eager"] = dict({k: met[k] for k in SERVE_KEYS},
                                               seconds=secs)
             _peak_step(torch, out["peak_gb"], f"eager_{name}")
             ok = toks == tokens[name]
-            log(f"  [gemma2 {name}] eager: {_serve_line(met)}; {secs:.3f} s; greedy tokens "
-                f"{'identical to' if ok else 'DIFFER from'} the graphs'")
+            log(f"  [{label} {name}] eager: {_serve_line(met)}; {secs:.3f} s; greedy "
+                f"tokens {'identical to' if ok else 'DIFFER from'} the graphs'")
             if not ok:
-                raise Failure(f"gemma2 {name}: CUDA graphs and the eager engine disagree")
+                raise Failure(f"{label} {name}: CUDA graphs and the eager engine disagree")
             del eng
-    shapes = calls.shapes()
-    long_rows = [n for n in shapes.get("paged_lengths", []) if n > cfg.local_window]
-    if shapes.get("chunked_l", 0) < LONG_PROMPT or not long_rows:
-        raise Failure(f"gemma2: no noted call attended past the window: {shapes}")
     log(f"  seconds: {json.dumps(out['seconds'])}; peak memory (GB): "
         f"{json.dumps(out['peak_gb'])}")
     del models
     torch.cuda.empty_cache()
+    return out, calls.shapes()
+
+
+def gemma2_path(torch, ops):
+    """``family_serve`` on gemma2_27b cut to ``GEMMA_LAYERS`` with
+    ``GEMMA_ARGS``, on phase 4's trace plus the long prompt; some noted call
+    must attend past the local window. Returns (summary, noted kernel
+    shapes)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import synthetic_trace
+
+    cfg = dataclasses.replace(get_config("gemma2_27b"), n_layers=GEMMA_LAYERS)
+    if [cfg.layer_is_local_attn(i) for i in range(GEMMA_LAYERS)] != [True, False]:
+        raise Failure("gemma2 depth cut: expected one local and one global layer")
+    trace = synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED,
+                            min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                            min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    long_prompt = np.random.RandomState(SEED + 7).randint(
+        0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+    trace.append((trace[-1][0] + 2, long_prompt, NEW_TOKENS))
+
+    def on_launch(res, out):
+        for r in res["reports"]:
+            if not all(math.isfinite(v) for v in (r.mu, r.rel_err_weighted,
+                                                  r.rel_err_bound)):
+                raise Failure(f"gemma2 compression report not finite: {r}")
+
+    out, shapes = family_serve(torch, ops, "gemma2", cfg, GEMMA_ARGS, GEMMA_KNOBS, trace,
+                               on_launch=on_launch)
+    long_rows = [n for n in shapes.get("paged_lengths", []) if n > cfg.local_window]
+    if shapes.get("chunked_l", 0) < LONG_PROMPT or not long_rows:
+        raise Failure(f"gemma2: no noted call attended past the window: {shapes}")
     return out, shapes
 
 
@@ -1574,13 +1625,92 @@ def deepseek_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 9b: deepseek_v2_lite_16b (MLA) at full width through the serve launcher
+# ---------------------------------------------------------------------------
+
+# deepseek_v2_lite_16b (src/repro_torch/configs/deepseek_v2_lite_16b.py) at
+# full width, its depth cut from 27 layers to 2: the dense-FFN layer 0 and one
+# MoE layer (64 routed experts top-6, 2 shared), both MLA (kv_lora_rank 512,
+# nope 128 + rope 64, v 128): 1.09 G parameters. The launcher calibrates on
+# 2 x 8 x 256 seeded tokens through the flash kernel at head dim 192 and
+# compresses with COALA at ratio 0.6, λ 4 (wq, w_dkv, wo, the dense FFN, the
+# shared experts and each routed expert). Traffic: phase 4's 8 staggered
+# requests plus one of 2000 prompt tokens arriving at step 5, so a row's
+# latent envelope spans 128 pages; 160 pages of 16 tokens make the engine
+# preempt once (the schedule does not depend on the weights: it was sized at
+# SMOKE width on the CPU with this trace), the prefix cache on. MLA reads its
+# latent pages in plain torch: the paged kernels must not launch.
+MLA_LAYERS, MLA_LONG_PROMPT, MLA_LONG_ARRIVAL = 2, 2000, 5
+MLA_KNOBS = dict(block_size=16, num_blocks=160, max_running=8,
+                 prefill_bucket_sizes=(32, 256, 2048), prefix_cache=True)
+MLA_ARGS = ["--continuous", "--arch", "deepseek_v2_lite_16b", "--compress-ratio", "0.6",
+            "--requests", str(REQUESTS), "--prompt-len", "256",
+            "--new-tokens", str(NEW_TOKENS),
+            "--block-size", str(MLA_KNOBS["block_size"]),
+            "--num-blocks", str(MLA_KNOBS["num_blocks"]),
+            "--max-running", str(MLA_KNOBS["max_running"]),
+            "--prefill-bucket-sizes", ",".join(map(str, MLA_KNOBS["prefill_bucket_sizes"])),
+            "--prefix-cache", "on", "--warmup", "on", "--seed", str(SEED),
+            "--device", "cuda"]
+MLA_NO_LAUNCH = ("paged_attention", "chunked_prefill")   # {k, v} pages only
+
+
+def mla_trace(vocab):
+    """Phase 4's trace plus the long prompt at ``MLA_LONG_ARRIVAL``."""
+    import numpy as np
+    from repro_torch.launch.serve import synthetic_trace
+    trace = synthetic_trace(REQUESTS, vocab, seed=SEED, min_prompt=MIN_PROMPT,
+                            max_prompt=MAX_PROMPT, min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    long_prompt = np.random.RandomState(SEED + 7).randint(
+        0, vocab, MLA_LONG_PROMPT).astype(np.int32)
+    return sorted(trace + [(MLA_LONG_ARRIVAL, long_prompt, NEW_TOKENS)],
+                  key=lambda r: r[0])
+
+
+def mla_path(torch, ops):
+    """``family_serve`` on deepseek_v2_lite_16b cut to ``MLA_LAYERS`` with
+    ``MLA_ARGS``, on ``mla_trace``: each graph engine must preempt at least
+    once and report no paged kernel, and COALA must leave no non-finite
+    factor. Returns (summary, noted kernel shapes)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b"), n_layers=MLA_LAYERS)
+    if cfg.first_k_dense != 1 or not cfg.layer_is_moe(1) or not cfg.kv_lora_rank:
+        raise Failure("deepseek-v2 depth cut: expected the dense-FFN layer and one MoE "
+                      "layer, both MLA")
+
+    def on_launch(res, out):
+        models = res["models"]
+        bad = _nonfinite_factors(torch, models["coala"])
+        nan_rep = [r.path for r in res["reports"]
+                   if not all(math.isfinite(v) for v in (r.rel_err_weighted, r.mu))]
+        out.update(params=sum(p.numel() for p in models["dense"].parameters()),
+                   nonfinite_factors=len(bad), nan_reports=len(nan_rep),
+                   latent_floats_per_token_layer=cfg.kv_lora_rank + cfg.qk_rope_dim)
+        log(f"  {out['params'] / 1e9:.3f} G parameters; compression: "
+            f"{json.dumps(out['compression'])}; {len(bad)} non-finite factors, "
+            f"{len(nan_rep)} non-finite reports (experts no token reached)")
+        if bad:
+            raise Failure(f"deepseek-v2 coala: non-finite factors {bad[:4]}")
+
+    def on_graphs(name, eng, met):
+        if met["preemptions"] < 1 or met["prefill_kernel"] != 0.0 or eng.paged_kernel:
+            raise Failure(f"deepseek-v2 {name}: expected a preemption and no paged "
+                          f"kernel: {met['preemptions']}, {met['prefill_kernel']}")
+
+    return family_serve(torch, ops, "deepseek-v2", cfg, MLA_ARGS, MLA_KNOBS,
+                        mla_trace(cfg.vocab_size), on_launch=on_launch,
+                        on_graphs=on_graphs)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: each kernel against its plain version, at the paths' shapes
 # ---------------------------------------------------------------------------
 
 def check_lowrank(torch, ops, ref, dev, gen, shapes, flush, proj=None,
                   model="llama3_1b", extra_rows=()):
-    """lowrank_linear in fp32 and bf16 on one ``model`` layer's seven
-    projections ``proj`` (name -> (d_in, r, d_out); llama3_1b's by default)
+    """lowrank_linear in fp32 and bf16 on one ``model`` layer's compressed
+    projections ``proj`` (name -> (d_in, r, d_out); llama3_1b's seven by default)
     at the path's decode and largest prefill rows, and at ``extra_rows``;
     the line's numbers are one layer at decode, fp32."""
     proj = LOWRANK_SHAPES if proj is None else proj
@@ -1618,7 +1748,7 @@ def check_lowrank(torch, ops, ref, dev, gen, shapes, flush, proj=None,
                 fig["bound_by"] = b_by
     for m, fig in layer.items():
         what = "decode" if m == m_dec else "prefill"
-        log(f"  lowrank_linear, one {model} layer at {what} (M={m}, 7 projections): "
+        log(f"  lowrank_linear, one {model} layer at {what} (M={m}, {len(proj)} projections): "
             f"kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, multi_dot "
             f"{fig['library_ms']:.4f} ms, bound {fig['bound_ms']:.4f} ms ({fig['bound_by']})")
     res.update({k: layer[m_dec][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2271,6 +2401,20 @@ def run(args) -> int:
                      "flash_attention"), lambda: deepseek_path(torch, ops))
     moe["peak_memory_gb"] = peak
 
+    log("[9b deepseek-v2 MLA path] python -m repro_torch.launch.serve " + " ".join(MLA_ARGS)
+        + f" on deepseek_v2_lite_16b at full width, depth cut to {MLA_LAYERS} of 27 layers "
+        f"(the dense-FFN layer and one MoE layer, both MLA), on phase 4's trace plus one "
+        f"{MLA_LONG_PROMPT}-token prompt; then the eager engine")
+    (mla, mla_shapes), mla_counts, peak = path_window(
+        "deepseek-v2", ("lowrank_linear", "flash_attention"), lambda: mla_path(torch, ops))
+    mla["peak_memory_gb"] = peak
+    launched = {k: mla_counts[k] for k in MLA_NO_LAUNCH if mla_counts[k] != 0}
+    log(f"  paged kernels on the MLA path (latent pages): "
+        f"{ {k: mla_counts[k] for k in MLA_NO_LAUNCH} } (must be 0)")
+    if launched:
+        raise Failure(f"paged kernels launched on the MLA path: {launched}")
+    log(f"  kernel shapes noted on the MLA path: {json.dumps(mla_shapes)}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -2295,6 +2439,12 @@ def run(args) -> int:
         "attention": check_gemma2_attention(torch, ops, paged_attention_ref,
                                             chunked_prefill_ref, dev, gen, gemma_shapes,
                                             flush)}
+    log("[7 kernels] at deepseek_v2_lite_16b's shapes (phase 9b)")
+    mla_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                for name, (d_in, d_out) in MLA_PROJECTIONS.items()}
+    mla_kernels = {"lowrank_linear": check_lowrank(
+        torch, ops, lowrank_linear_ref, dev, gen, mla_shapes, flush,
+        proj=mla_proj, model="deepseek_v2_lite_16b", extra_rows=(8,))}
     del flush
     torch.cuda.synchronize()
     if args.profile:
@@ -2311,7 +2461,7 @@ def run(args) -> int:
     by_phase = {"serve": serve_counts, "serve_spec": spec_counts,
                 "serve_dtypes": dtype_counts, "serve_recalib": recalib_counts,
                 "compress": comp_counts, "gram": gram_counts, "gemma2": gemma_counts,
-                "deepseek": moe_counts}
+                "deepseek": moe_counts, "deepseek_v2_mla": mla_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -2324,9 +2474,10 @@ def run(args) -> int:
     log(json.dumps({"main_path": {"serve": serve, "serve_spec": spec,
                                   "serve_dtypes": dtypes, "serve_recalib": recalib,
                                   "compress": comp, "gram": gram, "gemma2": gemma,
-                                  "deepseek": moe},
+                                  "deepseek": moe, "deepseek_v2_mla": mla},
                     "launches": by_phase,
                     "gemma2_kernels": gemma_kernels,
+                    "mla_kernels": mla_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

@@ -3,9 +3,9 @@
 Only the fields the port reads are kept: ``MoEConfig``, the attention-only
 decoders of ``ModelConfig`` (dense GQA, gemma2's local/global alternation,
 softcaps and sandwich norms, olmo's non-parametric norm, minicpm's scaling,
-and the MoE layer pattern), ``TrainConfig`` and the COALA / baseline
-settings of ``CompressConfig``. The knobs of the SSM, hybrid, MLA, enc-dec
-and VLM families wait with those families.
+deepseek-v2's MLA dims and the MoE layer pattern), ``TrainConfig`` and the
+COALA / baseline settings of ``CompressConfig``. The knobs of the SSM,
+hybrid, enc-dec and VLM families wait with those families.
 """
 from __future__ import annotations
 
@@ -57,6 +57,12 @@ class ModelConfig:
     scale_emb: float = 1.0
     scale_depth: float = 0.0          # 0 = off; else residual scaled by scale_depth/sqrt(L)
     dim_model_base: int = 0           # 0 = off; logits scaled by d_model/dim_model_base
+
+    # MLA (deepseek-v2)
+    kv_lora_rank: int = 0             # 0 = plain GQA
+    qk_rope_dim: int = 0
+    qk_nope_dim: int = 0
+    v_head_dim: int = 0
 
     # MoE layer pattern: layer i uses MoE if i >= first_dense and pattern hit
     moe_every: int = 1                # MoE FFN if (i % moe_every == moe_offset)

@@ -2,9 +2,10 @@
 
 Each module is a copy of its ``repro.configs`` counterpart: CONFIG (the full
 configuration) and SMOKE (a reduced same-family configuration for CPU
-tests). The attention-only decoders are ported: the dense GQA families and
-deepseek's MoE. The configurations of the families still to come raise
-``NotImplementedError`` naming their family.
+tests). The attention-only decoders are ported: the dense GQA families,
+deepseek's MoE and deepseek-v2's MLA attention over MoE. The configurations
+of the families still to come raise ``NotImplementedError`` naming their
+family.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.config import ModelConfig
 
 ARCH_IDS: List[str] = [
     "deepseek_moe_16b",
+    "deepseek_v2_lite_16b",
     "gemma2_27b",
     "olmo_1b",
     "smollm_135m",
@@ -27,7 +29,6 @@ ARCH_IDS: List[str] = [
 # the reference's other configurations, by the family that keeps them out
 NOT_PORTED: Dict[str, str] = {
     "whisper_base": "encdec (encoder-decoder with cross-attention)",
-    "deepseek_v2_lite_16b": "moe with MLA attention (latent KV cache)",
     "xlstm_1_3b": "ssm (xLSTM mLSTM/sLSTM recurrences)",
     "qwen2_vl_2b": "vlm (vision prefix and M-RoPE)",
     "jamba_v0_1_52b": "hybrid (mamba/attention with MoE)",

@@ -19,8 +19,9 @@
 //
 // Design, both dtypes:
 // - A block of 128 threads owns ROWS query rows of one (batch b, KV head hk)
-//   (the plan's, kernels/flash_attention.py: 128 up to hd 64 where that grid
-//   keeps two blocks on every SM, else 64):
+//   (the plan's, kernels/flash_attention.py: 128 at hd 16, 32 and 64 where
+//   that grid keeps two blocks on every SM, else 64; hd 48 and 192 serve
+//   MLA, whose q/k are nope + rope dims and whose V is zero-padded to them):
 //   the flat (query j, head g) pairs r = j*G + g, so each K/V tile is staged
 //   once for all G query heads of hk. Its key tiles (64 keys) run from 0 to
 //   the one holding its last row's diagonal. Tiles below the diagonal of the
@@ -48,17 +49,20 @@
 //   large (17 KB a K or V tile at hd 64), so K and V take one buffer each,
 //   a two-slot ring: V(kt) lands while S(kt) is computed, K(kt+1) while
 //   P(kt).V(kt) is; with Q and P that is 106 KB, two blocks to an SM (a
-//   ring of two K/V tiles would leave one).
+//   ring of two K/V tiles would leave one). At hd 192 (64 rows) it is 171 KB,
+//   one block to an SM, and each lane holds 8 x 12 accumulator dims.
 // bf16: FlashAttention-2 with mma.sync.m16n8k16 (fp32 accumulation), K/V
 //   tiles through a ring of two stages (the next tile loads while this one
 //   is computed). Each warp owns 16 * MI rows. Q fragments come once from
-//   ldmatrix and stay in registers; S = Q K^T from ldmatrix fragments of K;
+//   ldmatrix and stay in registers (at hd 192 they are read from shared
+//   memory again in each key tile: registers); S = Q K^T from ldmatrix
+//   fragments of K;
 //   the running max and sum live in registers, reduced over each row's quad
 //   of lanes; P is rounded to bf16 and repacked in registers as the A
 //   operand of P.V (the C layout of two m16n8 tiles is the A layout of one
 //   m16n8k16); V comes in through ldmatrix.trans; the fp32 accumulator is
 //   written once as bf16. Rows are padded to hd + 8 elements, so ldmatrix
-//   is conflict-free.
+//   is conflict-free. At hd 192 the tiles take 125 KB, one block to an SM.
 
 #include <climits>
 #include <type_traits>
@@ -166,8 +170,8 @@ __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* k, const T* v, c
 // 128 threads as (128 / TX) x TX: each thread holds 8 rows (ty + RS*i) x
 // 64/TX keys (tx + TX*c) of S and the same 8 rows x hd/TX dims of the
 // accumulator. TX 8: 8 x 8 blocks, 128 rows; TX 16: 8 x 4 blocks, 64 rows
-// (the plan's choice at hd 128, and where 128-row tiles would leave the card
-// under two blocks per SM: twice the warps for the same rows).
+// (the plan's choice at hd 48, 128 and 192, and where 128-row tiles would
+// leave the card under two blocks per SM: twice the warps for the same rows).
 template <int HD, int TX>
 struct F32Tile {
   static constexpr int RS = THREADS / TX;  // row stride of a thread's rows
@@ -414,7 +418,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const int wr = warp * 16 * MI;
   float o[MI][NO][4], m[MI][2], l[MI][2];
   int jq[MI][2];
-  uint32_t qf[MI][KD][4];
+  // Q's A fragments stay in registers up to hd 128; at hd 192 (24 output
+  // fragments a row tile already) they are read from shared memory again in
+  // each key tile, which keeps the kernel inside 255 registers
+  constexpr bool QREG = HD <= 128;
+  uint32_t qf[QREG ? MI : 1][QREG ? KD : 1][4];
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
@@ -429,13 +437,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       for (int e = 0; e < 4; ++e) o[mi][n][e] = 0.f;
   }
 
-  cp_async_wait<0>();
-  __syncthreads();
+  auto q_frag = [&](uint32_t (&f)[4], int mi, int kk) {
+    ldmatrix_x4(f, qs + (wr + 16 * mi + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  };
+  if constexpr (QREG) {
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      ldmatrix_x4(qf[mi][kk], qs + (wr + 16 * mi + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      for (int kk = 0; kk < KD; ++kk) q_frag(qf[mi][kk], mi, kk);
+  }
 
   const bool pre = logit.cap > 0.f || !(logit.mul > 0.f);   // log2 units before the max
   const float sl = pre ? 1.f : logit.mul;
@@ -467,6 +479,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
           for (int e = 0; e < 4; ++e) s[mi][n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qs_f[MI][4];   // this k-step's Q fragments (from shared memory)
+        if constexpr (!QREG) {
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) q_frag(qs_f[mi], mi, kk);
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           if (!FULL && 16 * np >= kc) continue;
@@ -475,8 +492,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                               ((lane >> 3) & 1) * 8);
 #pragma unroll
           for (int mi = 0; mi < MI; ++mi) {
-            mma_bf16(s[mi][2 * np], qf[mi][kk], kf[0], kf[1]);
-            mma_bf16(s[mi][2 * np + 1], qf[mi][kk], kf[2], kf[3]);
+            if constexpr (QREG) {
+              mma_bf16(s[mi][2 * np], qf[mi][kk], kf[0], kf[1]);
+              mma_bf16(s[mi][2 * np + 1], qf[mi][kk], kf[2], kf[3]);
+            } else {
+              mma_bf16(s[mi][2 * np], qs_f[mi], kf[0], kf[1]);
+              mma_bf16(s[mi][2 * np + 1], qs_f[mi], kf[2], kf[3]);
+            }
           }
         }
       }
@@ -597,8 +619,10 @@ cudaError_t launch_kernel(Kern kernel, size_t bytes, bool (&configured)[MAX_DEVI
 
 // The kernel of (dtype, HD, rows), or an error if the plan's rows are not
 // compiled for it: 128 rows (fp32 8 x 8 blocks, bf16 two m16 tiles a warp)
-// up to hd 64, 64 rows (fp32 8 x 4 blocks, bf16 one m16 tile a warp) at every
-// hd; at hd 128 the 128-row tiles would not fit in registers.
+// at hd 16, 32 and 64, 64 rows (fp32 8 x 4 blocks, bf16 one m16 tile a warp)
+// at every hd. At hd 128 and 192 the 128-row tiles would not fit in
+// registers; at hd 48 the fp32 8 x 8 block would give each lane 6 dims,
+// which the float4 dim map does not split (8 x 4 blocks give it 3).
 template <int HD>
 cudaError_t launch_hd(int dtype, int rows, const void* q, const void* k, const void* v,
                       void* out, int B, int Tn, int Hq, int Hkv, Logit logit, int vec,
@@ -607,7 +631,7 @@ cudaError_t launch_hd(int dtype, int rows, const void* q, const void* k, const v
   const long long blocks = row_tiles * B * Hkv;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const int rt = (int)row_tiles;
-  if constexpr (HD <= 64) {
+  if constexpr (HD == 16 || HD == 32 || HD == 64) {
     if (dtype == 0 && rows == F32Tile<HD, 8>::ROWS) {
       static bool configured[MAX_DEVICES] = {};
       return launch_kernel<float>(flash_f32_kernel<HD, 8>, F32Tile<HD, 8>::bytes(), configured,
@@ -639,8 +663,8 @@ cudaError_t launch_hd(int dtype, int rows, const void* q, const void* k, const v
 extern "C" {
 
 // q (B, T, Hq, hd); k, v (B, T, Hkv, hd); out (B, T, Hq, hd), all contiguous.
-// hd in {16, 32, 64, 128}; rows: query rows per block, from the plan
-// (kernels/flash_attention.py): 128 (hd <= 64) or 64.
+// hd in {16, 32, 48, 64, 128, 192}; rows: query rows per block, from the
+// plan (kernels/flash_attention.py): 128 (hd 16, 32, 64) or 64.
 // dtype: 0 = f32, 1 = bf16.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
                           int Tn, int Hq, int Hkv, int hd, int rows, float scale, float cap,
@@ -654,8 +678,11 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
     case 16: return (int)launch_hd<16>(dtype, rows, q, k, v, out, B, Tn, Hq, Hkv, logit, vec, s);
     case 32: return (int)launch_hd<32>(dtype, rows, q, k, v, out, B, Tn, Hq, Hkv, logit, vec, s);
     case 64: return (int)launch_hd<64>(dtype, rows, q, k, v, out, B, Tn, Hq, Hkv, logit, vec, s);
+    case 48: return (int)launch_hd<48>(dtype, rows, q, k, v, out, B, Tn, Hq, Hkv, logit, vec, s);
     case 128:
       return (int)launch_hd<128>(dtype, rows, q, k, v, out, B, Tn, Hq, Hkv, logit, vec, s);
+    case 192:
+      return (int)launch_hd<192>(dtype, rows, q, k, v, out, B, Tn, Hq, Hkv, logit, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

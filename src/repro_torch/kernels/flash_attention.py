@@ -25,12 +25,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lowrank_linear import DTYPES
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)     # head sizes the kernel is compiled for
+HEAD_DIMS = (16, 32, 48, 64, 128, 192)   # head sizes the kernel is compiled
+                      # for; 48 and 192 are MLA's nope + rope (SMOKE, full)
+WIDE_HEAD_DIMS = (16, 32, 64)     # the head sizes with ROWS-row tiles
 KEYS = 64                         # keys per K/V tile
 ROWS = 128            # query rows per block: fp32 8 x 8 register blocks of 128
-                      # threads, bf16 four warps of two m16 tiles; up to hd 64
+                      # threads, bf16 four warps of two m16 tiles
 THIN_ROWS = 64        # fp32 8 x 4 blocks, bf16 one m16 tile per warp: twice the
-                      # blocks, for thin grids and hd 128 (registers)
+                      # blocks, for thin grids; the only tile at hd 128 and 192
+                      # (registers) and at hd 48 (the fp32 lanes' dim split)
 FILL_BLOCKS = 264     # two blocks on each of the H100's 132 SMs
 
 launches = 0          # calls that launched the CUDA kernel
@@ -47,14 +50,14 @@ class FlashPlan:
 
 @functools.lru_cache(maxsize=None)
 def plan(b: int, t: int, hq: int, hkv: int, hd: int, dtype: torch.dtype) -> FlashPlan:
-    """``ROWS`` rows per block up to hd 64, unless that grid would leave the
-    card under ``FILL_BLOCKS`` blocks (the compress path's B 8, T 64 makes
-    128): then ``THIN_ROWS``, as at hd 128."""
+    """``ROWS`` rows per block at the ``WIDE_HEAD_DIMS``, unless that grid
+    would leave the card under ``FILL_BLOCKS`` blocks (the compress path's
+    B 8, T 64 makes 128): then ``THIN_ROWS``, as at every other head size."""
     if dtype not in DTYPES or hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: no tile for {dtype} at head_dim {hd}")
     rows_g = t * (hq // hkv)
     rows = ROWS
-    if hd > 64 or b * hkv * -(-rows_g // ROWS) < FILL_BLOCKS:
+    if hd not in WIDE_HEAD_DIMS or b * hkv * -(-rows_g // ROWS) < FILL_BLOCKS:
         rows = THIN_ROWS
     row_tiles = -(-rows_g // rows)
     return FlashPlan(rows, row_tiles, b * hkv * row_tiles)

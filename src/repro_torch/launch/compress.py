@@ -6,8 +6,10 @@ calibrate → compress with COALA or a Gram-based baseline → evaluate again.
       --smoke --method coala --ratio 0.6 --lam 4 [--device cpu]
 
 ``--arch`` is any of ``repro_torch.configs.ARCH_IDS``; an MoE model
-(deepseek_moe_16b) is compressed per expert, each from the tokens routed to
-it, and its training loss carries the load-balance aux term.
+(deepseek_moe_16b, deepseek_v2_lite_16b) is compressed per expert, each from
+the tokens routed to it, and its training loss carries the load-balance aux
+term. MLA's calibration forward runs the flash kernel at head dim
+nope + rope (192).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 Pretraining runs the dense attention path (the flash kernel has no

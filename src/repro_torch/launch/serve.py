@@ -9,7 +9,8 @@ aggregate throughput.
 
 ``--arch`` is any of ``repro_torch.configs.ARCH_IDS``: the dense GQA
 families (llama3_1b, mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
-gemma2_27b) and deepseek_moe_16b's MoE.
+gemma2_27b), deepseek_moe_16b's MoE and deepseek_v2_lite_16b's MLA over MoE
+(its latent KV pages read in plain torch; no paged kernel runs for it).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 On the GPU each engine replays one CUDA graph per step signature;

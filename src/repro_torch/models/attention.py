@@ -1,4 +1,5 @@
-"""GQA attention (port of ``repro/models/attention.py:196-294``, GQA only).
+"""GQA and MLA attention (port of ``repro/models/attention.py:196-294`` and
+``:298-359``).
 
 Two execution paths:
   * contiguous — ``sdpa`` over the whole sequence, causal: the training
@@ -10,6 +11,16 @@ Two execution paths:
     (``index_put_`` where the JAX package uses ``.at[blk, p % bs].set`` on
     donated buffers), then ``ops.paged_attention`` attends for a decode step
     (t == 1) and ``ops.chunked_prefill`` for a batched suffix prefill (t > 1).
+
+``MLA`` (deepseek-v2) keeps a latent cache, ``{"c": (num_blocks, bs,
+kv_lora_rank), "k_rope": (num_blocks, bs, qk_rope_dim)}`` per layer, and
+never the per-head K/V: without a cache it expands K/V from the latents and
+runs ``sdpa`` (the flash kernel under ``use_pallas``, at head dim
+nope + rope with V zero-padded to it); paged, it writes the new latents
+into their pages and attends in latent space through the absorbed
+``w_uk``/``w_uv`` over the row's pages read through its block table, in
+plain torch, as the JAX package computes it in XLA einsums outside any
+Pallas kernel. It never calls the paged kernels, whose pages are K/V.
 """
 from __future__ import annotations
 
@@ -110,3 +121,87 @@ class GQA(torch.nn.Module):
                     scale=scale, cap=cfg.attn_logit_softcap,
                     window=window).to(q.dtype)
         return self.wo(o.reshape(b, t, cfg.n_heads * hd))
+
+
+class MLA(torch.nn.Module):
+    """Multi-head latent attention (``mla_init`` / ``mla_apply``). The
+    projections ``wq``, ``w_dkv``, ``w_krope`` and ``wo`` are ``Linear``s;
+    ``w_uk`` (kv_lora_rank, H·nope) and ``w_uv`` (kv_lora_rank, H·v) are bare
+    parameters, as they are raw arrays in the JAX tree (used by einsum)."""
+
+    def __init__(self, cfg, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kl = cfg.kv_lora_rank
+        kw = dict(device=device, dtype=dtype)
+        self.wq = Linear(d, h * (dn + dr), **kw)
+        self.w_dkv = Linear(d, kl, **kw)
+        self.w_krope = Linear(d, dr, **kw)
+        self.w_uk = torch.nn.Parameter(torch.zeros((kl, h * dn), **kw))
+        self.w_uv = torch.nn.Parameter(torch.zeros((kl, h * dv), **kw))
+        self.wo = Linear(h * dv, d, **kw)
+
+    def forward(self, x, cos_sin, *, local: bool = False, cache=None,
+                pos=None, paged_tables=None, lens=None,
+                ctx: ParallelCtx = CPU_CTX):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+        kl = cfg.kv_lora_rank
+        scale = 1.0 / ((dn + dr) ** 0.5)
+        q = self.wq(x).reshape(b, t, h, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        c = self.w_dkv(x)                                   # (b, t, kl)
+        k_rope = self.w_krope(x)[:, :, None, :]             # (b, t, 1, dr)
+        cos, sin = cos_sin
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(k_rope, cos, sin)[:, :, 0, :]
+        w_uk = self.w_uk.to(x.dtype).reshape(kl, h, dn)
+        w_uv = self.w_uv.to(x.dtype).reshape(kl, h, dv)
+        if paged_tables is None:
+            # expanded: per-head K/V from the latents, MHA over nope + rope
+            k_nope = torch.einsum("btk,khd->bthd", c, w_uk)
+            v = torch.einsum("btk,khd->bthd", c, w_uv)
+            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, dr)],
+                          -1)
+            v_p = torch.nn.functional.pad(v, (0, dn + dr - dv))
+            o = sdpa(torch.cat([q_nope, q_rope], -1), k, v_p, ctx=ctx,
+                     causal=True, scale=scale)[..., :dv]
+        else:
+            # absorbed, over latent pages: write row i's t latents at
+            # positions pos[i] + j (padded tail tokens land in the row's last
+            # partial page or the trash page, as GQA's K/V do), read the
+            # row's pages through its padded table as one contiguous
+            # envelope with this chunk's latents laid over their positions —
+            # the JAX gather path's envelope, so a padded token whose page is
+            # the trash page sees its own row's latents, never another row's
+            # (its hidden state feeds the MoE's capacity selection) — and
+            # attend in latent space under per-row causal masks
+            cp, rp = cache["c"], cache["k_rope"]
+            bs = cp.shape[1]
+            tables = paged_tables.long()
+            p = pos.long()[:, None] + torch.arange(t, device=x.device)
+            blk = torch.gather(tables, 1, p // bs)
+            c, k_rope = c.to(cp.dtype), k_rope.to(rp.dtype)
+            cp.index_put_((blk, p % bs), c)
+            rp.index_put_((blk, p % bs), k_rope)
+            n_keys = tables.shape[1] * bs
+            cf = cp[tables].reshape(b, n_keys, kl)
+            rf = rp[tables].reshape(b, n_keys, dr)
+            cf.scatter_(1, p[..., None].expand(b, t, kl), c)
+            rf.scatter_(1, p[..., None].expand(b, t, dr), k_rope)
+            cf, rf = cf.to(x.dtype), rf.to(x.dtype)
+            q_c = torch.einsum("bthd,khd->bthk", q_nope, w_uk)
+            s = (torch.einsum("bthk,bsk->bhts", q_c, cf)
+                 + torch.einsum("bthd,bsd->bhts", q_rope, rf))
+            s = s.float() * scale
+            ok = p[:, :, None] >= torch.arange(n_keys, device=x.device)
+            zero = torch.zeros((), dtype=s.dtype, device=s.device)
+            s = s + torch.where(ok, zero, torch.full_like(zero, NEG_INF))[:, None]
+            pr = torch.softmax(s, dim=-1).to(x.dtype)
+            ctx_c = torch.einsum("bhts,bsk->bthk", pr, cf)
+            o = torch.einsum("bthk,khd->bthd", ctx_c, w_uv)
+        return self.wo(o.reshape(b, t, h * dv))

@@ -2,8 +2,8 @@
 ``repro/models/transformer.py:32-105``, ``:133-186`` and ``:208-504``):
 dense GQA (llama, mistral, smollm, olmo's non-parametric norms, minicpm's
 scaled embedding, residuals and logits, gemma2's local/global alternation,
-softcaps and sandwich norms) and deepseek's MoE (dense-FFN prefix layers,
-then MoE FFNs).
+softcaps and sandwich norms), deepseek's MoE (dense-FFN prefix layers,
+then MoE FFNs) and deepseek-v2's MLA attention (``kv_lora_rank`` > 0).
 
 ``LM`` is an ``nn.Module`` with the reference's layer layout: ``prefix`` is
 a ``ModuleList`` of the unrolled leading layers (deepseek's first dense-FFN
@@ -13,8 +13,10 @@ over them replaces ``lax.scan``. The ``state_dict`` names are the JAX
 parameter paths with ``/`` replaced by ``.`` (``blocks/3/sub0/mixer/wq/w``
 -> ``blocks.3.sub0.mixer.wq.w``, ``prefix/0/ffn/up/w`` ->
 ``prefix.0.ffn.up.w``), which keeps ``convert.py`` mechanical. The serving
-cache is a list with one ``{"k", "v"}`` page-store pair (num_blocks, bs,
-Hkv, hd) per layer, prefix layers first.
+cache is a list with one dict of page stores per layer, prefix layers
+first: ``{"k", "v"}`` (num_blocks, bs, Hkv, hd) for GQA, the latents
+``{"c": (num_blocks, bs, kv_lora_rank), "k_rope": (num_blocks, bs,
+qk_rope_dim)}`` for MLA.
 
 Every parameter is trainable (``LM.loss`` under autograd); the inference
 entry points run under ``torch.no_grad``.
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import GQA
+from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import (CPU_CTX, ParallelCtx, dense_init,
                                        make_norm, rope_cos_sin, softcap)
 from repro_torch.models.ffn import MLP, ExpertBank, MoE
@@ -111,7 +113,7 @@ class Block(torch.nn.Module):
         self.res_scale = (cfg.scale_depth / math.sqrt(cfg.n_layers)
                           if cfg.scale_depth else 1.0)
         self.norm1 = make_norm(cfg, **kw)
-        self.mixer = GQA(cfg, **kw)
+        self.mixer = MLA(cfg, **kw) if cfg.kv_lora_rank else GQA(cfg, **kw)
         self.norm2 = make_norm(cfg, **kw)
         self.is_moe = spec.is_moe
         self.ffn = (MoE(cfg, **kw) if spec.is_moe
@@ -181,12 +183,15 @@ class LM(torch.nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
         """Random init in place, from ``generator`` (on the model's device):
-        embeddings N(0, 0.02²), projections, routers and expert banks
-        N(0, 1/d_in), norm scales 0."""
+        embeddings N(0, 0.02²), projections (MLA's ``w_uk``/``w_uv`` too),
+        routers and expert banks N(0, 1/d_in), norm scales 0."""
         self.embed.normal_(0.0, 1.0, generator=generator).mul_(0.02)
         for mod in self.modules():
             if isinstance(mod, Linear):
                 dense_init(mod.w, generator)
+            elif isinstance(mod, MLA):
+                dense_init(mod.w_uk, generator)
+                dense_init(mod.w_uv, generator)
             elif isinstance(mod, MoE):
                 dense_init(mod.router, generator)
             elif isinstance(mod, ExpertBank):
@@ -197,11 +202,19 @@ class LM(torch.nn.Module):
     # ---------------- caches -----------------------------------------------
     def init_cache(self, num_blocks: int, block_size: int,
                    dtype=torch.float32) -> List[dict]:
-        """Per-layer page stores {"k", "v"}: (num_blocks, bs, Hkv, hd)."""
+        """Per-layer page stores: {"k", "v"} (num_blocks, bs, Hkv, hd), or
+        MLA's latents {"c": (num_blocks, bs, kv_lora_rank), "k_rope":
+        (num_blocks, bs, qk_rope_dim)}."""
         cfg = self.cfg
-        shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        nb, bs = num_blocks, block_size
+        if cfg.kv_lora_rank:
+            shapes = {"c": (nb, bs, cfg.kv_lora_rank),
+                      "k_rope": (nb, bs, cfg.qk_rope_dim)}
+        else:
+            kv = (nb, bs, cfg.n_kv_heads, cfg.head_dim)
+            shapes = {"k": kv, "v": kv}
+        return [{name: torch.zeros(shape, dtype=dtype, device=self.device)
+                 for name, shape in shapes.items()}
                 for _ in range(cfg.n_layers)]
 
     # ---------------- backbone ----------------------------------------------
@@ -218,7 +231,8 @@ class LM(torch.nn.Module):
         t = tokens.shape[1]
         ar = torch.arange(t, device=self.device)
         positions = ar if pos is None else pos.long()[:, None] + ar
-        cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        rope_dim = cfg.qk_rope_dim if cfg.kv_lora_rank else cfg.head_dim
+        cos_sin = rope_cos_sin(positions, rope_dim, cfg.rope_theta)
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, blk in enumerate(self.layers()):
             x, aux = blk(x, cos_sin, cache=None if cache is None else cache[i],

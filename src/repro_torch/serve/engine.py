@@ -5,13 +5,17 @@
 ``submit()`` enqueues a request; each ``step()`` admits whatever fits
 (scheduler + block pool), looks up each joiner's longest cached block-aligned
 prefix in the pool's prefix registry (``prefix_cache``, on by default: the
-port serves only pure-attention GQA LMs) and prefills only the suffix —
+port serves only pure-attention LMs) and prefills only the suffix —
 suffixes in the same length bucket go together through one
 ``LM.prefill_chunk`` call over the pool's page stores (the chunked-prefill
 kernel on the GPU) — and then runs ONE decode step over the whole running
 set at per-request positions (``LM.decode_step``, the paged-attention kernel
-on the GPU). The batch is padded to the next of ``bucket_sizes`` and the
-block envelope to a power of two, exactly as the JAX engine pads them:
+on the GPU). An MLA model's pages hold latents, which its attention reads in
+plain torch through the same signatures and graphs: no paged kernel runs
+(``paged_kernel`` and ``prefill_kernel`` False, as in the JAX engine, which
+serves MLA through its gather path). The batch is padded to the next of
+``bucket_sizes`` and the block envelope to a power of two, exactly as the
+JAX engine pads them:
 padding rows carry position 0, length 1 and all-trash block tables. When the
 pool runs dry during decode the youngest request is preempted and later
 re-prefilled. Each row samples with its own temperature (greedy at 0) from
@@ -76,7 +80,8 @@ compute dtype is the model's) makes its own copy before its first capture
 or swap (``_own_weights``), so the graphs read the engine's tensors.
 
 Model families: every attention-only decoder of ``repro_torch.configs``
-(dense GQA, gemma2's local window and softcaps, deepseek's MoE). An MoE
+(dense GQA, gemma2's local window and softcaps, deepseek's MoE, deepseek-v2's
+MLA). An MoE
 layer's capacity comes from the step's padded token count, so a signature
 fixes it and its graph is static; its combine adds without atomics, so a
 replay gives the eager engine's bits.
@@ -100,6 +105,7 @@ import torch
 from repro_torch.kernels import lowrank_linear as _ll
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.models.attention import MLA
 from repro_torch.models.ffn import ExpertBank
 from repro_torch.models.linear import Linear
 from repro_torch.obs import trace
@@ -177,9 +183,10 @@ def sample_rows(logits: torch.Tensor, temps, seeds, indices) -> torch.Tensor:
 
 def compute_copy(model, dtype):
     """``model`` with the weights its forward casts on every call — each
-    projection's ``w`` or ``b_t``/``a_t``, each MoE expert bank and the
-    embedding (also the tied LM head) — stored in ``dtype`` once: the same rounding the per-call cast
-    applies, so the outputs do not change. Norm scales stay as they are (the
+    projection's ``w`` or ``b_t``/``a_t``, each MoE expert bank, MLA's
+    ``w_uk``/``w_uv`` and the embedding (also the tied LM head) — stored in
+    ``dtype`` once: the same rounding the per-call cast applies, so the
+    outputs do not change. Norm scales stay as they are (the
     norms compute in fp32 from them). ``model`` itself when it is already in
     ``dtype``."""
     if dtype == model.dtype:
@@ -187,6 +194,8 @@ def compute_copy(model, dtype):
     cast = [model.embed] + [p for mod in model.modules()
                             if isinstance(mod, (Linear, ExpertBank))
                             for p in mod._parameters.values()]
+    cast += [p for mod in model.modules() if isinstance(mod, MLA)
+             for p in (mod.w_uk, mod.w_uv)]
     memo = {id(p): torch.nn.Parameter(p.detach().to(dtype), requires_grad=False)
             for p in cast}
     return copy.deepcopy(model, memo)
@@ -303,9 +312,13 @@ class ContinuousEngine:
         self._step_idx = 0
         self._swap_epoch = 0
         self.block_size = block_size
-        # every model the port serves is a pure-attention GQA LM, so the
+        # every model the port serves is a pure-attention LM, so the
         # chunked suffix prefill a cached prefix needs is always there
         self.prefix_cache = True if prefix_cache is None else prefix_cache
+        # the paged kernels read {"k", "v"} pages: MLA's latent pages are
+        # read by its own attention, so neither kernel runs for it
+        self.paged_kernel = not model.cfg.kv_lora_rank
+        self.prefill_kernel = self.paged_kernel
         is_cuda = self.device.type == "cuda"
         self.cuda_graphs = is_cuda if cuda_graphs is None else cuda_graphs
         if self.cuda_graphs and not is_cuda:
@@ -763,8 +776,8 @@ class ContinuousEngine:
         engine's compatibility view over ``self.registry``
         (``registry.snapshot()`` is the superset), with its keys. The
         steady-state rates leave out steps that captured a graph; a capture
-        is the port's compile, and the chunked-prefill kernel is the only
-        prefill path (``prefill_kernel`` 1.0)."""
+        is the port's compile. ``prefill_kernel`` is 1.0 where the
+        chunked-prefill kernel runs the prefill, 0.0 for MLA."""
         decode_s = self._c_decode_seconds.value
         prefill_s = self._c_prefill_seconds.value
         m = {
@@ -778,7 +791,7 @@ class ContinuousEngine:
             "prefill_batches": int(self._c_prefill_batches.value),
             "prefill_tok_per_s": (self._c_prefill_tokens.value / prefill_s
                                   if prefill_s > 0.0 else 0.0),
-            "prefill_kernel": 1.0,
+            "prefill_kernel": float(self.prefill_kernel),
             "prefix_hit_rate": (self._c_prefix_hit_tokens.value
                                 / max(self._c_prompt_tokens.value, 1)),
             "prefix_hit_tokens": int(self._c_prefix_hit_tokens.value),
@@ -875,6 +888,8 @@ class ContinuousEngine:
             "bucket_sizes": list(self.bucket_sizes),
             "prefill_bucket_sizes": list(self.prefill_bucket_sizes),
             "cuda_graphs": self.cuda_graphs,
+            "paged_kernel": self.paged_kernel,
+            "prefill_kernel": self.prefill_kernel,
             "prefix_cache": self.prefix_cache,
             "spec": self._spec,
             "spec_k": self.spec_k,
@@ -1068,7 +1083,7 @@ class ContinuousEngine:
                                              self.compute_dtype)
                 work, counters = max(work, w + t), max(counters, c)
         cfg = self.model.cfg
-        for b, nb in decode:
+        for b, nb in decode if self.paged_kernel else ():
             work = max(work, _pa.plan(b, cfg.n_heads, cfg.n_kv_heads,
                                       cfg.head_dim, nb).workspace)
         _ll.reserve_scratch(self.device, self._stream.cuda_stream, work,

@@ -8,11 +8,14 @@ its *block table* mapping block i to the page holding it; a *slot* is one of
 ``max_requests`` per-request entries (admission needs one free); an *intern
 chain* is the prefix registry's token-exact key structure.
 
-The pool owns the page stores: one ``{"k", "v"}`` pair of
-(num_blocks, block_size, Hkv, hd) tensors per layer, from
-``model.init_cache``. The paged attention path writes new tokens into them
-in place and reads them through the block tables, so there is no gather or
-scatter of the cache.
+The pool owns the page stores: one dict of (num_blocks, block_size, ...)
+tensors per layer, from ``model.init_cache`` — ``{"k", "v"}`` for GQA,
+MLA's latents ``{"c", "k_rope"}``. Both write new tokens into them in place
+through the block tables. GQA reads its pages in place too, through the
+paged kernels. MLA gathers each row's whole padded envelope of latents at
+every step and layer (``pages[tables]``) and lays the chunk's latents over
+it, as the JAX gather path does. Zeroing and copy-on-write treat every
+store of a layer alike.
 
 **Prefix caching** (``prefix_cache=True``): blocks are refcounted and a
 registry maps *full* blocks of committed tokens to their pages, so a new
@@ -342,7 +345,7 @@ class BlockPool:
             self._c_cow.inc()
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Page ``src`` into page ``dst`` in every layer's k and v store (a
+        """Page ``src`` into page ``dst`` in every store of every layer (a
         slice-to-slice ``copy_``: ``index_copy_`` refuses a source that
         shares the store's memory)."""
         for layer in self.pages:

@@ -328,7 +328,10 @@ def test_paged_kernels_cuda_refuse_other_dtypes(cuda):
     (1, 1000, 8, 2, 64, 0.0),       # ragged T over 16 key tiles
     (1, 2048, 32, 8, 64, 0.0),      # 32 key tiles, 2048 row tiles
     (1, 300, 8, 2, 128, 0.0),       # hd 128, ragged
-    (2, 256, 32, 8, 64, 50.0)])     # softcap at the serve calibration's shape
+    (2, 256, 32, 8, 64, 50.0),      # softcap at the serve calibration's shape
+    (8, 256, 16, 16, 192, 0.0),     # MLA's calibration shape (nope + rope)
+    (8, 200, 16, 16, 192, 0.0),     # ... at a ragged T
+    (2, 64, 4, 4, 48, 0.0)])        # MLA SMOKE's
 def test_flash_attention_cuda(cuda, dtype, tol, b, t, hq, hkv, hd, cap):
     """Within tol of the plain version, one launch per call, and the same
     bits on a second identical call."""
@@ -350,17 +353,18 @@ def test_flash_attention_cuda(cuda, dtype, tol, b, t, hq, hkv, hd, cap):
 @pytest.mark.parametrize("fill", [0, 10 ** 9])
 @pytest.mark.parametrize("b,t,hq,hkv,hd,cap", [
     (2, 37, 4, 1, 16, 20.0), (1, 130, 4, 2, 32, 0.0), (2, 300, 16, 2, 64, 0.0),
-    (1, 200, 4, 4, 128, 30.0)])
+    (1, 200, 4, 4, 128, 30.0), (2, 100, 4, 4, 48, 0.0), (1, 150, 4, 4, 192, 0.0)])
 def test_flash_attention_cuda_row_tiles(cuda, monkeypatch, dtype, tol, fill, b, t, hq, hkv,
                                         hd, cap):
     """Both row tiles of the plan on the same inputs: FILL_BLOCKS 0 puts
     every hd <= 64 shape on 128-row tiles, 10**9 every shape on 64-row
-    tiles. Within tol of the plain version, the same bits on a second call."""
+    tiles (hd 48, 128 and 192 always take them). Within tol of the plain
+    version, the same bits on a second call."""
     monkeypatch.setattr(fa, "FILL_BLOCKS", fill)
     fa.plan.cache_clear()
     try:
         assert fa.plan(b, t, hq, hkv, hd, dtype).rows == (
-            fa.ROWS if fill == 0 and hd <= 64 else fa.THIN_ROWS)
+            fa.ROWS if fill == 0 and hd in fa.WIDE_HEAD_DIMS else fa.THIN_ROWS)
         q = _randn(3, (b, t, hq, hd), cuda, dtype)
         k = _randn(4, (b, t, hkv, hd), cuda, dtype)
         v = _randn(5, (b, t, hkv, hd), cuda, dtype)
@@ -373,7 +377,7 @@ def test_flash_attention_cuda_row_tiles(cuda, monkeypatch, dtype, tol, fill, b, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64), (torch.float32, 48),
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64), (torch.float32, 40),
                                       (torch.bfloat16, 8)])
 def test_flash_attention_cuda_refuses_unplanned(cuda, dtype, hd):
     """A dtype or head size the plan has no tile for raises ValueError and
@@ -728,25 +732,27 @@ def test_engine_cuda_async_recalibration_swap_matches(smoke_models):
 
 
 # ---------------------------------------------------------------------------
-# the attention-only families: gemma2 (window, softcaps, sandwich norms) and
-# deepseek's MoE through the engine's graphs
+# the attention-only families: gemma2 (window, softcaps, sandwich norms),
+# deepseek's MoE and deepseek-v2's MLA through the engine's graphs
 # ---------------------------------------------------------------------------
 
 FAMILY_KNOBS = dict(block_size=4, num_blocks=48, max_running=3,
                     bucket_sizes=(1, 2, 3), prefill_bucket_sizes=(16, 64))
 FAMILY_TRACE = dict(seed=2, min_prompt=20, max_prompt=60, max_new=8,
                     arrival_every=1, shared_prefix=8)
+FAMILY_ARCHS = ("gemma2_27b", "deepseek_moe_16b", "deepseek_v2_lite_16b")
 
 
 @pytest.fixture(scope="module")
 def family_models():
-    """gemma2_27b and deepseek_moe_16b SMOKE, dense and COALA-compressed
-    (per expert for the MoE) on the CPU, then moved to the card."""
+    """gemma2_27b, deepseek_moe_16b and deepseek_v2_lite_16b SMOKE, dense and
+    COALA-compressed (per expert for the MoE) on the CPU, then moved to the
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     dev = torch.device("cuda")
     out = {}
-    for arch in ("gemma2_27b", "deepseek_moe_16b"):
+    for arch in FAMILY_ARCHS:
         cfg = get_smoke_config(arch)
         model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
         rng = np.random.RandomState(0)
@@ -760,14 +766,17 @@ def family_models():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["gemma2_27b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 @pytest.mark.parametrize("name", ["dense", "coala"])
 def test_family_engine_cuda_graphs_match_eager(family_models, arch, name):
     """Prompts past gemma2's SMOKE window and a shared prefix: graph replays
     give the eager engine's greedy tokens, with nothing captured after
-    warmup."""
+    warmup. MLA's latent pages are read by its own attention: the paged
+    kernels launch 0 times, and lowrank_linear runs only the COALA model's
+    factored projections."""
     model = family_models[(arch, name)]
     trace = synthetic_trace(5, model.cfg.vocab_size, **FAMILY_TRACE)
+    ops.reset_launch_counts()
     runs = []
     for graphs in (True, False):
         eng = ContinuousEngine(model, cuda_graphs=graphs, **FAMILY_KNOBS)
@@ -776,10 +785,16 @@ def test_family_engine_cuda_graphs_match_eager(family_models, arch, name):
         serve_trace(eng, trace)
         runs.append((eng, {r.req_id: list(r.out_tokens) for r in eng.finished}))
         eng.release_graphs()
+    counts = ops.launch_counts()
     (eng, toks), (ref, ref_toks) = runs
     assert toks == ref_toks and len(toks) == 5
     assert eng.metrics()["post_warmup_compiles"] == 0
     assert eng.metrics()["prefix_hit_tokens"] == ref.metrics()["prefix_hit_tokens"] > 0
+    if model.cfg.kv_lora_rank:
+        for e in (eng, ref):
+            assert e.metrics()["prefill_kernel"] == 0.0 and not e.paged_kernel
+        assert counts["paged_attention"] == counts["chunked_prefill"] == 0
+        assert (counts["lowrank_linear"] > 0) == (name == "coala")
 
 
 @pytest.mark.cuda

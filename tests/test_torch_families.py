@@ -71,14 +71,17 @@ def _tokens(cfg, shape, seed=1):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_seven_ported_configs():
-    assert sorted(ARCH_IDS) == sorted(FAMILIES + ["llama3_1b"])
+    """The seven configs of the attention-only GQA families and, since MLA
+    was ported, deepseek_v2_lite_16b: eight (the name dates from seven)."""
+    assert sorted(ARCH_IDS) == sorted(FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b"])
+    assert "deepseek_v2_lite_16b" not in NOT_PORTED and len(NOT_PORTED) == 4
     for name, family in NOT_PORTED.items():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match=family.split()[0]):
                 get(name)
 
 
-@pytest.mark.parametrize("name", FAMILIES + ["llama3_1b"])
+@pytest.mark.parametrize("name", FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b"])
 def test_configs_are_copies_of_the_jax_ones(name):
     for ours, theirs in ((get_config(name), j_config(name)),
                          (get_smoke_config(name), j_smoke(name))):

@@ -516,13 +516,15 @@ FLASH_TILED_CASES = FLASH_CASES + [
     (1, 96, 16, 2, 16, 0.0, 32),         # G 8, two row tiles
     (1, 128, 4, 2, 128, 10.0, 64),       # hd 128, softcap, two key tiles
     (2, 200, 8, 2, 16, 0.0, 40),         # G 4, 13 row tiles over 4 key tiles
+    (1, 96, 4, 4, 48, 0.0, 32),          # MLA SMOKE's head dim (nope + rope)
+    (1, 64, 2, 2, 192, 0.0, 32),         # MLA's full head dim
 ]
 
 
 @pytest.fixture(params=["planned", "wide"])
 def flash_rows(request, monkeypatch):
     """The plan as it is (the tests' small grids take THIN_ROWS), or with
-    FILL_BLOCKS 0, so every head size up to 64 takes ROWS."""
+    FILL_BLOCKS 0, so every head size of WIDE_HEAD_DIMS takes ROWS."""
     if request.param == "wide":
         monkeypatch.setattr(tfa, "FILL_BLOCKS", 0)
     tfa.plan.cache_clear()
@@ -579,7 +581,7 @@ def test_flash_plan_covers_every_row_once(flash_rows, b, t, hq, hkv, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 192])
 @pytest.mark.parametrize("g", [1, 4, 8])
 def test_flash_live_keys_reach_the_diagonal(flash_rows, dtype, hd, g):
     """Each row tile's key tiles are exactly those holding a key that one of
@@ -602,16 +604,19 @@ def test_flash_live_keys_reach_the_diagonal(flash_rows, dtype, hd, g):
     (1, 4096, 32, 8, 64, 128),
     (2, 100, 16, 4, 16, 64),       # thin grid
     (8, 4096, 32, 8, 128, 64),     # hd 128: 64 rows at any size
+    (8, 4096, 16, 16, 192, 64),    # MLA's hd 192 and SMOKE's hd 48: the same
+    (8, 4096, 4, 4, 48, 64),
 ])
 def test_flash_plan_rows(b, t, hq, hkv, hd, rows):
-    """128-row tiles up to hd 64 where they fill the card with two blocks
-    per SM, else 64-row tiles; the same choice in both dtypes."""
+    """128-row tiles at hd 16, 32 and 64 where they fill the card with two
+    blocks per SM, else 64-row tiles; the same choice in both dtypes. A head
+    size or dtype without a tile raises."""
     for dtype in (torch.float32, torch.bfloat16):
         p = tfa.plan(b, t, hq, hkv, hd, dtype)
         assert p.rows == rows
         assert p.row_tiles == -(-t * (hq // hkv) // rows)
     with pytest.raises(ValueError):
-        tfa.plan(b, t, hq, hkv, 48, torch.float32)
+        tfa.plan(b, t, hq, hkv, 40, torch.float32)
     with pytest.raises(ValueError):
         tfa.plan(b, t, hq, hkv, hd, torch.float16)
 

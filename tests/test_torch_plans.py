@@ -1,5 +1,6 @@
 """The launch plans of ``lowrank_linear`` at every factored projection of
-the six attention-only full-width configs, on the CPU.
+the seven attention-only full-width configs, on the CPU (deepseek-v2's MLA
+projections ``wq``, ``w_dkv`` and ``wo`` among them).
 
 For ratios 0.6 and 0.3, M 1, 8, 16, 40, 256 and 4608 (the long prefill
 of gemma2's serving path), fp32 and bf16: each product's plan passes a
@@ -21,7 +22,7 @@ from repro_torch.models.linear import rank_for_ratio
 torch.set_num_threads(1)
 
 FAMILIES = ["mistral_7b", "smollm_135m", "olmo_1b", "minicpm_2b",
-            "gemma2_27b", "deepseek_moe_16b"]
+            "gemma2_27b", "deepseek_moe_16b", "deepseek_v2_lite_16b"]
 # (K step, most k per split) of each kernel, from csrc/lowrank_linear.cu:
 # D_KS / D_KMAX (fp32 decode), P_BK (fp32 prefill), T_BK (bf16 mma)
 KERNEL_K = {("decode", torch.float32): (16, 512),
@@ -43,8 +44,12 @@ def projections(cfg):
     """(d_in, d_out) of every Linear of one layer kind that lowrank_linear
     runs once factored: attention, the dense FFN, the shared experts."""
     d, hd = cfg.d_model, cfg.head_dim
-    out = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
-           (cfg.n_heads * hd, d)]
+    if cfg.kv_lora_rank:               # MLA: wq, w_dkv, wo
+        out = [(d, cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)),
+               (d, cfg.kv_lora_rank), (cfg.n_heads * cfg.v_head_dim, d)]
+    else:
+        out = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+               (cfg.n_heads * hd, d)]
     ffs = [cfg.d_ff]
     if cfg.uses_moe:
         ffs = ([cfg.d_ff] if cfg.first_k_dense else []) + \
