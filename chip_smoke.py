@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~16 min on one H100
+    python3 chip_smoke.py              # full run, ~18 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -18,7 +18,10 @@ Phases, each printing its own lines:
              (1e-4), the calibration Grams (1e-4), and a speculative engine's
              greedy tokens (a ratio-0.3 draft, k 4; graphs on the card,
              eager on the CPU): identical, and identical to the CPU's
-             non-speculative tokens; then each attention-only family's SMOKE
+             non-speculative tokens; one adapter-only AdamW step (coala_a1
+             adapters at rank 8, forward and backward through lowrank_linear
+             on the card) against the CPU's: loss, the adapters' gradients
+             and every updated leaf within 1e-4; then each attention-only family's SMOKE
              config (mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
              gemma2_27b, deepseek_moe_16b, deepseek_v2_lite_16b's MLA),
              dense and COALA: prefill and decode logits card vs CPU (1e-3)
@@ -102,8 +105,8 @@ Phases, each printing its own lines:
              paged_attention), 0 post-warmup captures, then both through the
              eager engine: identical greedy tokens;
 9. deepseek path — the compression launcher on deepseek_moe_16b at full
-             width, its depth cut to 4 of 28 layers (the dense-FFN layer and
-             3 MoE layers of 64 routed experts top-6 and 2 shared), handed
+             width, its depth cut to 2 of 28 layers (the dense-FFN layer and
+             one MoE layer of 64 routed experts top-6 and 2 shared), handed
              as ``cfg``, 10 pretrain steps, 4 x 8 x 64 calibration tokens,
              coala and svd_llm compressing every routed expert from its own
              tokens: non-finite factors (coala must have none), CE before
@@ -130,7 +133,32 @@ Phases, each printing its own lines:
              T 256, H 16, hd 192; ragged T 200; SMOKE's hd 48), and
              lowrank_linear on deepseek_v2_lite_16b's nine compressed dense
              projections at M 8;
-10. profile — only with ``--profile N``: wall and per-kernel device time of
+10. compression core — on phase 5's trained model and calibrator: [10a]
+             ``compress_model`` with adaptive ranks (coala, ratio 0.6, μ 0:
+             the reference's coala_adaptive row of Table 2): kept ratio <= 0.6,
+             more than one distinct rank, one rank per layer position, every
+             report at or above its optimum, a finite CE beside phase 5's
+             uniform COALA CE; the model serves phase 4's trace through CUDA
+             graphs (0 post-warmup captures) and eagerly, identical greedy
+             tokens; [10b] Table 4 on block 0 alone (depth 1), calibrated and
+             fine-tuned on a second stream (seed 99, noise 0.05): lora,
+             pissa, corda, coala_a1, coala_a2 adapters at rank 8, 20
+             adapter-only AdamW steps each (forward and backward through
+             lowrank_linear), merge, CE; frozen leaves bit-identical,
+             backward launches and, on each adapted linear, the adapter
+             sum and the merged product within fp32's rounding bound of
+             their fp64 sum, for all; merged logits equal the adapter
+             model's (1e-3) and a finite CE but for corda, whose CE and
+             logits error are recorded (its Gram is rank-deficient: Remark
+             1); [10c] Theorem 1 on block 0's down at three
+             μ, and the randomized SVD timed beside the full one on block 0's
+             seven linears (μ 0), each weighted error against the fp64
+             optimum (the full solve within 1.1x it plus fp32's floor). Phase 7 then also holds lowrank_linear at the
+             adaptive ranks and, under autograd, at M 512, rank 8 on the seven
+             projections and one odd adaptive rank (gradients vs the plain
+             version's autograd; forward + backward timed on the card,
+             by torch.profiler's kernel times, and on the wall clock);
+11. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
              of the speculative draft served alone and of speculative
@@ -143,10 +171,11 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 8, 9, 9b, 7, 10. Launch counts are zeroed just
-before each of the paths 4-6, 8, 9 and 9b (4b, 4c and 4d included) and read
-just after: eager launches plus the kernels of every
-CUDA-graph replay; each kernel must have launched on the paths that run it.
+Phases run in the order 1-6, 10, 8, 9, 9b, 7, 11. Launch counts are zeroed just
+before each of the paths 4-6, 10, 8, 9 and 9b (4b, 4c and 4d included) and
+read just after: eager launches plus the kernels of every
+CUDA-graph replay; each kernel must have launched on the paths that run it,
+and lowrank_linear's backward on phase 10's (its launches counted apart too).
 The shapes of the kernel calls are noted on the way for phase 7 (on the
 serve paths in their eager-engine runs: a graph's wrapper calls see only the
 static capture inputs).
@@ -282,6 +311,24 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
+# Phase 10, the compression core, on phase 5's trained llama3_1b (depth 4) and
+# its 2048-token calibrator: adaptive ranks at phase 5's ratio with μ 0 (the
+# reference's coala_adaptive row of Table 2, benchmarks/run.py:200-206);
+# Table 4's adapters at rank 8 on block 0 alone (depth 1: the α 0 and α 2
+# factors of the 8192-wide down each take an 8192² SVD), calibrated and
+# fine-tuned on a second stream (seed 99, noise 0.05) as
+# examples/finetune_adapters.py does, 20 adapter-only steps of 8 x 64 tokens
+# (its ft_cfg: lr 1e-3, const, weight decay 0); Theorem 1 on block 0's down.
+ADAPTIVE_RATIO = 0.6
+ADAPTER_METHODS = ("lora", "pissa", "corda", "coala_a1", "coala_a2")
+ADAPTER_RANK, ADAPTER_STEPS, ADAPTER_CAL_BATCHES, ADAPTER_EVAL_BATCHES = 8, 20, 4, 3
+ADAPTER_FT = dict(lr=1e-3, warmup_steps=2, total_steps=ADAPTER_STEPS, schedule="const",
+                  weight_decay=0.0)
+ADAPTER_FINITE = ("lora", "pissa", "coala_a1", "coala_a2")   # corda is recorded only
+TOL_MERGE = 1e-3            # merged vs adapter logits: x·w + (x·b_t)·a_t vs x·(w + b_t·a_t)
+THM1_LAYER, THM1_MUS = "blocks/0/sub0/ffn/down", (1e-3, 1e-2, 1e-1)
+SVD_SLACK = 1.1             # 10c: the full fp32 solve against the fp64 optimum
+GRAD_ROWS = 512             # phase 7's backward rows: one fine-tuning step's 8 x 64
 
 
 class Failure(Exception):
@@ -320,6 +367,43 @@ def timed(torch, fn, flush) -> float:
         fn()
     loop(False)
     return max(loop(True) - loop(False), 0.0) / ITERS
+
+
+def _cuda_events(prof):
+    """The device-side entries of ``prof.key_averages()`` (kernels, copies,
+    sets) and the name of their self device time in microseconds, which
+    differs across torch versions."""
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    attr = ("self_device_time_total"
+            if events and hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return events, attr
+
+
+def device_ms(torch, fn, flush) -> float:
+    """Milliseconds on the card of one call of ``fn`` with a cold L2: the
+    durations of the kernels and copies torch.profiler records over
+    ``ITERS`` calls, each after a rewrite of ``flush``, summed, minus the
+    same sum for the rewrites alone. Unlike ``timed`` it leaves out the
+    gaps in which the card waits for the host, so it is the card's time
+    for a call whose host work outruns the card (autograd's forward and
+    backward of one projection)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy(with_fn: bool) -> float:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                flush.zero_()
+                if with_fn:
+                    fn()
+            torch.cuda.synchronize()
+        events, attr = _cuda_events(prof)
+        return sum(getattr(e, attr) for e in events) / 1e3
+    for _ in range(2):
+        fn()
+    return max(busy(True) - busy(False), 0.0) / ITERS
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -565,6 +649,61 @@ def reference_loss_grams(torch, dev):
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise Failure("gram_accum: SMOKE Grams on the card disagree with the CPU")
+
+
+def reference_adapter_step(torch, dev):
+    """One adapter-only AdamW step (coala_a1 adapters at ``ADAPTER_RANK``,
+    weight decay 0.1, eps 1e-3 so that rounding cannot flip a first update)
+    of llama3_1b SMOKE on the card — forward and backward through the
+    lowrank_linear kernel — against the same step on the CPU: loss, the
+    adapters' gradients and every updated leaf within 1e-4 (the kernel's
+    sums run in another order)."""
+    import copy
+    import numpy as np
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.adapters import init_adapters
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_adapter_step
+
+    cfg = get_smoke_config("llama3_1b")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED + 2)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 32)))
+    adapted, mask = init_adapters(model, calibrate_model(model, [toks]).r_factors(),
+                                  method="coala_a1", rank=ADAPTER_RANK)
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10, schedule="const",
+                       weight_decay=0.1, eps=1e-3)
+    runs = {}
+    for d in ("cpu", dev):
+        m = copy.deepcopy(adapted).to(d)
+        before = ops.backward_launch_counts()["lowrank_linear"]
+        loss, grads = make_adapter_step(m, tcfg, mask)(
+            adamw_init(dict(m.named_parameters())), toks.to(d))
+        torch.cuda.synchronize()
+        runs[str(d)] = (loss.reshape(1).cpu(), {k: g.cpu() for k, g in grads.items()},
+                        {k: p.detach().cpu() for k, p in m.named_parameters()},
+                        ops.backward_launch_counts()["lowrank_linear"] - before)
+    (l0, g0, p0, _), (l1, g1, p1, bwd) = runs["cpu"], runs[str(dev)]
+    compare("reference adapter step loss (card kernel fwd + bwd vs CPU plain)", l1, l0, 1e-4)
+    worst_g = max(compare_quiet(g1[k], g0[k]) for k in g0)
+    worst_p = max(compare_quiet(p1[k], p0[k]) for k in p0)
+    ok = sorted(g1) == sorted(g0) and worst_g <= 1e-4 and worst_p <= 1e-4 and bwd > 0
+    log(f"  reference adapter step: {len(g0)} adapter gradients max rel err "
+        f"{worst_g:.3e}, {len(p0)} updated leaves max rel err {worst_p:.3e} "
+        f"(tol 1e-4), {bwd} backward launches on the card {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise Failure("adapter step: the card's step disagrees with the CPU's")
+
+
+def compare_quiet(got, want) -> float:
+    """max|got - want| / max(1, max|want|), non-finite as inf."""
+    err = (got.float() - want.float()).abs().max().item()
+    err /= max(1.0, want.float().abs().max().item())
+    return err if math.isfinite(err) else math.inf
 
 
 # ---------------------------------------------------------------------------
@@ -1504,12 +1643,15 @@ def gemma2_path(torch, ops):
 # ---------------------------------------------------------------------------
 
 # deepseek_moe_16b (src/repro_torch/configs/deepseek_moe_16b.py) at full
-# width, its depth cut from 28 layers to 4: the dense-FFN prefix layer and 3
-# MoE layers (64 routed experts top-6, 2 shared). The compress launcher's
+# width, its depth cut from 28 layers to 2: the dense-FFN prefix layer and one
+# MoE layer (64 routed experts top-6, 2 shared); 4 until the port's SVDs took
+# cuSOLVER's accurate gesvd, which made the per-expert solves slower (coala's
+# compress 139.6 -> 221.1 s at depth 4) and the script too long for its
+# limit. The compress launcher's
 # path with 10 pretrain steps and 4 x 8 x 64 calibration tokens, so a routed
 # expert sees ~190 tokens against d_model 2048: per-expert COALA on
 # rank-deficient R factors. Then the COALA model serves phase 4's trace.
-DEEPSEEK_LAYERS = 4
+DEEPSEEK_LAYERS = 2
 DEEPSEEK_ARGS = ["--arch", "deepseek_moe_16b", "--ratio", "0.6", "--lam", "4",
                  "--pretrain-steps", "10", "--calib-batches", "4", "--device", "cuda"]
 
@@ -1549,7 +1691,7 @@ def deepseek_path(torch, ops):
     cfg = dataclasses.replace(get_config("deepseek_moe_16b"), n_layers=DEEPSEEK_LAYERS)
     if cfg.first_k_dense != 1 or not all(cfg.layer_is_moe(i)
                                          for i in range(1, DEEPSEEK_LAYERS)):
-        raise Failure("deepseek depth cut: expected 1 dense-FFN layer and 3 MoE layers")
+        raise Failure("deepseek depth cut: expected 1 dense-FFN layer, then MoE layers")
     out = {"layers": DEEPSEEK_LAYERS, "seconds": {}, "summaries": {}, "nonfinite": {},
            "nan_reports": {}, "peak_gb": {}, "solve_s": {}}
     keep = None
@@ -1704,6 +1846,303 @@ def mla_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the compression core on phase 5's trained model
+# ---------------------------------------------------------------------------
+
+def adaptive_path(torch, ops, coala):
+    """10a: ``compress_model(adaptive_rank=True)`` on phase 5's trained model
+    and calibrator (coala, ratio ``ADAPTIVE_RATIO``, μ 0): kept ratio, more
+    than one distinct rank, one rank per layer position, every report at or
+    above its optimum, a finite CE beside phase 5's uniform COALA CE; then the
+    model serves phase 4's trace through CUDA graphs after warmup (0
+    post-warmup captures) and eagerly: identical greedy tokens. Returns
+    (summary, noted kernel shapes of the eager run, rank by path)."""
+    from repro_torch.config import CompressConfig
+    from repro_torch.core.compress import compress_model, compression_summary
+    from repro_torch.core.rank_alloc import default_group
+    from repro_torch.launch import compress as clauncher
+    from repro_torch.launch import serve as slauncher
+
+    model, cal = coala["model"], coala["calibrator"]
+    t0 = time.perf_counter()
+    am, reports = compress_model(model, cal, CompressConfig(
+        method="coala", ratio=ADAPTIVE_RATIO, mu=0.0, adaptive_rank=True))
+    torch.cuda.synchronize()
+    out = {"compress_s": time.perf_counter() - t0, "compression": compression_summary(reports)}
+    ranks = {r.path: r.rank for r in reports}
+    groups = {}
+    for path, r in ranks.items():
+        groups.setdefault(default_group(path), set()).add(r)
+    for r in reports:
+        if not (math.isfinite(r.rel_err_weighted) and math.isfinite(r.rel_err_bound)):
+            raise Failure(f"adaptive: report not finite: {r}")
+        if r.rel_err_weighted < r.rel_err_bound * (1 - 1e-3):
+            raise Failure(f"adaptive {r.path}: error {r.rel_err_weighted} below the "
+                          f"optimum {r.rel_err_bound}")
+    if not out["compression"]["kept_ratio"] <= ADAPTIVE_RATIO:
+        raise Failure(f"adaptive: kept ratio {out['compression']['kept_ratio']}")
+    if len(set(ranks.values())) < 2 or any(len(v) != 1 for v in groups.values()):
+        raise Failure(f"adaptive: ranks by layer position {groups}")
+    pipe = clauncher.make_pipeline(model.cfg, model.device)
+    out["ce"] = clauncher.eval_ce(am, pipe)
+    if not math.isfinite(out["ce"]):
+        raise Failure(f"adaptive: CE {out['ce']}")
+    out["ranks"] = {g: min(v) for g, v in sorted(groups.items())}
+    log(f"  adaptive ranks by layer position: {json.dumps(out['ranks'])}")
+    log(f"  compress {out['compress_s']:.2f} s, kept ratio "
+        f"{out['compression']['kept_ratio']:.4f}, CE {out['ce']:.4f} against phase 5's "
+        f"uniform COALA {coala['summary']['compressed_ce']:.4f} (base "
+        f"{coala['summary']['base_ce']:.4f})")
+
+    vocab = model.cfg.vocab_size
+    trace = slauncher.synthetic_trace(REQUESTS, vocab, seed=SEED, min_prompt=MIN_PROMPT,
+                                      max_prompt=MAX_PROMPT, min_new=NEW_TOKENS,
+                                      max_new=NEW_TOKENS)
+    eng, met, toks, secs = _serve_run(torch, am, trace, warmup=True)
+    _check_finished("adaptive", eng, trace, vocab)
+    if not eng.cuda_graphs or met["post_warmup_compiles"] != 0:
+        raise Failure(f"adaptive: expected CUDA graphs and 0 post-warmup captures, "
+                      f"got {met['post_warmup_compiles']}")
+    out["serve"] = dict({k: met[k] for k in SERVE_KEYS}, seconds=secs)
+    log(f"  [adaptive] graphs: {_serve_line(met)}; warmup {met['warmup_seconds']:.2f} s")
+    del eng
+    with KernelCalls(ops) as calls:
+        eng, emet, etoks, esecs = _serve_run(torch, am, trace, cuda_graphs=False)
+    _check_finished("adaptive eager", eng, trace, vocab)
+    out["serve_eager"] = dict({k: emet[k] for k in SERVE_KEYS}, seconds=esecs)
+    log(f"  [adaptive] eager: {_serve_line(emet)}; greedy tokens "
+        f"{'identical to' if etoks == toks else 'DIFFER from'} the graphs'")
+    if etoks != toks:
+        raise Failure("adaptive: CUDA graphs and the eager engine disagree")
+    del eng, am
+    torch.cuda.empty_cache()
+    return out, calls.shapes(), ranks
+
+
+def merge_witness(torch, am, merged, probe, method) -> dict:
+    """Each adapted linear of ``am`` on the input it sees in the forward of
+    ``probe``: the adapter sum x·w + (x·b_t)·a_t (lowrank_linear) and the
+    merged product x·(w + b_t·a_t) of ``merged``, both fp32 on the card,
+    against the sum in fp64. Every element's error must stay within
+    fp32's worst-case rounding of these sums, γ·(|x|·(|w| + |b_t|·|a_t|))
+    with γ = (d_in + r + 2)·eps₃₂, a bound that scales with the adapters'
+    size. Returns the largest error over its bound for each sum."""
+    from repro_torch.core.calibrate import block_modules
+    from repro_torch.models.linear import Linear
+
+    lins = {p: lin for p, lin in block_modules(am, Linear)
+            if lin.has_dense and lin.is_factored}
+    dense = dict(block_modules(merged, Linear))
+    inputs, hooks = {}, []
+    for path, lin in lins.items():
+        hooks.append(lin.register_forward_pre_hook(
+            lambda mod, args, path=path: inputs.__setitem__(path, args[0])))
+    worst = {"adapter": 0.0, "merged": 0.0}
+    with torch.no_grad():
+        try:
+            am.logits(probe)
+        finally:
+            for h in hooks:
+                h.remove()
+        for path, lin in lins.items():
+            x = inputs[path].reshape(-1, lin.w.shape[0]).float().contiguous()
+            x64, w, b_t, a_t = (t.double() for t in (x, lin.w, lin.b_t, lin.a_t))
+            want = x64 @ w + (x64 @ b_t) @ a_t
+            gamma = (w.shape[0] + b_t.shape[1] + 2) * 2.0 ** -23
+            lim = gamma * (x64.abs() @ (w.abs() + b_t.abs() @ a_t.abs()))
+            for label, got in (("adapter", lin(x)), ("merged", dense[path](x))):
+                ratio = ((got.double() - want).abs() / lim.clamp_min(1e-300)).max().item()
+                worst[label] = max(worst[label], ratio)
+    ok = all(math.isfinite(v) and v <= 1.0 for v in worst.values())
+    log(f"  {method} merge witness on {len(lins)} linears against fp64: largest error "
+        f"over its fp32 rounding bound, adapter sum {worst['adapter']:.3e}, merged "
+        f"{worst['merged']:.3e} (<= 1) {'ok' if ok else 'VIOLATED'}")
+    if not ok:
+        raise Failure(f"adapters {method}: merged or adapter sums outside fp32's "
+                      f"rounding of the fp64 sum: {worst}")
+    return worst
+
+
+def adapters_path(torch, ops, coala):
+    """10b: Table 4 on the card. Block 0 of phase 5's trained model (depth
+    1), calibrated on the second stream; per method of ``ADAPTER_METHODS``:
+    ``init_adapters`` at ``ADAPTER_RANK``, ``ADAPTER_STEPS`` adapter-only
+    AdamW steps (``make_adapter_step``: the adapters' products forward and
+    backward through the lowrank_linear kernel), ``merge_adapters``, CE on
+    the stream's held-out batches. Checks: every frozen leaf bit-identical
+    after the steps (weight decay 0) and backward launches in every method's
+    steps; every method's merge held by ``merge_witness``; for
+    ``ADAPTER_FINITE`` a finite CE and the merged model's logits equal to
+    the adapter model's within ``TOL_MERGE``. corda's CE, non-finite leaves
+    and logits error are recorded whatever they are: its 2048-token Gram at
+    width 8192 is rank-deficient (the paper's Remark 1). On the card its
+    fp32 LU solve has met no zero pivot, so its adapters come out finite but
+    large, and the rounding of the two sums, which scales with them, is
+    held by the witness and not by ``TOL_MERGE``."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.adapters import init_adapters, merge_adapters
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.compress import KERNEL_CTX, eval_ce
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_adapter_step
+
+    src = coala["model"]
+    cfg = dataclasses.replace(src.cfg, n_layers=1)
+    base = build_model(cfg, device=src.device)
+    base.load_state_dict({k: v for k, v in src.state_dict().items()
+                          if not k.startswith("blocks.") or k.startswith("blocks.0.")})
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8,
+                                    seed=99, noise=0.05), cfg, device=base.device)
+    t0 = time.perf_counter()
+    cal = calibrate_model(base, [pipe.get_batch(2000 + i)["tokens"]
+                                 for i in range(ADAPTER_CAL_BATCHES)], ctx=KERNEL_CTX)
+    rf = cal.r_factors()
+    torch.cuda.synchronize()
+    out = {"calibrate_s": time.perf_counter() - t0,
+           "base_ce": eval_ce(base, pipe, n_batches=ADAPTER_EVAL_BATCHES), "methods": {}}
+    log(f"  block 0 of phase 5's model: calibrate {out['calibrate_s']:.2f} s on "
+        f"{ADAPTER_CAL_BATCHES} x 8 x 64 tokens; CE on the second stream "
+        f"{out['base_ce']:.4f}")
+    tcfg = TrainConfig(**ADAPTER_FT)
+    probe = pipe.get_batch(1000)["tokens"][:2]
+    for method in ADAPTER_METHODS:
+        t0 = time.perf_counter()
+        am, mask = init_adapters(base, rf, method=method, rank=ADAPTER_RANK)
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0,
+               "ce_init": eval_ce(am, pipe, n_batches=ADAPTER_EVAL_BATCHES)}
+        frozen = {k: p.detach().clone() for k, p in am.named_parameters() if not mask[k]}
+        opt = adamw_init(dict(am.named_parameters()))
+        step = make_adapter_step(am, tcfg, mask)
+        bwd0 = ops.backward_launch_counts()["lowrank_linear"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(opt, pipe.get_batch(i)["tokens"])[0] for i in range(ADAPTER_STEPS)]
+        torch.cuda.synchronize()
+        res["step_ms"] = (time.perf_counter() - t0) / ADAPTER_STEPS * 1e3
+        res["backward_launches"] = ops.backward_launch_counts()["lowrank_linear"] - bwd0
+        res["losses"] = [float(x) for x in (losses[0], losses[-1])]
+        res["frozen_identical"] = all(torch.equal(p, frozen[k])
+                                      for k, p in am.named_parameters() if not mask[k])
+        res["nonfinite_adapter_leaves"] = [k for k, p in am.named_parameters()
+                                           if mask[k] and not bool(torch.isfinite(p).all())]
+        del frozen, opt, step
+        merged = merge_adapters(am)
+        res["ce_after"] = eval_ce(merged, pipe, n_batches=ADAPTER_EVAL_BATCHES)
+        want, got = am.logits(probe), merged.logits(probe)
+        res["merge_finite"] = bool(torch.isfinite(want).all())
+        log(f"  [{method}] init {res['init_s']:.2f} s, {res['step_ms']:.1f} ms a step "
+            f"({res['backward_launches']} backward launches in {ADAPTER_STEPS} steps), "
+            f"CE {res['ce_init']:.4f} at init -> {res['ce_after']:.4f} merged after "
+            f"{ADAPTER_STEPS} steps (loss {res['losses'][0]:.4f} -> "
+            f"{res['losses'][1]:.4f}); frozen leaves "
+            f"{'bit-identical' if res['frozen_identical'] else 'CHANGED'}; "
+            f"{len(res['nonfinite_adapter_leaves'])} non-finite adapter leaves")
+        if method in ADAPTER_FINITE:
+            res["merge_max_abs_err"] = compare(f"{method} merged vs adapter logits", got,
+                                               want, TOL_MERGE)
+        else:
+            res["merge_rel_err"] = compare_quiet(got, want)
+            log(f"  {method} merged vs adapter logits: max |err| / max(1, max|ref|) = "
+                f"{res['merge_rel_err']:.3e} (recorded; tolerance {TOL_MERGE} for the "
+                "others; its merge is held by the witness)")
+        if res["nonfinite_adapter_leaves"]:
+            log(f"  {method}: merge witness not run, the adapters are not finite")
+        else:
+            res["merge_witness"] = merge_witness(torch, am, merged, probe, method)
+        if not res["frozen_identical"] or res["backward_launches"] <= 0:
+            raise Failure(f"adapters {method}: frozen leaves changed or no backward launch")
+        if method in ADAPTER_FINITE and not math.isfinite(res["ce_after"]):
+            raise Failure(f"adapters {method}: CE {res['ce_after']}")
+        out["methods"][method] = res
+        del am, merged, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def theory_rsvd_path(torch, coala):
+    """10c: Theorem 1 on phase 5's block-0 ``down`` (2048 tokens < 8192: X is
+    rank-deficient): ||W₀ − W_μ||_F <= thm1_bound at each of ``THM1_MUS``,
+    with Rᵀ in place of X (W·X and W·Rᵀ have the same singular values); then
+    ``coala_factors`` with the randomized SVD beside the full SVD on block
+    0's seven linears at ratio 0.6, μ 0: seconds and weighted errors
+    ||(W − W')Rᵀ||_F, each against the attainable optimum computed in fp64
+    (the tail of σ(W Rᵀ)). The full solve (cuSOLVER's ``gesvd``) must reach
+    ``SVD_SLACK`` × the optimum plus fp32's floor, eps₃₂ · σ_max · √min(m, n)
+    (the rounding of W Rᵀ itself). (With λ 4 each
+    path would pick its own μ from its first solve, and the errors would
+    belong to two regularised problems.)"""
+    from repro_torch.core import coala as coala_lib
+    from repro_torch.core import theory
+    from repro_torch.core.calibrate import block_modules
+    from repro_torch.models.linear import Linear, rank_for_ratio
+
+    lins = dict(block_modules(coala["model"], Linear))
+    rf = coala["calibrator"].r_factors()
+    w = lins[THM1_LAYER].w.detach().T.float()
+    r_f = rf[THM1_LAYER].float()
+    rank = rank_for_ratio(w.shape[1], w.shape[0], 0.6)
+    out = {"thm1": []}
+    w0 = coala_lib.coala_project(w, r_factor=r_f, rank=rank)
+    for mu in THM1_MUS:
+        diff = torch.linalg.norm(w0 - coala_lib.coala_project(w, r_factor=r_f, rank=rank,
+                                                              mu=mu)).item()
+        bnd = theory.thm1_bound(w, r_f.T, rank, mu).item()
+        out["thm1"].append({"mu": mu, "diff": diff, "bound": bnd})
+        log(f"  Theorem 1 on {THM1_LAYER} (rank {rank}): mu {mu:g}: ||W0 - W_mu||_F = "
+            f"{diff:.4e} <= bound {bnd:.4e} {'ok' if diff <= bnd else 'VIOLATED'}")
+        if not diff <= bnd:
+            raise Failure(f"Theorem 1 violated at mu {mu}: {diff} > {bnd}")
+    out["rsvd"] = {}
+    for path, lin in lins.items():
+        if not path.startswith("blocks/0/"):
+            continue
+        w = lin.w.detach().T.float()
+        r_f = rf[path].float()
+        rank = rank_for_ratio(w.shape[1], w.shape[0], 0.6)
+        wr64 = w.double() @ r_f.double().T
+        s64 = coala_lib.svdvals(wr64)
+        row = {"optimum": torch.sqrt(torch.sum(s64[rank:] ** 2)).item(),
+               "fp32_floor": 2.0 ** -23 * s64[0].item() * min(w.shape) ** 0.5}
+        for label, use_rsvd in (("full", False), ("rsvd", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = coala_lib.coala_factors(w, r_factor=r_f, rank=rank,
+                                          use_rsvd=use_rsvd)
+            torch.cuda.synchronize()
+            row[f"{label}_s"] = time.perf_counter() - t0
+            row[f"{label}_err"] = torch.linalg.norm((w - res.w_approx) @ r_f.T).item()
+        out["rsvd"][path] = row
+        log(f"  {path} ({w.shape[0]}x{w.shape[1]}, rank {rank}): full SVD "
+            f"{row['full_s']:.3f} s, rsvd {row['rsvd_s']:.3f} s; weighted error: optimum "
+            f"(fp64) {row['optimum']:.4f}, full {row['full_err']:.4f}, rsvd "
+            f"{row['rsvd_err']:.4f} (fp32 floor {row['fp32_floor']:.4f})")
+        if not row["full_err"] <= SVD_SLACK * row["optimum"] + row["fp32_floor"]:
+            raise Failure(f"{path}: the full SVD's weighted error {row['full_err']} misses "
+                          f"the optimum {row['optimum']}")
+    tot = {k: sum(r[k] for r in out["rsvd"].values()) for k in ("full_s", "rsvd_s")}
+    log(f"  block 0's seven linears: full SVD {tot['full_s']:.2f} s, rsvd "
+        f"{tot['rsvd_s']:.2f} s")
+    return out
+
+
+def compression_core_path(torch, ops, coala):
+    """Phase 10: 10a, 10b and 10c in one launch-count window."""
+    log("  [10a adaptive ranks] compress_model(CompressConfig(method='coala', ratio="
+        f"{ADAPTIVE_RATIO}, mu=0.0, adaptive_rank=True)) on phase 5's model and "
+        "calibrator, then phase 4's trace through graphs and eagerly")
+    adaptive, shapes, ranks = adaptive_path(torch, ops, coala)
+    log(f"  [10b adapters] {', '.join(ADAPTER_METHODS)} at rank {ADAPTER_RANK} on block "
+        f"0, {ADAPTER_STEPS} adapter-only steps each")
+    adapters = adapters_path(torch, ops, coala)
+    log("  [10c Theorem 1 and rsvd]")
+    thm = theory_rsvd_path(torch, coala)
+    return {"adaptive": adaptive, "adapters": adapters, "theory_rsvd": thm}, shapes, ranks
+
+
+# ---------------------------------------------------------------------------
 # phase 7: each kernel against its plain version, at the paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -1755,6 +2194,54 @@ def check_lowrank(torch, ops, ref, dev, gen, shapes, flush, proj=None,
                                               "bound_by")})
     res["prefill"] = [layer[m] for m in rows if m != m_dec]
     return res
+
+
+def check_lowrank_grad(torch, ops, ref, dev, gen, flush, proj):
+    """lowrank_linear under autograd at ``GRAD_ROWS`` rows on ``proj`` (name ->
+    (d_in, r, d_out)): x, b_t and a_t gradients of the kernel's Function (dx
+    one more launch of the kernel) against autograd through the plain
+    version, fp32 and bf16; in fp32 the forward + backward time on the card
+    (``device_ms``) beside the plain version's, ``multi_dot``'s under
+    autograd, and the bound: inputs x, b_t, a_t, dy read once, y, dx, db_t,
+    da_t written once; 6·M·r·(d_in + d_out) operations (the forward's two
+    products, dx's two, da_t's and db_t's). The wall time of each (``timed``:
+    autograd's host work, which the card waits for at these sizes) is kept
+    apart as ``*wall_ms``."""
+    m = GRAD_ROWS
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, (d_in, r, d_out) in proj.items():
+            x = torch.randn((m, d_in), generator=gen, device=dev).to(dt)
+            bt = (torch.randn((d_in, r), generator=gen, device=dev) / d_in ** 0.5).to(dt)
+            at = (torch.randn((r, d_out), generator=gen, device=dev) / r ** 0.5).to(dt)
+            dy = torch.randn((m, d_out), generator=gen, device=dev).to(dt)
+            leaves = [t.requires_grad_() for t in (x, bt, at)]
+
+            def fwd_bwd(fn):
+                return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+            got, want = fwd_bwd(ops.lowrank_linear), fwd_bwd(ref)
+            err = max(compare(f"lowrank_linear backward {dtype} M={m} {name} "
+                              f"({d_in}x{r}x{d_out}) d{what}", g, w, TOL[dtype])
+                      for what, g, w in zip(("x", "b_t", "a_t"), got, want))
+            if dtype != "float32":
+                continue
+            nbytes = 4 * (2 * m * d_in + 2 * d_in * r + 2 * r * d_out + 2 * m * d_out)
+            b_ms, b_by = bound(nbytes, 6 * m * r * (d_in + d_out), dtype)
+            row = {"shape": [m, d_in, r, d_out], "max_abs_err": err, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            for key, fn in (("", ops.lowrank_linear), ("plain_", ref),
+                            ("library_", lambda *a: torch.linalg.multi_dot(list(a)))):
+                row[f"{key}ms"] = device_ms(torch, lambda: fwd_bwd(fn), flush)
+                row[f"{key}wall_ms"] = timed(torch, lambda: fwd_bwd(fn), flush)
+            rows[name] = row
+            log(f"    M={m} {name} forward + backward, on the card: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, multi_dot "
+                f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); wall: kernel "
+                f"{row['wall_ms']:.4f} ms, plain {row['plain_wall_ms']:.4f} ms, "
+                f"multi_dot {row['library_wall_ms']:.4f} ms")
+    return rows
 
 
 def _pages(torch, dev, gen, rows_tokens, bs, hkv, hd, dt, pad_rows=(), extra=4):
@@ -2244,12 +2731,7 @@ def profile_decode(torch, res, steps: int) -> None:
         if eng.post_warmup_compiles():
             raise Failure(f"profile {name}: a decode step captured a graph")
         eng.release_graphs()
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) is not None
-                  and str(e.device_type).endswith("CUDA")]
-        attr = ("self_device_time_total"
-                if events and hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
+        events, attr = _cuda_events(prof)
         busy = sum(getattr(e, attr) for e in events) / 1e3 / steps
         how = "graphs" if graphs else "eager"
         log(f"  profile {name} ({how}): {wall:.3f} ms per decode step (wall, profiler "
@@ -2296,9 +2778,12 @@ def run(args) -> int:
     reference_check(torch, dev)
     reference_loss_grams(torch, dev)
     reference_spec(torch, dev)
+    reference_adapter_step(torch, dev)
     log(f"[3 reference] {', '.join(FAMILIES)} SMOKE: kernels on the card vs plain "
         "versions on the CPU, graphs on the card vs the eager engine on the CPU")
     reference_families(torch, dev)
+
+    backward = {}           # lowrank_linear's backward launches by path window
 
     def path_window(name, kernels, fn):
         """Run one path with the launch counts zeroed just before and read
@@ -2309,8 +2794,10 @@ def run(args) -> int:
         t0 = time.perf_counter()
         out = fn()
         counts = ops.launch_counts()
+        backward[name] = ops.backward_launch_counts()["lowrank_linear"]
         peak = max([torch.cuda.max_memory_allocated() / 1e9] + STEP_PEAKS)
-        log(f"  launches on the {name} path: {counts}; peak memory {peak:.2f} GB; "
+        log(f"  launches on the {name} path: {counts} (of lowrank_linear's, "
+            f"{backward[name]} by its backward); peak memory {peak:.2f} GB; "
             f"{time.perf_counter() - t0:.1f} s")
         missing = [k for k in kernels if counts[k] <= 0]
         if missing:
@@ -2379,6 +2866,17 @@ def run(args) -> int:
         "gram", ("gram_accum", "flash_attention"), lambda: gram_path(torch, ops, coala))
     gram["peak_memory_gb"] = peak
     log(f"  kernel shapes noted on the gram path: {gram_shapes}")
+
+    log("[10 compression core] adaptive ranks, Table 4's adapters and Theorem 1 on "
+        "phase 5's trained model and calibrator")
+    (core, adaptive_shapes, adaptive_ranks), core_counts, peak = path_window(
+        "compression-core", ("lowrank_linear", "paged_attention", "chunked_prefill",
+                             "flash_attention"),
+        lambda: compression_core_path(torch, ops, coala))
+    core["peak_memory_gb"] = peak
+    if backward["compression-core"] <= 0:
+        raise Failure("no backward launch of lowrank_linear on the compression-core path")
+    log(f"  kernel shapes noted on the adaptive serve run: {adaptive_shapes}")
     del coala
     torch.cuda.empty_cache()
 
@@ -2394,7 +2892,8 @@ def run(args) -> int:
 
     log("[9 deepseek path] python -m repro_torch.launch.compress " + " ".join(DEEPSEEK_ARGS)
         + f" --method coala, then --method svd_llm, on deepseek_moe_16b at full width, "
-        f"depth cut to {DEEPSEEK_LAYERS} of 28 layers (the dense-FFN layer and 3 MoE "
+        f"depth cut to {DEEPSEEK_LAYERS} of 28 layers (the dense-FFN layer and "
+        f"{DEEPSEEK_LAYERS - 1} MoE "
         "layers); then the COALA model serves phase 4's trace")
     moe, moe_counts, peak = path_window(
         "deepseek", ("lowrank_linear", "paged_attention", "chunked_prefill",
@@ -2445,10 +2944,38 @@ def run(args) -> int:
     mla_kernels = {"lowrank_linear": check_lowrank(
         torch, ops, lowrank_linear_ref, dev, gen, mla_shapes, flush,
         proj=mla_proj, model="deepseek_v2_lite_16b", extra_rows=(8,))}
+    log("[7 kernels] lowrank_linear at phase 10's adaptive ranks (block 0) and under "
+        f"autograd at M {GRAD_ROWS}: rank {ADAPTER_RANK} on the seven projections, and "
+        "one odd adaptive rank")
+    adaptive_proj = {}
+    for path, r in adaptive_ranks.items():
+        if path.startswith("blocks/0/"):
+            name = path.rsplit("/", 1)[1]
+            d_in, _, d_out = LOWRANK_SHAPES[name]
+            adaptive_proj[name] = (d_in, r, d_out)
+    adaptive_kernels = check_lowrank(torch, ops, lowrank_linear_ref, dev, gen,
+                                     adaptive_shapes, flush, proj=adaptive_proj,
+                                     model="llama3_1b adaptive")
+    grad_proj = {name: (d_in, ADAPTER_RANK, d_out)
+                 for name, (d_in, _, d_out) in LOWRANK_SHAPES.items()}
+    odd = sorted(adaptive_proj.items(), key=lambda kv: (kv[1][1] % 2 == 0, kv[0]))[0]
+    grad_proj[f"{odd[0]} adaptive"] = odd[1]
+    grads = check_lowrank_grad(torch, ops, lowrank_linear_ref, dev, gen, flush, grad_proj)
+    layer_bwd = {k: sum(row[k] for n, row in grads.items() if n in LOWRANK_SHAPES)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "wall_ms",
+                           "plain_wall_ms", "library_wall_ms")}
+    layer_bwd.update(max_abs_err=max(row["max_abs_err"] for row in grads.values()),
+                     bound_by=grads["down"]["bound_by"], m=GRAD_ROWS, r=ADAPTER_RANK)
+    log(f"  lowrank_linear forward + backward, one llama3_1b layer's adapters (M "
+        f"{GRAD_ROWS}, r {ADAPTER_RANK}), on the card: kernel {layer_bwd['ms']:.4f} ms, "
+        f"plain {layer_bwd['plain_ms']:.4f} ms, multi_dot {layer_bwd['library_ms']:.4f} "
+        f"ms, bound {layer_bwd['bound_ms']:.4f} ms; wall: kernel "
+        f"{layer_bwd['wall_ms']:.4f} ms, plain {layer_bwd['plain_wall_ms']:.4f} ms, "
+        f"multi_dot {layer_bwd['library_wall_ms']:.4f} ms")
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[10 profile] {args.profile} decode steps per model")
+        log(f"[11 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
         del res
@@ -2460,7 +2987,8 @@ def run(args) -> int:
                 "gram_accum": "src/repro/kernels/gram_accum.py:37"}
     by_phase = {"serve": serve_counts, "serve_spec": spec_counts,
                 "serve_dtypes": dtype_counts, "serve_recalib": recalib_counts,
-                "compress": comp_counts, "gram": gram_counts, "gemma2": gemma_counts,
+                "compress": comp_counts, "gram": gram_counts,
+                "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
@@ -2471,11 +2999,20 @@ def run(args) -> int:
                 "library_ms": results[k]["library_ms"],
                 "launches_by_phase": {p: c[k] for p, c in by_phase.items()}}
                for k in replaces]
+    # lowrank_linear's backward (dx): its launches, of those above, and its
+    # forward + backward time on one layer's adapters (phase 7)
+    lowrank = next(k for k in kernels if k["name"] == "lowrank_linear")
+    lowrank.update(launches_backward=sum(backward.values()),
+                   launches_backward_by_phase=dict(backward), backward=layer_bwd)
     log(json.dumps({"main_path": {"serve": serve, "serve_spec": spec,
                                   "serve_dtypes": dtypes, "serve_recalib": recalib,
                                   "compress": comp, "gram": gram, "gemma2": gemma,
-                                  "deepseek": moe, "deepseek_v2_mla": mla},
+                                  "deepseek": moe, "deepseek_v2_mla": mla,
+                                  "compression_core": core},
                     "launches": by_phase,
+                    "lowrank_backward_launches": backward,
+                    "lowrank_adaptive": adaptive_kernels,
+                    "lowrank_backward": grads,
                     "gemma2_kernels": gemma_kernels,
                     "mla_kernels": mla_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],

@@ -140,3 +140,4 @@ class CompressConfig:
     use_rsvd: bool = False            # beyond-paper randomized SVD path
     rsvd_oversample: int = 8
     rsvd_power_iters: int = 2
+    adaptive_rank: bool = False       # water-filling per-layer ranks (beyond-paper)

@@ -4,7 +4,7 @@ The JAX tree is nested dicts (and the ``prefix`` list of unrolled layers)
 of numpy arrays — the caller maps ``np.asarray`` over the JAX params — with
 a leading ``n_rep`` axis stacked on every ``blocks`` leaf
 (``models/transformer.py:240`` of the JAX package). Linear leaves are dense
-``{"w"}`` or factored ``{"b_t", "a_t"}``; an MoE expert bank is a bare
+``{"w"}``, factored ``{"b_t", "a_t"}`` or, with an adapter, all three; an MoE expert bank is a bare
 (E, d_in, d_out) array or, factored per expert, the tuple ``(b_t, a_t)``;
 olmo's norms are empty dicts. The port's ``state_dict`` names are the same
 paths with ``/`` replaced by ``.``, the ``n_rep`` axis unstacked into
@@ -72,7 +72,10 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda",
     for name, mod in model.named_modules():
         if isinstance(mod, (Linear, ExpertBank)):
             owners.add(name)
-            if f"{name}.b_t" in flat:
+            if f"{name}.b_t" in flat and f"{name}.w" in flat:   # adapter
+                mod.set_adapter(take(f"{name}.w"), take(f"{name}.b_t"),
+                                take(f"{name}.a_t"))
+            elif f"{name}.b_t" in flat:
                 mod.set_factors(take(f"{name}.b_t"), take(f"{name}.a_t"))
             else:
                 mod.set_dense(take(f"{name}.w" if isinstance(mod, Linear)

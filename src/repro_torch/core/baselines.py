@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.coala import svd
+
 
 def _svd(m: torch.Tensor):
     """Reduced SVD. Where ``m`` holds a non-finite value, ``jnp.linalg.svd``
@@ -25,7 +27,7 @@ def _svd(m: torch.Tensor):
     returns the NaN factors, so a failed Cholesky propagates as in the
     reference."""
     if bool(torch.isfinite(m).all()):
-        return torch.linalg.svd(m, full_matrices=False)
+        return svd(m)
     k = min(m.shape)
     nan = dict(fill_value=float("nan"), dtype=m.dtype, device=m.device)
     return (torch.full((m.shape[0], k), **nan), torch.full((k,), **nan),
@@ -87,8 +89,14 @@ def plain_svd(w: torch.Tensor, rank: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def corda(w: torch.Tensor, x: torch.Tensor, rank: int
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CorDA (Remark 1): W' = U_r Σ_r V_rᵀ (XXᵀ)^{-1} from the SVD of W·XXᵀ."""
+    """CorDA (Remark 1): W' = U_r Σ_r V_rᵀ (XXᵀ)^{-1} from the SVD of W·XXᵀ.
+
+    ``jnp.linalg.solve`` returns non-finite values for an exactly singular
+    Gram; ``torch.linalg.solve`` raises, so the port solves with
+    ``solve_ex`` and returns NaN where ``info`` is non-zero (kept on
+    purpose: the failure is the paper's point)."""
     gram = x @ x.T
     u, s, vt = _svd_trunc(w @ gram, rank)
-    b = torch.linalg.solve(gram.T, (s[:, None] * vt).T).T
+    sol, info = torch.linalg.solve_ex(gram.T, (s[:, None] * vt).T)
+    b = torch.where(info == 0, sol, float("nan")).T
     return u, b

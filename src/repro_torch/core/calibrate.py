@@ -64,7 +64,7 @@ class Calibrator:
         layer's per-expert inputs and hidden states, while active."""
         handles = []
         for path, mod in linear_paths(model):
-            if mod.is_factored:
+            if not mod.has_dense:      # the reference captures {"w", ...}
                 continue
             handles.append(mod.register_forward_pre_hook(
                 lambda _mod, args, path=path: self.record(path, args[0])))

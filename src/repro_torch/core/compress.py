@@ -17,7 +17,9 @@ limited-data regime, where μ carries the solve: a routed expert sees few
 tokens, so its R is rank-deficient. An expert no calibration token reached
 keeps the plain-SVD (Eckart–Young–Mirsky) factors and a NaN report. As in
 the reference, a per-expert report records ``mu=0.0`` whatever μ its solve
-used. Adaptive ranks wait for a later slice.
+used. With ``ccfg.adaptive_rank`` the ranks of the dense linears come from
+``core/rank_alloc.py``'s water-filling over σ²(W Rᵀ) (expert banks keep the
+ratio's rank, as in the reference).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.config import CompressConfig
 from repro_torch.core import baselines as bl
 from repro_torch.core import coala as coala_lib
 from repro_torch.core.calibrate import block_modules
+from repro_torch.core.rank_alloc import adaptive_rank_map
 from repro_torch.core.theory import optimal_weighted_error
 from repro_torch.models.ffn import MoE
 from repro_torch.models.linear import Linear, rank_for_ratio
@@ -141,6 +144,18 @@ def _compress_experts(moe: MoE, p: str, r_factors, ccfg: CompressConfig,
 
 
 @torch.no_grad()
+def adaptive_ranks(model, r_factors, ratio: float) -> Dict[str, int]:
+    """``adaptive_rank_map`` over the weights the reference's branch of
+    ``compress_model`` collects (``repro/core/compress.py:222-243``): every
+    linear holding ``w`` that has an R factor and is compressible; MoE expert
+    banks stay out (they are not 2-D ``w`` leaves there either)."""
+    weights = {p: lin.w for p, lin in block_modules(model, Linear)
+               if lin.has_dense and p in r_factors
+               and compressible(tuple(p.split("/")) + ("w",), lin.w.shape)}
+    return adaptive_rank_map(weights, r_factors, ratio)
+
+
+@torch.no_grad()
 def compress_model(model, calibrator, ccfg: CompressConfig, *,
                    rank_map: Optional[Dict[str, int]] = None):
     """Calibrator R factors -> (compressed copy of ``model``, reports).
@@ -149,8 +164,12 @@ def compress_model(model, calibrator, ccfg: CompressConfig, *,
     stack is compressed from its own activations, as in the paper.
     ``rank_map`` (full path -> rank) overrides ``ccfg.ratio`` and
     ``ccfg.rank`` for the paths it names (not for expert banks, whose ranks
-    always come from ``ccfg``)."""
+    always come from ``ccfg``), and ``ccfg.adaptive_rank`` too. A linear
+    that holds ``w`` beside an adapter is compressed from its ``w`` and
+    loses the adapter, as in the reference's walk."""
     r_factors = calibrator.r_factors()
+    if rank_map is None and ccfg.adaptive_rank:
+        rank_map = adaptive_ranks(model, r_factors, ccfg.ratio)
     new_model = copy.deepcopy(model)
     reports: List[LayerReport] = []
     # the reference walk's order: prefix layers, then the reps; in a block
@@ -161,7 +180,7 @@ def compress_model(model, calibrator, ccfg: CompressConfig, *,
                 _compress_experts(mod, p, r_factors, ccfg, reports)
             continue
         lin = mod
-        if lin.is_factored or p not in r_factors:
+        if not lin.has_dense or p not in r_factors:
             continue
         w = lin.w
         if not compressible(tuple(p.split("/")) + ("w",), w.shape):

@@ -1,15 +1,18 @@
 """TSQR: R factors of calibration matrices that never fit in memory (port of
-``repro/core/tsqr.py:30-120``).
+``repro/core/tsqr.py``).
 
 Only the R factor of the QR of ``Xᵀ`` (rows = tokens) is needed downstream
 (the paper's Prop. 2). ``RStreamer`` folds activation chunks into a running
-R with the ``[R; chunk] -> QR`` recurrence, so X is never formed. R is
-returned with a non-negative diagonal so it is unique and comparable.
-The distributed butterfly (``distributed_tsqr_r``) waits with ``dist``.
+R with the ``[R; chunk] -> QR`` recurrence (``tsqr_sequential``), so X is
+never formed; ``tsqr_tree`` combines chunk Rs pairwise (the paper's
+multi-GPU tree). R is returned with a non-negative diagonal so it is unique
+and comparable. ``gram_chunked`` is the Gram path the paper compares
+against. The distributed butterfly (``distributed_tsqr_r``) waits with
+``dist``.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Sequence
 
 import torch
 
@@ -42,6 +45,17 @@ def tsqr_sequential(chunks: Iterable[torch.Tensor]) -> torch.Tensor:
     if r is None:
         raise ValueError("tsqr_sequential: no chunks")
     return r
+
+
+def tsqr_tree(chunks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Binary-tree TSQR (paper Fig. in §4.2): pairwise combine until one R."""
+    rs = [qr_r(c) for c in chunks]
+    while len(rs) > 1:
+        nxt = [stack_qr(rs[i], rs[i + 1]) for i in range(0, len(rs) - 1, 2)]
+        if len(rs) % 2 == 1:
+            nxt.append(rs[-1])
+        rs = nxt
+    return rs[0]
 
 
 class RStreamer:
@@ -91,3 +105,15 @@ def augment_r_with_mu(r: torch.Tensor, mu: float) -> torch.Tensor:
     eye = torch.sqrt(torch.tensor(mu, dtype=r.dtype)).item() * torch.eye(
         n, dtype=r.dtype, device=r.device)
     return stack_qr(square_r(r), eye)
+
+
+def gram_chunked(chunks: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Baseline Gram accumulation  XXᵀ = Σ XᵢXᵢᵀ  (the numerically risky path
+    the paper compares against). Each chunk is (tokens, n) rows of Xᵀ."""
+    g: Optional[torch.Tensor] = None
+    for c in chunks:
+        contrib = c.T @ c
+        g = contrib if g is None else g + contrib
+    if g is None:
+        raise ValueError("gram_chunked: no chunks")
+    return g

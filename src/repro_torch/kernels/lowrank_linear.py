@@ -1,8 +1,24 @@
 """Low-rank linear y = (x @ b_t) @ a_t: wrapper of ``csrc/lowrank_linear.cu``.
 
 Port of ``repro/kernels/lowrank_linear.py``. A CPU tensor runs the plain
-version (``ref.lowrank_linear_ref``); a CUDA tensor launches the CUDA kernel
-(two GEMMs, the intermediate cast to x's dtype in between) or raises.
+version (``ref.lowrank_linear_ref``, which autograd differentiates); a CUDA
+tensor launches the CUDA kernel (two GEMMs, the intermediate cast to x's
+dtype in between) or raises.
+
+Under autograd a CUDA call goes through ``LowRankLinear``, an
+``autograd.Function`` (adapter fine-tuning trains ``b_t``/``a_t``). With
+t = x·b_t (cast to x's dtype) and u = dy·a_tᵀ (cast likewise):
+
+    dx = u·b_tᵀ = (dy·a_tᵀ)·b_tᵀ      — itself a low-rank product: one more
+                                        launch of the kernel, on a_tᵀ, b_tᵀ
+    da_t = tᵀ·dy,  db_t = xᵀ·u        — plain products, as the JAX package's
+                                        autodiff forms them outside Pallas
+
+The forward keeps t, copied out of the call's scratch (M·r elements, the
+value the kernel really used; recomputing it would cost an M·d_in·r
+product), and the dx launch hands back its own intermediate u for db_t, so
+the backward computes no product twice. Where x needs no gradient, u comes
+from one plain product and the kernel is not launched.
 
 The launch plan lives here, in Python, so that the CPU tests reach it: which
 kernel each of the two products takes (``decode`` for M <= 16 rows, a
@@ -24,6 +40,7 @@ from repro_torch.kernels.ref import lowrank_linear_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # calls that launched the CUDA kernel
+backward_launches = 0  # of those, the launches made by a backward (dx)
 
 SMALL_M = 16          # rows up to which a product takes the decode kernel
 _BIG = 1 << 30
@@ -182,14 +199,46 @@ def lowrank_linear(x, b_t, a_t):
         return lowrank_linear_ref(x, b_t, a_t)
     if x.device.type != "cuda":
         raise ValueError(f"lowrank_linear: unsupported device {x.device}")
-    return _launch(x, b_t, a_t)
-
-
-def _launch(x, b_t, a_t):
-    global launches
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, b_t, a_t)):
-        raise RuntimeError("lowrank_linear's CUDA kernel has no backward: call "
-                           "it under torch.no_grad()")
+        return LowRankLinear.apply(x, b_t, a_t)
+    return _launch(x, b_t, a_t)[0]
+
+
+class LowRankLinear(torch.autograd.Function):
+    """The CUDA kernel under autograd; the backward's dx is one more launch."""
+
+    @staticmethod
+    def forward(ctx, x, b_t, a_t):
+        y, t = _launch(x, b_t, a_t, keep_t=ctx.needs_input_grad[2])
+        ctx.save_for_backward(x, b_t, a_t, t)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        global backward_launches
+        x, b_t, a_t, t = ctx.saved_tensors
+        need_x, need_b, need_a = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dym = dy.reshape(-1, dy.shape[-1])
+        dx = db_t = da_t = None
+        u = None
+        if need_x:
+            dx, u = _launch(dy, a_t.T.contiguous(), b_t.T.contiguous(),
+                            keep_t=need_b)
+            backward_launches += 1
+        if need_b:
+            if u is None:
+                u = dym @ a_t.T
+            db_t = x.reshape(-1, b_t.shape[0]).T @ u
+        if need_a:
+            da_t = t.T @ dym
+        return dx, db_t, da_t
+
+
+def _launch(x, b_t, a_t, *, keep_t: bool = False):
+    """Launch the kernel; returns (y, a copy of the intermediate t = x·b_t
+    in x's dtype, (M, r), when ``keep_t``, else None)."""
+    global launches
     if b_t.ndim != 2 or a_t.ndim != 2:
         raise ValueError("lowrank_linear: b_t and a_t must be 2-D")
     d_in, r = b_t.shape
@@ -224,4 +273,5 @@ def _launch(x, b_t, a_t):
             DTYPES[x.dtype], stream)
     _build.check(err, "lowrank_linear")
     launches += 1
-    return y.view(*x.shape[:-1], d_out)
+    kept = t[:m * r].view(m, r).clone() if keep_t else None   # t_n rounds up
+    return y.view(*x.shape[:-1], d_out), kept

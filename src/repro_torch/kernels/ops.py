@@ -54,6 +54,13 @@ def reset_launch_counts() -> None:
     for name, mod in _MODULES.items():
         mod.launches = 0
         _replayed[name] = 0
+    _ll.backward_launches = 0
+
+
+def backward_launch_counts() -> Dict[str, int]:
+    """Of the eager launches, those made by a backward (only lowrank_linear
+    has one: its dx)."""
+    return {"lowrank_linear": _ll.backward_launches}
 
 
 @contextlib.contextmanager

@@ -1,14 +1,16 @@
 """Dense ⟷ low-rank factored linear layers (port of ``repro/models/linear.py``).
 
-COALA's output is a pair (A, B) with W' = A·B. A ``Linear`` holds either the
-dense ``w`` (d_in, d_out) or the factored ``b_t = Bᵀ`` (d_in, r) and
-``a_t = Aᵀ`` (r, d_out), so a compressed model differs from a dense one only
-in which parameters its projections hold:
+COALA's output is a pair (A, B) with W' = A·B. A ``Linear`` holds the dense
+``w`` (d_in, d_out), the factored ``b_t = Bᵀ`` (d_in, r) and ``a_t = Aᵀ``
+(r, d_out), or all three — a dense residual plus a trainable low-rank
+adapter (``core/adapters.py``), whose outputs it sums as the reference's
+``linear_apply`` does. So a compressed or adapted model differs from a dense
+one only in which parameters its projections hold:
 
     y = x @ W' = x @ (A B)ᵀ = (x @ Bᵀ) @ Aᵀ
 
-The factored path goes through ``kernels.ops.lowrank_linear`` (the CUDA
-kernel on a CUDA tensor). Calibration capture attaches a forward pre-hook
+The factored product goes through ``kernels.ops.lowrank_linear`` (the CUDA
+kernel on a CUDA tensor, under autograd too). Calibration capture attaches a forward pre-hook
 (``core/calibrate.py``) in place of the JAX package's ``CaptureDict``.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ from repro_torch.kernels import ops
 
 
 class Linear(torch.nn.Module):
-    """One projection: dense ``w`` or factored ``b_t``/``a_t`` parameters."""
+    """One projection: dense ``w``, factored ``b_t``/``a_t``, or both."""
 
     def __init__(self, d_in: int, d_out: int, *, device=None,
                  dtype=torch.float32):
@@ -29,7 +31,15 @@ class Linear(torch.nn.Module):
 
     @property
     def is_factored(self) -> bool:
+        """Holds ``b_t``/``a_t`` (with or without ``w``), as the reference's
+        ``is_factored``."""
         return "b_t" in self._parameters
+
+    @property
+    def has_dense(self) -> bool:
+        """Holds ``w`` (alone or beside an adapter): the reference's walks
+        that compress or capture a linear ask for ``"w" in node``."""
+        return "w" in self._parameters
 
     def set_dense(self, w: torch.Tensor) -> None:
         for name in ("b_t", "a_t"):
@@ -41,19 +51,29 @@ class Linear(torch.nn.Module):
         self.b_t = torch.nn.Parameter(b_t.contiguous())
         self.a_t = torch.nn.Parameter(a_t.contiguous())
 
+    def set_adapter(self, w: torch.Tensor, b_t: torch.Tensor,
+                    a_t: torch.Tensor) -> None:
+        """Hold the dense residual ``w`` and the adapter ``b_t``/``a_t``."""
+        self.set_factors(b_t, a_t)
+        self.w = torch.nn.Parameter(w)
+
     def forward(self, x):
-        if self.is_factored:
-            return ops.lowrank_linear(x.contiguous(), self.b_t.to(x.dtype),
-                                      self.a_t.to(x.dtype))
-        return x @ self.w.to(x.dtype)
+        if not self.is_factored:
+            return x @ self.w.to(x.dtype)
+        lr = ops.lowrank_linear(x.contiguous(), self.b_t.to(x.dtype),
+                                self.a_t.to(x.dtype))
+        if not self.has_dense:
+            return lr
+        return x @ self.w.to(x.dtype) + lr
 
 
 def linear_weight_matrix(lin: Linear) -> torch.Tensor:
     """The (d_out, d_in) matrix view W_mat for compression (COALA's W),
-    detached from autograd."""
-    if lin.is_factored:
-        return (lin.b_t @ lin.a_t).T.detach()
-    return lin.w.T.detach()
+    detached from autograd: ``w`` where the linear holds one (an adapter is
+    left out, as in the reference), else ``(b_t a_t)ᵀ``."""
+    if lin.has_dense:
+        return lin.w.T.detach()
+    return (lin.b_t @ lin.a_t).T.detach()
 
 
 def rank_for_ratio(d_in: int, d_out: int, ratio: float) -> int:

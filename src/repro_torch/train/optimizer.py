@@ -46,6 +46,12 @@ def lr_at(tcfg: TrainConfig, step) -> float:
     raise ValueError(f"unknown schedule {tcfg.schedule}")
 
 
+def reference_ndim(name: str, p: torch.Tensor) -> int:
+    """ndim of parameter ``name`` in the JAX tree, which stacks every block
+    leaf over ``n_rep``: the port's ndim + 1 under ``blocks.``."""
+    return p.ndim + 1 if name.startswith("blocks.") else p.ndim
+
+
 def adamw_init(params: Dict[str, torch.Tensor]) -> dict:
     """fp32 first and second moments per parameter, and the step count."""
     def zeros():
@@ -58,8 +64,10 @@ def adamw_init(params: Dict[str, torch.Tensor]) -> dict:
 def adamw_update(tcfg: TrainConfig, params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], opt_state: dict):
     """One AdamW step at lr_at(step - 1), decoupled weight decay on tensors
-    with ndim >= 2, all fp32 math. Updates ``params`` and the moments in
-    place; returns (params, opt_state, lr)."""
+    with ndim >= 2 in the reference's tree (``reference_ndim``: so also the
+    block norm scales, which the reference stacks to (n_rep, d)), all fp32
+    math. ``params`` are keyed by the model's parameter names. Updates
+    ``params`` and the moments in place; returns (params, opt_state, lr)."""
     step = opt_state["step"] + 1
     lr = lr_at(tcfg, step - 1)
     b1, b2, eps = tcfg.b1, tcfg.b2, tcfg.eps
@@ -71,7 +79,7 @@ def adamw_update(tcfg: TrainConfig, params: Dict[str, torch.Tensor],
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if p.ndim >= 2:
+        if reference_ndim(k, p) >= 2:
             delta.add_(p.float(), alpha=tcfg.weight_decay)
         p.copy_((p.float() - lr * delta).to(p.dtype))
     opt_state["step"] = step

@@ -1,6 +1,7 @@
 """Training step of the port: CE loss, microbatch gradient accumulation,
 global-norm clipping, AdamW (port of ``repro/train/train_loop.py:32-80`` and
-``:154-175``, single device).
+``:154-175``, single device), and the adapter-only fine-tuning step of the
+reference's Table 4 (``examples/finetune_adapters.py:65-72``).
 
 The state is ``{"model": LM, "opt": adamw state}``; the model holds the fp32
 master parameters and the step updates them in place. The activations run
@@ -66,3 +67,36 @@ def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
                            "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def make_adapter_step(model, tcfg: TrainConfig, mask, ctx: ParallelCtx = CPU_CTX):
+    """Returns ``adapter_step(opt, tokens) -> (loss, grads of the trainable
+    leaves)``: the reference's adapter-only fine-tuning step — the fp32 loss,
+    every leaf's gradient with the frozen ones zeroed (the reference's
+    ``mask_grads``), then AdamW over every leaf, no clipping. So a frozen
+    ``w`` still decays by lr · wd · w when ``weight_decay > 0``, as in the
+    reference.
+
+    The frozen leaves are marked ``requires_grad=False`` on ``model``, so
+    autograd forms none of their gradients (no dense ``w`` gradient
+    products); AdamW is handed zeros for them. On the card the adapters' products run through the ``lowrank_linear``
+    kernel, forward and backward. ``opt`` is ``adamw_init`` of the model's
+    parameters, updated in place."""
+    params = dict(model.named_parameters())
+    for k, p in params.items():
+        p.requires_grad_(bool(mask[k]))
+
+    def adapter_step(opt, tokens):
+        for p in params.values():
+            p.grad = None
+        loss, _ = model.loss(tokens, ctx=ctx, compute_dtype=torch.float32)
+        loss.backward()
+        grads = {k: p.grad if mask[k] else torch.zeros_like(p)
+                 for k, p in params.items()}
+        adamw_update(tcfg, params, grads, opt)
+        trained = {k: g for k, g in grads.items() if mask[k]}
+        for p in params.values():
+            p.grad = None
+        return loss.detach(), trained
+
+    return adapter_step

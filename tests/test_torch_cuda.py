@@ -844,3 +844,76 @@ def test_lowrank_linear_cuda_gemma2_down(cuda, dtype, tol):
     if dtype == torch.float32:
         assert p1.splits == 72
     _close(ll.lowrank_linear(x, bt, at), lowrank_linear_ref(x, bt, at), tol)
+
+
+# ---------------------------------------------------------------------------
+# lowrank_linear under autograd (adapter fine-tuning): dx is one more launch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,d_in,r,d_out", [(512, 2048, 8, 2048), (512, 8192, 8, 2048),
+                                            (512, 2048, 8, 8192), (17, 2048, 37, 512),
+                                            (300, 1000, 245, 130)])
+def test_lowrank_linear_cuda_grads(cuda, dtype, tol, m, d_in, r, d_out):
+    """Gradients of x, b_t and a_t through the kernel's autograd Function
+    against autograd through the plain version on the card, at llama3_1b's
+    adapter rank 8 (rows of 8 floats: the kernels' scalar load paths) and
+    odd ranks; one forward and one backward launch."""
+    x0 = _randn(0, (m, d_in), cuda, dtype)
+    b0 = _randn(1, (d_in, r), cuda, dtype) / d_in ** 0.5
+    a0 = _randn(2, (r, d_out), cuda, dtype) / r ** 0.5
+    dy = _randn(3, (m, d_out), cuda, dtype)
+    grads = []
+    for fn in (ops.lowrank_linear, lowrank_linear_ref):
+        x, b, a = (t.clone().requires_grad_() for t in (x0, b0, a0))
+        ops.reset_launch_counts()
+        fn(x, b, a).backward(dy)
+        torch.cuda.synchronize()
+        grads.append((x.grad, b.grad, a.grad))
+        if fn is ops.lowrank_linear:
+            assert ops.launch_counts()["lowrank_linear"] == 2
+            assert ops.backward_launch_counts()["lowrank_linear"] == 1
+    for got, want in zip(*grads):
+        _close(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_adapter_step_cuda_matches_cpu(cuda):
+    """One adapter-only AdamW step (coala_a1, rank 8, weight decay 0.1) of
+    llama3_1b SMOKE on the card — forward and backward through the kernel —
+    against the same step on the CPU: loss, the adapters' gradients and
+    every updated leaf (1e-4 relative: the kernel's sums in another order)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.adapters import init_adapters
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_adapter_step
+
+    cfg = get_smoke_config("llama3_1b")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 32)))
+    cal = calibrate_model(model, [toks])
+    adapted, mask = init_adapters(model, cal.r_factors(), method="coala_a1", rank=8)
+    # eps 1e-3 (tests/test_torch_train.py): the first update g / (|g| + eps)
+    # is smooth in g, so gradients that differ by rounding cannot flip it
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10, schedule="const",
+                       weight_decay=0.1, eps=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(adapted).to(dev)
+        opt = adamw_init(dict(m.named_parameters()))
+        ops.reset_launch_counts()
+        loss, g = make_adapter_step(m, tcfg, mask)(opt, toks.to(dev))
+        out[str(dev)] = (float(loss), {k: v.cpu() for k, v in g.items()},
+                         {k: p.detach().cpu() for k, p in m.named_parameters()},
+                         ops.launch_counts()["lowrank_linear"],
+                         ops.backward_launch_counts()["lowrank_linear"])
+    (l0, g0, p0, *_), (l1, g1, p1, fwd, bwd) = out["cpu"], out[str(cuda)]
+    assert fwd == 14 + bwd and 0 < bwd <= 14
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    assert sorted(g1) == sorted(g0) == sorted(k for k, v in mask.items() if v)
+    for k in g0:
+        _close(g1[k], g0[k], 1e-4)
+    for k in p0:
+        _close(p1[k], p0[k], 1e-4)

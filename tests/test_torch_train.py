@@ -174,6 +174,71 @@ def test_train_step_matches_jax(jax_lm, microbatches):
     assert all(p.grad is None for p in model.parameters())
 
 
+def _with_norm_scales(jparams):
+    """The JAX parameters with non-zero norm scales, drawn with numpy (the
+    init's zeros would hide the decay of those leaves)."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, x: (x + jnp.asarray(_randn(len(x.shape) + x.size, x.shape)) * 0.1
+                         if getattr(path[-1], "key", "") == "scale" else x), jparams)
+
+
+def _steps_against_jax(jax_lm, kw, n_steps):
+    """``n_steps`` train steps of both packages from the same non-zero norm
+    scales: (losses, JAX leaves, port leaves)."""
+    jmodel, jparams, _, tokens = jax_lm
+    jparams = _with_norm_scales(jparams)
+    jstate = {"params": jparams, "opt": jopt.adamw_init(jparams)}
+    jstep = jax.jit(j_make_train_step(jmodel, JTrainConfig(**kw), JParallelCtx()))
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams), CFG, device="cpu")
+    state = make_train_state(model)
+    step = make_train_step(model, TrainConfig(**kw), CPU_CTX)
+    losses = []
+    for i in range(n_steps):
+        tok = np.roll(tokens, i, axis=1)
+        jstate, jmet = jstep(jstate, {"tokens": jnp.asarray(tok)})
+        state, met = step(state, {"tokens": torch.from_numpy(tok)})
+        losses.append((float(met["loss"]), float(jmet["loss"])))
+    want = _leaves(jax.tree.map(np.asarray, jstate["params"]))
+    got = _leaves(params_to_numpy(state["model"]))
+    got.pop("prefix", None)
+    return losses, want, got
+
+
+def test_train_steps_decay_block_norm_scales_like_jax(jax_lm):
+    """Three fp32 steps with weight decay 0.1 from non-zero norm scales: the
+    reference decays every leaf of ndim >= 2 in its tree, where the block
+    norm scales are stacked to (n_rep, d), so the port decays its (d,)
+    ``blocks.<rep>.….scale`` too (and not the top-level final norm's).
+    Every leaf within the one-step test's atol 2e-6."""
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=10, schedule="cosine",
+              compute_dtype="float32", eps=1e-3, weight_decay=0.1)
+    losses, want, got = _steps_against_jax(jax_lm, kw, 3)
+    for ours, theirs in losses:
+        np.testing.assert_allclose(ours, theirs, rtol=1e-5)
+    assert sorted(got) == sorted(k for k in want if not k.startswith("prefix"))
+    for k, g in got.items():
+        np.testing.assert_allclose(g, want[k], rtol=0, atol=2e-6, err_msg=k)
+
+
+def test_bf16_train_step_with_norm_scales_matches_jax(jax_lm):
+    """One bf16-compute step from non-zero norm scales against the JAX
+    step. The reference's ``cast_for_compute`` rounds its stacked (n_rep, d)
+    block norm scales (and MoE routers) to bf16 before the forward; the
+    port's forward reads them in fp32. This step cannot tell the two apart:
+    the leaves differ from JAX's by up to 2.2e-3 (the embedding) with the
+    rounding and without it alike, because bf16 activations already round
+    at other places in the two frameworks (ROADMAP Queue 3). Loss at rtol
+    1e-2; every updated leaf within 5e-3 of JAX's (the update is at most
+    lr 1e-2 · g / (|g| + 1e-3), and bf16 gradients differ by a few per
+    cent)."""
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=10, schedule="cosine",
+              compute_dtype="bfloat16", eps=1e-3, weight_decay=0.1)
+    losses, want, got = _steps_against_jax(jax_lm, kw, 1)
+    np.testing.assert_allclose(*losses[0], rtol=1e-2)
+    for k, g in got.items():
+        np.testing.assert_allclose(g, want[k], rtol=0, atol=5e-3, err_msg=k)
+
+
 def test_pretraining_lowers_the_loss():
     """100 steps on the synthetic stream (an effective vocab of 64, as
     tests/test_train.py:17-36) take the SMOKE model's CE well below the
