@@ -27,7 +27,14 @@ Phases, each printing its own lines:
              dense and COALA: prefill and decode logits card vs CPU (1e-3)
              over rows past gemma2's SMOKE window, and a staggered
              shared-prefix trace through the card's graphs against the CPU's
-             eager engine (identical tokens);
+             eager engine (identical tokens); qwen2_vl_2b SMOKE too, and with
+             vision prefixes on every second request of a trace that preempts
+             a vision request (card graphs vs CPU eager, identical tokens; the
+             fixed-batch ServeEngine card vs CPU); and the kernels at
+             qwen2-vl's 12 / 2 heads (G 6) and hd 128 against their plain
+             versions: flash at B 1, T 271 and 456, paged_attention over 8
+             rows and chunked_prefill over 3, fp32, bf16 and fp32 over bf16
+             pages;
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
@@ -158,7 +165,31 @@ Phases, each printing its own lines:
              projections and one odd adaptive rank (gradients vs the plain
              version's autograd; forward + backward timed on the card,
              by torch.profiler's kernel times, and on the wall clock);
-11. profile — only with ``--profile N``: wall and per-kernel device time of
+11. qwen2-vl path — qwen2_vl_2b at full width (d_model 1536, 12 / 2 heads,
+             hd 128, d_ff 8960, vocab 151936, M-RoPE (16, 24, 24), 256 vision
+             tokens), its depth cut to 4 of 28 layers, handed as ``cfg``: (a)
+             the serving launcher without ``--continuous`` (``run_fixed``: 4
+             rows of 64 tokens after their vision prefixes, 16 new tokens,
+             fp32), tokens equal to a ``ContinuousEngine.generate`` of the
+             same inputs; (b) the launcher with ``--continuous --compress-ratio
+             0.6 --warmup on --detok-async on --telemetry-port 0``, dense and
+             COALA on phase 4's trace (0 post-warmup captures), then on its
+             models phase 4's trace with a (1, 256, 1536) vision prefix on
+             every second request over a pool that preempts a vision request:
+             through graphs (warmup; 0 post-warmup captures; every request
+             finished with its budget; the per-request prefills counted; a
+             detokenizer and a stream callback: each request's text is its
+             tokens, the events in emission order; a TelemetryServer on
+             127.0.0.1 port 0 answers /metrics, /healthz, /requests and
+             /snapshot with 200 every 8 steps, /snapshot strict JSON), then
+             eagerly (identical tokens); (c) ``run_offline`` of the trace's
+             text half on a fresh graph engine: the mixed run's tokens, input
+             order, fewer batched prefills than requests. Phase 7 then also
+             holds lowrank_linear on qwen2-vl's seven projections (M 8 and
+             the per-request prefill's M), both paged kernels at phase 11's
+             decode batch and largest prefill (G 6, hd 128) and flash at B 1
+             T 456 / 271;
+12. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
              of the speculative draft served alone and of speculative
@@ -171,8 +202,9 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 7, 11. Launch counts are zeroed just
-before each of the paths 4-6, 10, 8, 9 and 9b (4b, 4c and 4d included) and
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 7, 12. Launch counts are zeroed
+just before each of the paths 4-6, 10, 8, 9, 9b and 11 (4b, 4c and 4d
+included) and
 read just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
 and lowrank_linear's backward on phase 10's (its launches counted apart too).
@@ -307,7 +339,11 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
                # dims, V zero-padded to them, scale 192^-0.5; ragged; SMOKE's 48
                ("mla B8 T256 hd192", 8, 256, 16, 16, 192, 0.0, None, True),
                ("mla ragged T200 hd192", 8, 200, 16, 16, 192, 0.0, None, False),
-               ("mla SMOKE hd48", 2, 64, 4, 4, 48, 0.0, None, False)]
+               ("mla SMOKE hd48", 2, 64, 4, 4, 48, 0.0, None, False),
+               # qwen2-vl's per-request prefill (phase 11): one row of 256
+               # vision + 200 / 15 text positions, 12 / 2 heads (G 6), hd 128
+               ("qwen2-vl B1 T456 G6 hd128", 1, 456, 12, 2, 128, 0.0, None, True),
+               ("qwen2-vl B1 T271 G6 hd128", 1, 271, 12, 2, 128, 0.0, None, False)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
@@ -476,7 +512,7 @@ def reference_check(torch, dev):
 
 # the attention-only families of this slice, held card vs CPU at SMOKE size
 FAMILIES = ("mistral_7b", "smollm_135m", "olmo_1b", "minicpm_2b", "gemma2_27b",
-            "deepseek_moe_16b", "deepseek_v2_lite_16b")
+            "deepseek_moe_16b", "deepseek_v2_lite_16b", "qwen2_vl_2b")
 FAMILY_KNOBS = dict(block_size=4, num_blocks=48, max_running=3, bucket_sizes=(1, 2, 3),
                     prefill_bucket_sizes=(16, 64))
 FAMILY_TRACE = dict(seed=2, min_prompt=20, max_prompt=60, max_new=8, arrival_every=1,
@@ -558,6 +594,123 @@ def reference_families(torch, dev):
             if not same:
                 raise Failure(f"{arch} {name}: card engine tokens differ from the CPU's")
             del m_gpu
+
+
+def reference_vlm(torch, dev):
+    """qwen2-vl SMOKE (projections x3, random norm scales), dense and
+    COALA-compressed on the CPU (calibrated with a vision prefix): a staggered
+    trace in which every second request carries a vision prefix, over a pool
+    that preempts a vision request, through the card's CUDA graphs (each
+    vision request prefilled alone, eagerly, through the flash kernel)
+    against the CPU's eager engine: identical greedy tokens, 0 post-warmup
+    captures; and the fixed-batch ServeEngine card vs CPU (identical)."""
+    import copy
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model
+    from repro_torch.models import build_model
+    from repro_torch.models.linear import Linear
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+
+    cfg = get_smoke_config("qwen2_vl_2b")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, Linear):
+                mod.w.mul_(3.0)
+        for pname, p in cpu.named_parameters():
+            if pname.endswith("scale"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    rng = np.random.RandomState(SEED)
+    vis = lambda b: torch.as_tensor(rng.standard_normal(   # noqa: E731
+        (b, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    batches = [{"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 24))),
+                "vision_embeds": vis(4)} for _ in range(2)]
+    ccpu, _ = compress_model(cpu, calibrate_model(cpu, batches),
+                             CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    trace = []
+    for i in range(6):
+        prompt = rng.randint(0, cfg.vocab_size, (rng.randint(4, 17),)).astype(np.int32)
+        trace.append((i, prompt, int(rng.randint(8, 13)),
+                      {"vision_embeds": vis(1).numpy()} if i % 2 == 0 else None))
+    knobs = dict(block_size=4, num_blocks=14, max_running=3, bucket_sizes=(1, 2, 3))
+    warm_len = max(len(p) + n + (cfg.n_vision_tokens if ex else 0)
+                   for _, p, n, ex in trace)
+    prompts = np.stack([p[:4] for _, p, _, _ in trace[:2]])
+    fixed_vis = vis(2)
+    for name, m_cpu in (("dense", cpu), ("coala", ccpu)):
+        m_gpu = copy.deepcopy(m_cpu).to(dev)
+        toks, mets = [], []
+        for m, graphs in ((m_gpu, True), (m_cpu, False)):
+            eng = ContinuousEngine(m, **knobs)
+            if graphs:
+                eng.warmup(max_len=warm_len)
+            mets.append(_serve_mixed(eng, trace))
+            toks.append({r.req_id: list(r.out_tokens) for r in eng.finished})
+            eng.release_graphs()
+        fixed = [ServeEngine(m).generate(prompts, 6, extras={"vision_embeds": fixed_vis})
+                 for m in (m_gpu, m_cpu)]
+        same = toks[0] == toks[1] and len(toks[0]) == len(trace)
+        fsame = np.array_equal(*fixed)
+        log(f"  reference qwen2_vl_2b {name} vision trace (card graphs vs CPU eager): "
+            f"greedy tokens {'identical' if same else 'DIFFER'}, {mets[0]['preemptions']} "
+            f"preemptions, {mets[0]['post_warmup_compiles']} post-warmup captures; "
+            f"ServeEngine card vs CPU {'identical' if fsame else 'DIFFER'}")
+        if not (same and fsame) or mets[0]["post_warmup_compiles"] != 0 or \
+                mets[0]["preemptions"] < 1:
+            raise Failure(f"qwen2_vl_2b {name}: card vision serving differs from the CPU's")
+        del m_gpu
+
+
+def reference_group6(torch, ops, dev):
+    """The kernels at qwen2-vl's heads (12 query heads over 2 KV heads, a
+    GQA group of 6, which no other path runs; hd 128) against their plain
+    versions: flash at one row of T 271 and 456 (the per-request prefill of
+    256 vision + 15 / 200 text positions), paged_attention over 8 rows and
+    chunked_prefill over 3 rows at nonzero starts, in fp32, bf16 and (paged
+    kernels) fp32 q over bf16 pages; each repeats its bits."""
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_ref
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    from repro_torch.kernels.ref import flash_attention_ref
+    hq, hkv, hd = VLM_HEADS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for t in (271, 456):
+            q = torch.randn((1, t, hq, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((1, t, hkv, hd), generator=gen, device=dev).to(dt)
+            v = torch.randn((1, t, hkv, hd), generator=gen, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v)
+            compare(f"reference flash_attention G6 {dtype} B1 T{t} hd{hd}", got,
+                    flash_attention_ref(q, k, v), TOL_ATTN[dtype])
+            if not torch.equal(ops.flash_attention(q, k, v), got):
+                raise Failure("flash_attention G6: two identical calls differ")
+    lengths = [456, 300, 17, 1, 0, 200, 33, 272]
+    starts, lens, lq = [0, 272, 16], [256, 33, 1], 256
+    for label, qdtype, kvdtype in ATTN_DTYPES:
+        qdt, kvdt = getattr(torch, qdtype), getattr(torch, kvdtype)
+        tol = TOL_ATTN[kvdtype if qdtype == "float32" else qdtype]
+        kp, vp, tables = _pages(torch, dev, gen, lengths, 16, hkv, hd, kvdt)
+        q = torch.randn((len(lengths), hq, hd), generator=gen, device=dev).to(qdt)
+        args = (q, kp, vp, tables, torch.tensor(lengths, dtype=torch.int32, device=dev))
+        got = ops.paged_attention(*args)
+        compare(f"reference paged_attention G6 {label} B8 hd{hd}", got,
+                paged_attention_ref(*args), tol)
+        if not torch.equal(ops.paged_attention(*args), got):
+            raise Failure("paged_attention G6: two identical calls differ")
+        kp, vp, tables = _pages(torch, dev, gen, [s + lq for s in starts], 16, hkv, hd,
+                                kvdt)
+        q = torch.randn((len(lens), lq, hq, hd), generator=gen, device=dev).to(qdt)
+        args = (q, kp, vp, tables, torch.tensor(starts, dtype=torch.int32, device=dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+        got = ops.chunked_prefill(*args)
+        compare(f"reference chunked_prefill G6 {label} B3 L{lq} starts {starts} "
+                f"lens {lens}", got, chunked_prefill_ref(*args), tol)
+        if not torch.equal(ops.chunked_prefill(*args), got):
+            raise Failure("chunked_prefill G6: two identical calls differ")
 
 
 def reference_spec(torch, dev):
@@ -1846,6 +1999,324 @@ def mla_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: qwen2-vl at full width, the per-request serving path
+# ---------------------------------------------------------------------------
+
+# qwen2_vl_2b (src/repro_torch/configs/qwen2_vl_2b.py) at full width: d_model
+# 1536, 12 / 2 heads (G 6), hd 128, d_ff 8960, vocab 151936, M-RoPE (16, 24,
+# 24), 256 vision tokens; its depth cut from 28 layers to 4 (0.42 G
+# parameters, 1.7 GB in fp32): each layer's seven COALA solves take seconds,
+# and the path is the same at any depth. (a) The fixed-batch launcher on the
+# pipeline's first batch: 4 rows of 64 tokens after 256 vision tokens, 16 new
+# tokens, fp32. (b) The continuous launcher, dense and COALA (λ 4), on phase
+# 4's text trace; then on its models a mixed trace: phase 4's 8 requests (one
+# every 2 steps, prompts 16-200, 32 new tokens), every second one (0, 2, 4, 6)
+# with a (1, 256, 1536) N(0, 1) vision prefix from a seeded numpy generator,
+# over 104 pages of 16 tokens (the trace needs 159 at once): the pool runs
+# dry once with request 4, a vision request, the youngest (sized on the CPU
+# with a narrow model of the same vocabulary: the pages a request takes do
+# not depend on the weights), through graphs with the detokenize worker, a
+# stream callback and the telemetry server attached, then eagerly; (c) the
+# offline lane on the trace's text half.
+VLM_LAYERS = 4
+VLM_KNOBS = dict(block_size=16, num_blocks=104, max_running=8)
+VLM_ARGS = ["--continuous", "--arch", "qwen2_vl_2b", "--compress-ratio", "0.6",
+            "--requests", str(REQUESTS), "--prompt-len", "256",
+            "--new-tokens", str(NEW_TOKENS),
+            "--block-size", str(VLM_KNOBS["block_size"]),
+            "--num-blocks", str(VLM_KNOBS["num_blocks"]),
+            "--max-running", str(VLM_KNOBS["max_running"]), "--warmup", "on",
+            "--detok-async", "on", "--telemetry-port", "0", "--seed", str(SEED),
+            "--device", "cuda"]
+VLM_FIXED_ROWS, VLM_FIXED_PROMPT, VLM_FIXED_NEW = 4, 64, 16
+VLM_FIXED_ARGS = ["--arch", "qwen2_vl_2b", "--requests", str(VLM_FIXED_ROWS),
+                  "--prompt-len", str(VLM_FIXED_PROMPT), "--new-tokens", str(VLM_FIXED_NEW),
+                  "--seed", str(SEED), "--device", "cuda"]
+VLM_POLL_EVERY = 8          # the telemetry endpoints are read every 8 steps
+VLM_ENDPOINTS = ("/metrics", "/healthz", "/requests", "/snapshot")
+# qwen2_vl_2b's projections: (d_in, d_out)
+VLM_PROJECTIONS = {
+    "wq": (1536, 1536), "wk": (1536, 256), "wv": (1536, 256), "wo": (1536, 1536),
+    "gate": (1536, 8960), "up": (1536, 8960), "down": (8960, 1536)}
+VLM_HEADS = (12, 2, 128)
+
+
+def vlm_trace(cfg):
+    """Phase 4's trace with a vision prefix on every second request:
+    (arrival step, prompt, new tokens, extras or None)."""
+    import numpy as np
+    from repro_torch.launch.serve import synthetic_trace
+    trace = synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED, min_prompt=MIN_PROMPT,
+                            max_prompt=MAX_PROMPT, min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    rng = np.random.RandomState(SEED + 11)
+    out = []
+    for i, (arrival, prompt, new) in enumerate(trace):
+        extras = None
+        if i % 2 == 0:
+            extras = {"vision_embeds": rng.standard_normal(
+                (1, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)}
+        out.append((arrival, prompt, new, extras))
+    return out
+
+
+def _serve_mixed(eng, trace, *, on_step=None, **submit_kw):
+    """Replay a trace with extras, submissions keyed to engine steps;
+    ``on_step(step)`` runs after each step."""
+    pending = list(trace)
+    step = 0
+    while pending or eng.has_work():
+        while pending and pending[0][0] <= step:
+            _, prompt, new, extras = pending.pop(0)
+            eng.submit(prompt, new, extras=extras, **submit_kw)
+        eng.step()
+        step += 1
+        if on_step is not None:
+            on_step(step)
+    eng.flush_stream()
+    return eng.metrics()
+
+
+def _http_get(url: str):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.getcode(), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _check_mixed(label, eng, trace, vocab):
+    """Every request finished with its full budget and valid tokens, no page
+    leaked, and the per-request prefills are the vision requests' submits
+    and the preempted vision requests' recomputes."""
+    fin = sorted(eng.finished, key=lambda r: r.req_id)
+    if len(fin) != len(trace) or any(
+            len(r.out_tokens) != new or not all(0 <= t < vocab for t in r.out_tokens)
+            for r, (_, _, new, _) in zip(fin, trace)):
+        raise Failure(f"{label}: requests did not all finish with valid tokens")
+    if eng.pool.available_blocks != eng.pool.usable_blocks:
+        raise Failure(f"{label}: pages leaked")
+    want = sum(1 + r.preemptions for r in fin if r.vis_offset)
+    if eng.request_prefills != want:
+        raise Failure(f"{label}: {eng.request_prefills} per-request prefills, "
+                      f"expected {want}")
+    return fin
+
+
+def _ttft_by_kind(fin) -> dict:
+    vis = [r.ttft for r in fin if r.vis_offset]
+    text = [r.ttft for r in fin if not r.vis_offset]
+    return {"vision_mean_ttft_s": sum(vis) / len(vis),
+            "text_mean_ttft_s": sum(text) / len(text)}
+
+
+def vlm_path(torch, ops):
+    """Phase 11 (see ``VLM_LAYERS``): (a) ``run_fixed`` through the launcher,
+    tokens equal to a ``ContinuousEngine.generate`` of the same inputs; (b)
+    the continuous launcher (warmup, async detokenize, telemetry on port 0)
+    with 0 post-warmup captures, then per model the mixed vision trace
+    through graphs (detokenizer and callback: each request's text is its
+    tokens, events in emission order; the telemetry server answers its four
+    endpoints with 200 while the trace runs, /snapshot strict JSON; one
+    preemption of a vision request; 0 post-warmup captures) and eagerly
+    (identical tokens; kernel shapes noted for phase 7); (c) ``run_offline``
+    of the text half on a fresh graph engine: the mixed run's tokens, input
+    order, fewer batched prefills than requests. Returns (summary, noted
+    kernel shapes)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import compression_summary
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import TelemetryServer
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = dataclasses.replace(get_config("qwen2_vl_2b"), n_layers=VLM_LAYERS)
+    if cfg.family != "vlm" or cfg.n_heads // cfg.n_kv_heads != 6 or cfg.head_dim != 128:
+        raise Failure("qwen2-vl depth cut: expected family vlm at G 6, hd 128")
+    vocab, n_vis = cfg.vocab_size, cfg.n_vision_tokens
+    out = {"layers": VLM_LAYERS, "seconds": {}, "peak_gb": {}}
+
+    # (a) the fixed-batch launcher, then the continuous engine on its inputs
+    t0 = time.perf_counter()
+    fixed = launcher.main(VLM_FIXED_ARGS, cfg=cfg)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_launcher"] = time.perf_counter() - t0
+    model, batch, ftoks = fixed["model"], fixed["batch"], fixed["tokens"]
+    out.update(params=sum(p.numel() for p in model.parameters()))
+    if (tuple(batch["vision_embeds"].shape) != (VLM_FIXED_ROWS, n_vis, cfg.d_model)
+            or ftoks.shape != (VLM_FIXED_ROWS, VLM_FIXED_PROMPT + VLM_FIXED_NEW)):
+        raise Failure(f"qwen2-vl fixed: shapes {tuple(batch['vision_embeds'].shape)}, "
+                      f"{ftoks.shape}")
+    cont = ContinuousEngine(model, **VLM_KNOBS)
+    t0 = time.perf_counter()
+    ctoks = cont.generate(batch["tokens"], VLM_FIXED_NEW,
+                          extras={"vision_embeds": batch["vision_embeds"]})
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_continuous"] = time.perf_counter() - t0
+    same = np.array_equal(ctoks, ftoks)
+    eq = float(np.mean(ctoks[:, VLM_FIXED_PROMPT:] == ftoks[:, VLM_FIXED_PROMPT:]))
+    out["fixed"] = {"seconds": fixed["seconds"], "tokens_equal_share": eq}
+    log(f"  [a fixed] {out['params'] / 1e9:.3f} G parameters; ServeEngine "
+        f"{VLM_FIXED_ROWS} x ({n_vis} vision + {VLM_FIXED_PROMPT}) -> {VLM_FIXED_NEW} new in "
+        f"{fixed['seconds']['serve_fixed']:.3f} s; ContinuousEngine.generate of the same "
+        f"inputs {out['seconds']['fixed_continuous']:.3f} s: tokens "
+        f"{'identical' if same else 'DIFFER'} ({eq:.3f} of new tokens equal)")
+    if not same:
+        raise Failure("qwen2-vl: run_fixed and ContinuousEngine.generate disagree")
+    cont.release_graphs()
+    del fixed, model, cont
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], "fixed")
+
+    # (b) the continuous launcher on the text trace
+    text_trace = launcher.synthetic_trace(REQUESTS, vocab, seed=SEED,
+                                          min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                                          min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    t0 = time.perf_counter()
+    with SolveTimes(torch) as solves:
+        res = launcher.main(VLM_ARGS, trace=text_trace, cfg=cfg)
+    torch.cuda.synchronize()
+    res["engines"]["coala"].release_graphs()
+    out["seconds"].update(res["seconds"], launcher=time.perf_counter() - t0)
+    out.update(compression=compression_summary(res["reports"]), warmup=res["warmup"],
+               solve_s=solves.summary(), telemetry_port=res["telemetry_port"])
+    _peak_step(torch, out["peak_gb"], "launcher")
+    for r in res["reports"]:
+        if not all(math.isfinite(v) for v in (r.mu, r.rel_err_weighted, r.rel_err_bound)):
+            raise Failure(f"qwen2-vl compression report not finite: {r}")
+    if res["models"]["coala"].vision_proj.is_factored:
+        raise Failure("qwen2-vl: vision_proj was compressed")
+    for name, eng in res["engines"].items():
+        met = res["metrics"][name]
+        out[f"launcher_{name}"] = {k: met[k] for k in SERVE_KEYS}
+        _check_finished(f"qwen2-vl launcher {name}", eng, text_trace, vocab)
+        if not eng.cuda_graphs or met["post_warmup_compiles"] != 0 or not eng.async_detok:
+            raise Failure(f"qwen2-vl launcher {name}: expected CUDA graphs, async "
+                          f"detokenize and 0 post-warmup captures, got "
+                          f"{met['post_warmup_compiles']}")
+        log(f"  [b launcher {name}] text trace through graphs: {_serve_line(met)}; "
+            f"telemetry on port {res['telemetry_port']}")
+    models = res["models"]
+    del res, eng
+    torch.cuda.empty_cache()
+
+    # (b) the mixed vision trace on the launcher's models, graphs then eager;
+    # (c) the offline lane on its text half
+    trace = vlm_trace(cfg)
+    warm_len = max(len(p) + new + (n_vis if ex else 0) for _, p, new, ex in trace)
+    text_half = [(i, p, new) for i, (_, p, new, ex) in enumerate(trace) if ex is None]
+    calls = KernelCalls(ops)        # noted on the eager runs only
+    for name, m in models.items():
+        events = []
+        eng = ContinuousEngine(m, detokenizer=lambda t: f"<{t}>", **VLM_KNOBS)
+        w = eng.warmup(max_len=warm_len)
+        server = TelemetryServer(eng, port=0)
+        polls = collections.Counter()
+
+        def poll(step):
+            if step % VLM_POLL_EVERY:
+                return
+            for path in VLM_ENDPOINTS:
+                code, body = _http_get(server.url(path))
+                polls[(path, code)] += 1
+                if path == "/snapshot":
+                    json.loads(body, parse_constant=lambda c: (_ for _ in ()).throw(
+                        Failure(f"/snapshot is not strict JSON: {c}")))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = _serve_mixed(eng, trace, on_step=poll, stream_callback=events.append)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            server.close()
+        fin = _check_mixed(f"qwen2-vl {name} graphs", eng, trace, vocab)
+        bad_codes = {k: n for k, n in polls.items() if k[1] != 200}
+        if bad_codes or not polls:
+            raise Failure(f"qwen2-vl {name}: telemetry answers {dict(polls)}")
+        victims = [(r.req_id, r.vis_offset) for r in fin if r.preemptions]
+        if (met["post_warmup_compiles"] != 0 or met["preemptions"] < 1
+                or not any(v for _, v in victims)):
+            raise Failure(f"qwen2-vl {name}: expected 0 post-warmup captures and a "
+                          f"preempted vision request, got "
+                          f"{met['post_warmup_compiles']}, {victims}")
+        for r in fin:
+            evs = [e for e in events if e.req_id == r.req_id]
+            if (r.text != "".join(f"<{t}>" for t in r.out_tokens)
+                    or [e.token for e in evs] != r.out_tokens
+                    or [e.index for e in evs] != list(range(len(evs)))
+                    or [e.done for e in evs] != [False] * (len(evs) - 1) + [True]):
+                raise Failure(f"qwen2-vl {name}: request {r.req_id}'s stream is not "
+                              "its tokens in emission order")
+        toks = {r.req_id: list(r.out_tokens) for r in fin}
+        out[f"mixed_{name}"] = dict({k: met[k] for k in SERVE_KEYS}, seconds=secs,
+                                    request_prefills=eng.request_prefills,
+                                    preempted=victims, polls=sum(polls.values()),
+                                    warmup=w, **_ttft_by_kind(fin))
+        _peak_step(torch, out["peak_gb"], f"mixed_{name}")
+        eng.release_graphs()
+        del eng
+        log(f"  [b mixed {name}] graphs: {_serve_line(met)}; {secs:.3f} s; "
+            f"{out[f'mixed_{name}']['request_prefills']} per-request prefills, "
+            f"preempted {victims}; mean TTFT vision "
+            f"{out[f'mixed_{name}']['vision_mean_ttft_s']:.4f} s, text "
+            f"{out[f'mixed_{name}']['text_mean_ttft_s']:.4f} s; telemetry "
+            f"{dict((f'{p} {c}', n) for (p, c), n in polls.items())}; stream text "
+            "and events equal the tokens")
+
+        eng = ContinuousEngine(m, cuda_graphs=False, **VLM_KNOBS)
+        t0 = time.perf_counter()
+        with calls:
+            emet = _serve_mixed(eng, trace)
+        torch.cuda.synchronize()
+        esecs = time.perf_counter() - t0
+        _check_mixed(f"qwen2-vl {name} eager", eng, trace, vocab)
+        same = {r.req_id: list(r.out_tokens) for r in eng.finished} == toks
+        out[f"mixed_{name}_eager"] = dict({k: emet[k] for k in SERVE_KEYS},
+                                          seconds=esecs)
+        log(f"  [b mixed {name}] eager: {_serve_line(emet)}; {esecs:.3f} s; greedy "
+            f"tokens {'identical to' if same else 'DIFFER from'} the graphs'")
+        if not same:
+            raise Failure(f"qwen2-vl {name}: CUDA graphs and the eager engine disagree")
+        del eng
+
+        eng = ContinuousEngine(m, **VLM_KNOBS)
+        eng.warmup(max_len=warm_len)
+        t0 = time.perf_counter()
+        results = eng.run_offline([dict(prompt_tokens=p, max_new_tokens=new)
+                                   for _, p, new in text_half])
+        torch.cuda.synchronize()
+        osecs = time.perf_counter() - t0
+        omet = eng.metrics()
+        in_order = all(np.array_equal(r.prompt, p)
+                       for r, (_, p, _) in zip(results, text_half))
+        same = [r.out_tokens for r in results] == [toks[i] for i, _, _ in text_half]
+        out[f"offline_{name}"] = dict({k: omet[k] for k in SERVE_KEYS}, seconds=osecs)
+        log(f"  [c offline {name}] run_offline of the {len(text_half)} text requests: "
+            f"{_serve_line(omet)}; {osecs:.3f} s; {omet['prefill_batches']} batched "
+            f"prefills; input order {'kept' if in_order else 'LOST'}; tokens "
+            f"{'identical to' if same else 'DIFFER from'} the mixed run's")
+        if (not same or not in_order or omet["prefill_batches"] >= len(text_half)
+                or omet["post_warmup_compiles"] != 0):
+            raise Failure(f"qwen2-vl {name}: offline lane: tokens equal {same}, "
+                          f"order {in_order}, {omet['prefill_batches']} prefills, "
+                          f"{omet['post_warmup_compiles']} post-warmup captures")
+        eng.release_graphs()
+        del eng
+    shapes = calls.shapes()
+    per_request = [k for k in calls.flash if k[0] == 1 and k[1] > n_vis]
+    shapes["vlm_prefill_t"] = max(k[1] for k in per_request) if per_request else 0
+    if not per_request:
+        raise Failure(f"qwen2-vl: no per-request flash prefill noted: {dict(calls.flash)}")
+    log(f"  seconds: {json.dumps(out['seconds'])}; peak memory (GB): "
+        f"{json.dumps(out['peak_gb'])}")
+    del models
+    torch.cuda.empty_cache()
+    return out, shapes
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the compression core on phase 5's trained model
 # ---------------------------------------------------------------------------
 
@@ -2456,35 +2927,39 @@ def _window_keys(start: int, n: int, window: int) -> int:
     return start + n - (max(0, start - window + 1) if window > 0 else 0)
 
 
-def check_gemma2_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush):
-    """paged_attention and chunked_prefill at gemma2's heads, query scale and
-    softcap, with the local layer's window 4096 and without it (the global
-    layer), at phase 8's largest decode batch (a row past the window among
-    them) and largest prefill (the 4400-token row at L 4608), in fp32 and
-    bf16; timed in fp32 against the plain version, SDPA (the same masks and
-    scale, but no softcap: no library call has one) and the bound."""
+def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, *,
+                           label, heads, scale, cap, windows):
+    """paged_attention and chunked_prefill at a family's ``heads`` (Hq, Hkv,
+    hd), query ``scale`` and softcap ``cap``, with each of ``windows`` (0: no
+    window), at its path's largest decode batch and largest prefill noted in
+    ``shapes``, in fp32 and bf16; timed in fp32 against the plain version,
+    SDPA (the same masks and scale; no softcap: no library call has one) and
+    the bound. gemma2 (phase 8): its local layer's window 4096 and its global
+    layer, a row past the window among the decode rows and the 4400-token
+    row at L 4608; qwen2-vl (phase 11): G 6 at hd 128."""
     import torch.nn.functional as F
-    hq, hkv, hd = GEMMA_HEADS
+    hq, hkv, hd = heads
     bs, g = 16, hq // hkv
-    kw = dict(scale=GEMMA_SCALE, cap=GEMMA_CAP)
+    kw = dict(scale=scale, cap=cap)
+    sdpa_name = "SDPA (no softcap)" if cap else "SDPA"
     res = {"paged": {}, "chunked": {}}
     lengths, pads = shapes["paged_lengths"], shapes["paged_pad_rows"]
     starts, lens, cpads, lq = (shapes["chunked_starts"], shapes["chunked_lens"],
                                shapes["chunked_pad_rows"], shapes["chunked_l"])
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for window in (GEMMA_WINDOW, 0):
+        for window in windows:
             layer = "local" if window else "global"
             kp, vp, tables = _pages(torch, dev, gen, lengths, bs, hkv, hd, dt, pads)
             q = torch.randn((len(lengths), hq, hd), generator=gen, device=dev).to(dt)
             ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
             args = (q, kp, vp, tables, ln)
             got = ops.paged_attention(*args, window=window, **kw)
-            err = compare(f"paged_attention gemma2 {dtype} {layer} B={len(lengths)} "
+            err = compare(f"paged_attention {label} {dtype} {layer} B={len(lengths)} "
                           f"max length {max(lengths)}", got,
                           pa_ref(*args, window=window, **kw), TOL_ATTN[dtype])
             if not torch.equal(ops.paged_attention(*args, window=window, **kw), got):
-                raise Failure("paged_attention gemma2: two identical calls differ")
+                raise Failure(f"paged_attention {label}: two identical calls differ")
             if dtype == "float32":
                 ms = timed(torch, lambda: ops.paged_attention(*args, window=window, **kw),
                            flush)
@@ -2497,16 +2972,16 @@ def check_gemma2_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush):
                 mask = keep[:, None, None, :]
                 q4 = q[:, :, None, :]
                 lib = timed(torch, lambda: F.scaled_dot_product_attention(
-                    q4, k, v, attn_mask=mask, scale=GEMMA_SCALE), flush)
+                    q4, k, v, attn_mask=mask, scale=scale), flush)
                 del k, v
                 toks = sum(_window_keys(n - 1, 1, window) for n in lengths)
                 nbytes = (4 * (sum(1 for n in lengths if n > 0) + len(lengths)) * hq * hd
                           + 4 * 2 * toks * hkv * hd + 4 * (tables.numel() + len(lengths)))
                 b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, "float32")
-                log(f"    gemma2 paged {layer} B={len(lengths)} lengths={lengths}: kernel "
-                    f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA (no softcap) {lib:.4f} ms, "
+                log(f"    {label} paged {layer} B={len(lengths)} lengths={lengths}: kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, {sdpa_name} {lib:.4f} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
-                res["paged"][layer] = dict(ms=ms, plain_ms=plain, sdpa_no_softcap_ms=lib,
+                res["paged"][layer] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                            lengths=lengths)
             totals = [s + lq for s in starts]
@@ -2517,7 +2992,7 @@ def check_gemma2_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush):
             args = (q, kp, vp, tables, st, cl)
             got = ops.chunked_prefill(*args, window=window, **kw)
             want = cp_ref(*args, window=window, **kw)
-            err = compare(f"chunked_prefill gemma2 {dtype} {layer} B={len(lens)} L={lq} "
+            err = compare(f"chunked_prefill {label} {dtype} {layer} B={len(lens)} L={lq} "
                           f"lens={lens}", got, want, TOL_ATTN[dtype])
             del want
             if dtype == "float32":
@@ -2534,7 +3009,7 @@ def check_gemma2_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush):
                 mask = keep[:, None]
                 q4 = q.transpose(1, 2).contiguous()
                 lib = timed(torch, lambda: F.scaled_dot_product_attention(
-                    q4, k, v, attn_mask=mask, scale=GEMMA_SCALE), flush)
+                    q4, k, v, attn_mask=mask, scale=scale), flush)
                 del k, v, q4, mask
                 real_q = sum(lens)
                 toks = sum(_window_keys(s, n, window) for s, n in zip(starts, lens))
@@ -2542,10 +3017,10 @@ def check_gemma2_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush):
                           + 4 * (tables.numel() + 2 * len(lens)))
                 ops_n = 4 * hq * hd * _prefill_pairs(starts, lens, window)
                 b_ms, b_by = bound(nbytes, ops_n, "float32")
-                log(f"    gemma2 chunked {layer} B={len(lens)} L={lq} lens={lens}: kernel "
-                    f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA (no softcap) {lib:.4f} ms, "
+                log(f"    {label} chunked {layer} B={len(lens)} L={lq} lens={lens}: kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, {sdpa_name} {lib:.4f} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
-                res["chunked"][layer] = dict(ms=ms, plain_ms=plain, sdpa_no_softcap_ms=lib,
+                res["chunked"][layer] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                              bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                              lens=lens, L=lq)
             del kp, vp, q, args
@@ -2782,6 +3257,10 @@ def run(args) -> int:
     log(f"[3 reference] {', '.join(FAMILIES)} SMOKE: kernels on the card vs plain "
         "versions on the CPU, graphs on the card vs the eager engine on the CPU")
     reference_families(torch, dev)
+    log("[3 reference] qwen2_vl_2b SMOKE with vision prefixes: card graphs vs the CPU's "
+        "eager engine; the kernels at qwen2-vl's heads (G 6, hd 128) vs plain versions")
+    reference_vlm(torch, dev)
+    reference_group6(torch, ops, dev)
 
     backward = {}           # lowrank_linear's backward launches by path window
 
@@ -2914,6 +3393,16 @@ def run(args) -> int:
         raise Failure(f"paged kernels launched on the MLA path: {launched}")
     log(f"  kernel shapes noted on the MLA path: {json.dumps(mla_shapes)}")
 
+    log("[11 qwen2-vl path] python -m repro_torch.launch.serve " + " ".join(VLM_FIXED_ARGS)
+        + " (fixed batch), then " + " ".join(VLM_ARGS) + f" on qwen2_vl_2b at full width, "
+        f"depth cut to {VLM_LAYERS} of 28 layers; then a mixed trace (every second request "
+        "with a 256-token vision prefix) through graphs and eagerly, and the offline lane")
+    (vlm, vlm_shapes), vlm_counts, peak = path_window(
+        "qwen2-vl", ("lowrank_linear", "paged_attention", "chunked_prefill",
+                     "flash_attention"), lambda: vlm_path(torch, ops))
+    vlm["peak_memory_gb"] = peak
+    log(f"  kernel shapes noted on the qwen2-vl path: {json.dumps(vlm_shapes)}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -2935,15 +3424,27 @@ def run(args) -> int:
         "lowrank_linear": check_lowrank(torch, ops, lowrank_linear_ref, dev, gen,
                                         gemma_shapes, flush, proj=gemma_proj,
                                         model="gemma2_27b", extra_rows=(256,)),
-        "attention": check_gemma2_attention(torch, ops, paged_attention_ref,
-                                            chunked_prefill_ref, dev, gen, gemma_shapes,
-                                            flush)}
+        "attention": check_family_attention(
+            torch, ops, paged_attention_ref, chunked_prefill_ref, dev, gen, gemma_shapes,
+            flush, label="gemma2", heads=GEMMA_HEADS, scale=GEMMA_SCALE, cap=GEMMA_CAP,
+            windows=(GEMMA_WINDOW, 0))}
     log("[7 kernels] at deepseek_v2_lite_16b's shapes (phase 9b)")
     mla_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
                 for name, (d_in, d_out) in MLA_PROJECTIONS.items()}
     mla_kernels = {"lowrank_linear": check_lowrank(
         torch, ops, lowrank_linear_ref, dev, gen, mla_shapes, flush,
         proj=mla_proj, model="deepseek_v2_lite_16b", extra_rows=(8,))}
+    log("[7 kernels] at qwen2_vl_2b's shapes (phase 11): G 6, hd 128")
+    vlm_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                for name, (d_in, d_out) in VLM_PROJECTIONS.items()}
+    vlm_kernels = {
+        "lowrank_linear": check_lowrank(
+            torch, ops, lowrank_linear_ref, dev, gen, vlm_shapes, flush, proj=vlm_proj,
+            model="qwen2_vl_2b", extra_rows=(8, vlm_shapes["vlm_prefill_t"])),
+        "attention": check_family_attention(
+            torch, ops, paged_attention_ref, chunked_prefill_ref, dev, gen, vlm_shapes,
+            flush, label="qwen2-vl", heads=VLM_HEADS, scale=None, cap=0.0,
+            windows=(0,))}
     log("[7 kernels] lowrank_linear at phase 10's adaptive ranks (block 0) and under "
         f"autograd at M {GRAD_ROWS}: rank {ADAPTER_RANK} on the seven projections, and "
         "one odd adaptive rank")
@@ -2975,7 +3476,7 @@ def run(args) -> int:
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[11 profile] {args.profile} decode steps per model")
+        log(f"[12 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
         del res
@@ -2989,7 +3490,8 @@ def run(args) -> int:
                 "serve_dtypes": dtype_counts, "serve_recalib": recalib_counts,
                 "compress": comp_counts, "gram": gram_counts,
                 "compression_core": core_counts, "gemma2": gemma_counts,
-                "deepseek": moe_counts, "deepseek_v2_mla": mla_counts}
+                "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
+                "qwen2_vl": vlm_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -3008,13 +3510,14 @@ def run(args) -> int:
                                   "serve_dtypes": dtypes, "serve_recalib": recalib,
                                   "compress": comp, "gram": gram, "gemma2": gemma,
                                   "deepseek": moe, "deepseek_v2_mla": mla,
-                                  "compression_core": core},
+                                  "compression_core": core, "qwen2_vl": vlm},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,
                     "lowrank_backward": grads,
                     "gemma2_kernels": gemma_kernels,
                     "mla_kernels": mla_kernels,
+                    "vlm_kernels": vlm_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

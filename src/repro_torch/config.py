@@ -3,13 +3,15 @@
 Only the fields the port reads are kept: ``MoEConfig``, the attention-only
 decoders of ``ModelConfig`` (dense GQA, gemma2's local/global alternation,
 softcaps and sandwich norms, olmo's non-parametric norm, minicpm's scaling,
-deepseek-v2's MLA dims and the MoE layer pattern), ``TrainConfig`` and the
-COALA / baseline settings of ``CompressConfig``. The knobs of the SSM,
-hybrid, enc-dec and VLM families wait with those families.
+deepseek-v2's MLA dims, the MoE layer pattern and qwen2-vl's vision prefix
+and M-RoPE sections), ``TrainConfig`` and the COALA / baseline settings of
+``CompressConfig``. The knobs of the SSM, hybrid and enc-dec families wait
+with those families.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +71,10 @@ class ModelConfig:
     moe_offset: int = 0
     first_k_dense: int = 0            # first k layers use dense FFN (deepseek)
 
+    # vlm (qwen2-vl)
+    n_vision_tokens: int = 0          # prefix of precomputed patch embeds
+    mrope_sections: Tuple[int, int, int] = (0, 0, 0)  # M-RoPE t/h/w splits
+
     # ffn activation: "silu" | "gelu" | "gelu_tanh"
     act: str = "silu"
     tie_embeddings: bool = False
@@ -84,8 +90,9 @@ class ModelConfig:
     def layer_kind(self, i: int) -> str:
         """'attn' for every decoder layer of the ported families (the
         recurrent kinds of the ssm and hybrid families are not ported). The
-        reference config's API: the port's ``LM`` admits only the dense and
-        moe families, all attention, so its model code does not call it."""
+        reference config's API: the port's ``LM`` admits only the dense, moe
+        and vlm families, all attention, so its model code does not call
+        it."""
         if self.family == "ssm":
             raise NotImplementedError(
                 "family 'ssm' (xLSTM mLSTM/sLSTM layers) is not ported yet")

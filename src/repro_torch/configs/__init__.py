@@ -3,9 +3,9 @@
 Each module is a copy of its ``repro.configs`` counterpart: CONFIG (the full
 configuration) and SMOKE (a reduced same-family configuration for CPU
 tests). The attention-only decoders are ported: the dense GQA families,
-deepseek's MoE and deepseek-v2's MLA attention over MoE. The configurations
-of the families still to come raise ``NotImplementedError`` naming their
-family.
+deepseek's MoE, deepseek-v2's MLA attention over MoE and qwen2-vl's vision
+prefix with M-RoPE. The configurations of the families still to come raise
+``NotImplementedError`` naming their family.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ ARCH_IDS: List[str] = [
     "olmo_1b",
     "smollm_135m",
     "minicpm_2b",
+    "qwen2_vl_2b",
     # the paper's own evaluation models (compression targets)
     "llama3_1b",
     "mistral_7b",
@@ -30,7 +31,6 @@ ARCH_IDS: List[str] = [
 NOT_PORTED: Dict[str, str] = {
     "whisper_base": "encdec (encoder-decoder with cross-attention)",
     "xlstm_1_3b": "ssm (xLSTM mLSTM/sLSTM recurrences)",
-    "qwen2_vl_2b": "vlm (vision prefix and M-RoPE)",
     "jamba_v0_1_52b": "hybrid (mamba/attention with MoE)",
 }
 

@@ -107,14 +107,19 @@ class Calibrator:
         return {p: s.tokens_seen for p, s in self.streams.items()}
 
 
-def calibrate_model(model, batches: Iterable[torch.Tensor], *,
-                    collect_gram: bool = False,
+def calibrate_model(model, batches: Iterable, *, collect_gram: bool = False,
                     ctx: ParallelCtx = CPU_CTX) -> Calibrator:
-    """Run capture over calibration token batches (each (B, T) ints on the
-    model's device); returns the filled Calibrator. ``ctx`` picks the
-    attention path of the forward (the flash kernel with ``use_pallas``);
-    it changes no result beyond rounding."""
+    """Run capture over calibration batches on the model's device — each
+    (B, T) token ints, or a pipeline batch ``{"tokens", "vision_embeds"}``
+    whose vision prefix goes through the forward too (a vlm); returns the
+    filled Calibrator. ``ctx`` picks the attention path of the forward (the
+    flash kernel with ``use_pallas``); it changes no result beyond
+    rounding."""
     cal = Calibrator(collect_gram=collect_gram)
-    for tokens in batches:
-        model.capture_forward(tokens, cal, ctx=ctx)
+    for batch in batches:
+        if isinstance(batch, dict):
+            model.capture_forward(batch["tokens"], cal, ctx=ctx,
+                                  vision_embeds=batch.get("vision_embeds"))
+        else:
+            model.capture_forward(batch, cal, ctx=ctx)
     return cal

@@ -8,7 +8,10 @@ the current one (offset fixed per row), else uniform noise, so a small model
 learns well below the uniform CE. The bits come from a CPU
 ``torch.Generator`` seeded with a mix of (seed, step); they cannot equal
 jax.random's, so the tokens differ from the JAX package's while the
-recurrence and the determinism are the same.
+recurrence and the determinism are the same. A vlm's batch also carries
+``vision_embeds`` (B, n_vision_tokens, d_model) N(0, 1) from a generator
+seeded with ``fold_in(seed + 2, step)``, the reference's key
+(``repro/data/pipeline.py:70-74``).
 """
 from __future__ import annotations
 
@@ -57,11 +60,19 @@ def _batch_tokens(dcfg: DataConfig, step: int) -> torch.Tensor:
     return torch.stack(rows, dim=1).to(torch.int32)
 
 
+def _vision_embeds(dcfg: DataConfig, cfg, step: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(fold_in(dcfg.seed + 2, step))
+    return torch.randn((dcfg.global_batch, cfg.n_vision_tokens, cfg.d_model),
+                       generator=gen)
+
+
 class TokenPipeline:
-    """get_batch(step) -> {"tokens": (B, T) int32 on ``device``}."""
+    """get_batch(step) -> {"tokens": (B, T) int32 on ``device``}, plus
+    ``vision_embeds`` (B, n_vision_tokens, d_model) fp32 for a vlm."""
 
     def __init__(self, dcfg: DataConfig, model_cfg=None, *, device="cuda"):
-        if model_cfg is not None and model_cfg.family not in ("dense", "moe"):
+        if model_cfg is not None and model_cfg.family not in ("dense", "moe",
+                                                              "vlm"):
             raise NotImplementedError(
                 f"family {model_cfg.family!r} has no ported batch extras")
         self.dcfg = dcfg
@@ -69,7 +80,12 @@ class TokenPipeline:
         self.device = resolve_device(device)
 
     def get_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {"tokens": _batch_tokens(self.dcfg, step).to(self.device)}
+        batch = {"tokens": _batch_tokens(self.dcfg, step).to(self.device)}
+        cfg = self.model_cfg
+        if cfg is not None and cfg.family == "vlm":
+            batch["vision_embeds"] = _vision_embeds(self.dcfg, cfg,
+                                                    step).to(self.device)
+        return batch
 
     def iter_from(self, step: int) -> Iterator[Dict[str, torch.Tensor]]:
         while True:

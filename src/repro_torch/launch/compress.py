@@ -9,7 +9,9 @@ calibrate → compress with COALA or a Gram-based baseline → evaluate again.
 (deepseek_moe_16b, deepseek_v2_lite_16b) is compressed per expert, each from
 the tokens routed to it, and its training loss carries the load-balance aux
 term. MLA's calibration forward runs the flash kernel at head dim
-nope + rope (192).
+nope + rope (192). qwen2_vl_2b's batches carry the pipeline's vision
+prefix through pretraining, evaluation and calibration (its loss skips the
+vision positions; ``vision_proj`` stays dense).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 Pretraining runs the dense attention path (the flash kernel has no
@@ -60,15 +62,16 @@ def eval_ce(model, pipe: TokenPipeline, *, ctx: ParallelCtx = KERNEL_CTX,
     """Mean fp32 CE over the held-out batches 1000..1000+n_batches-1."""
     with torch.no_grad():
         return float(np.mean([
-            float(model.loss(pipe.get_batch(1000 + i)["tokens"], ctx=ctx,
-                             compute_dtype=torch.float32)[0])
-            for i in range(n_batches)]))
+            float(model.loss(b["tokens"], vision_embeds=b.get("vision_embeds"),
+                             ctx=ctx, compute_dtype=torch.float32)[0])
+            for b in (pipe.get_batch(1000 + i) for i in range(n_batches))]))
 
 
 def main(argv=None, cfg=None):
     """Command-line entry point. Prints the JSON summary and returns a dict
     with ``summary``, ``reports``, the trained ``model``, the ``compressed``
-    model, the ``calibrator``, the ``calib_batches`` and the ``seconds`` of
+    model, the ``calibrator``, the ``calib_batches`` ((B, T) tokens, or a
+    vlm's ``{"tokens", "vision_embeds"}`` batches) and the ``seconds`` of
     each phase (pretrain, eval, calibrate, compress). ``cfg``, a
     ModelConfig, replaces the one ``--arch``/``--smoke`` name (a
     full-width configuration cut in depth, say)."""
@@ -110,8 +113,10 @@ def main(argv=None, cfg=None):
     base_ce = eval_ce(model, pipe)
     seconds["eval"] = time.perf_counter() - t0
 
-    calib_batches = [pipe.get_batch(2000 + i)["tokens"]
-                     for i in range(args.calib_batches)]
+    # token tensors, or whole batches where they carry a vision prefix
+    calib_batches = [b if "vision_embeds" in b else b["tokens"]
+                     for b in (pipe.get_batch(2000 + i)
+                               for i in range(args.calib_batches))]
     _sync(device)
     t0 = time.perf_counter()
     cal = calibrate_model(model, calib_batches, ctx=KERNEL_CTX)

@@ -1,16 +1,27 @@
-"""Serving launcher of the port (counterpart of ``repro/launch/serve.py``):
-calibrate on seeded tokens, COALA-compress, then serve a mixed-length
-synthetic request trace with continuous batching over the paged KV pool,
-for both the dense and the compressed model, reporting per-request TTFT and
-aggregate throughput.
+"""Serving launcher of the port (counterpart of ``repro/launch/serve.py``).
+
+Fixed batch (the default): generate from the token pipeline's first batch
+(``--requests`` rows of ``--prompt-len`` tokens, with a vlm's vision prefix)
+through ``ServeEngine``, the model COALA-compressed first with
+``--compress-ratio`` > 0:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_2b \\
+      --smoke --requests 4 --new-tokens 8 [--device cpu]
+
+Continuous batching (``--continuous``): calibrate on seeded tokens,
+COALA-compress, then serve a mixed-length synthetic request trace over the
+paged KV pool, for both the dense and the compressed model, reporting
+per-request TTFT and aggregate throughput:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
       --arch llama3_1b --smoke --requests 4 --new-tokens 8 [--device cpu]
 
 ``--arch`` is any of ``repro_torch.configs.ARCH_IDS``: the dense GQA
 families (llama3_1b, mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
-gemma2_27b), deepseek_moe_16b's MoE and deepseek_v2_lite_16b's MLA over MoE
-(its latent KV pages read in plain torch; no paged kernel runs for it).
+gemma2_27b), deepseek_moe_16b's MoE, deepseek_v2_lite_16b's MLA over MoE
+(its latent KV pages read in plain torch; no paged kernel runs for it) and
+qwen2_vl_2b (calibrated with a seeded vision prefix; the synthetic trace is
+text-only, as the reference's).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 On the GPU each engine replays one CUDA graph per step signature;
@@ -34,9 +45,13 @@ steps, solved on a background thread with ``--recalib-async on``); with
 ``--trace-out`` writes the span trace (``--trace-max-events`` caps it as a
 ring), ``--metrics-out`` the last engine's registry as Prometheus text,
 ``--flight-recorder N`` keeps N lifecycle events for postmortems, and
-``--slo-ttft-ms``/``--slo-tpot-ms`` grade requests into the goodput gauge.
-The fixed-batch engine, the offline lane, async detokenize and the live
-telemetry endpoints wait for later slices.
+``--slo-ttft-ms``/``--slo-tpot-ms`` grade requests into the goodput gauge,
+and ``--telemetry-port`` serves ``/metrics``, ``/healthz``, ``/requests`` and
+``/snapshot`` from the running engines (one server, re-attached to each).
+``--offline`` serves the trace through the offline lane (``run_offline``)
+and ``--detok-async`` picks the detokenize worker (on) or inline delivery.
+The reference's ``--paged-kernel`` and ``--prefill-kernel`` have no
+counterpart: the kernels dispatch on the device.
 """
 from __future__ import annotations
 
@@ -54,12 +69,13 @@ from repro_torch.core.calibrate import calibrate_model
 from repro_torch.core.compress import (compress_model, compress_model_pair,
                                        compression_summary,
                                        rank_map_from_reports)
+from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.models import build_model
 from repro_torch.models.common import ParallelCtx
-from repro_torch.obs import FlightRecorder
+from repro_torch.obs import FlightRecorder, TelemetryServer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import (ContinuousEngine, RecalibPolicy, RecalibWorker,
-                               TrafficCalibrator)
+                               ServeEngine, TrafficCalibrator)
 
 
 def synthetic_trace(n_requests: int, vocab_size: int, *, seed: int = 0,
@@ -97,12 +113,24 @@ def serve_trace(engine: ContinuousEngine, trace, *, temperature: float = 0.0):
     return engine.metrics()
 
 
-def calibration_batches(vocab_size: int, *, n_batches: int, batch: int,
-                        seq_len: int, seed: int, device):
-    """Seeded numpy calibration tokens, (batch, seq_len) per batch."""
+def calibration_batches(cfg, *, n_batches: int, batch: int, seq_len: int,
+                        seed: int, device):
+    """Seeded numpy calibration tokens, (batch, seq_len) per batch; for a
+    vlm each batch is ``{"tokens", "vision_embeds"}`` with an N(0, 1)
+    vision prefix (batch, n_vision_tokens, d_model) from the same stream, so
+    calibration sees the prefix, as the reference's pipeline batches do."""
     rng = np.random.RandomState(seed)
-    return [torch.as_tensor(rng.randint(0, vocab_size, (batch, seq_len)),
-                            device=device) for _ in range(n_batches)]
+    out = []
+    for _ in range(n_batches):
+        tok = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq_len)),
+                              device=device)
+        if cfg.family == "vlm" and cfg.n_vision_tokens:
+            vis = rng.standard_normal((batch, cfg.n_vision_tokens, cfg.d_model))
+            out.append({"tokens": tok, "vision_embeds": torch.as_tensor(
+                vis, dtype=torch.float32, device=device)})
+        else:
+            out.append(tok)
+    return out
 
 
 def _seconds(device, fn):
@@ -152,6 +180,26 @@ def _parse_buckets(spec: str):
 
 
 def run_continuous(args, cfg, model, trace=None, reuse=None):
+    """``_run_continuous`` with the live telemetry server of
+    ``--telemetry-port`` (>= 0; 0 picks an ephemeral port) up for the whole
+    run, re-attached to each engine, and closed at the end."""
+    server = None
+    if args.telemetry_port >= 0 and args.requests > 0:
+        server = TelemetryServer(port=args.telemetry_port)
+        print(f"telemetry: listening on http://{server.host}:{server.port} "
+              "(/metrics /healthz /requests /snapshot)")
+    try:
+        out = _run_continuous(args, cfg, model, trace=trace, reuse=reuse,
+                              server=server)
+    finally:
+        if server is not None:
+            server.close()
+    if out is not None and server is not None:
+        out["telemetry_port"] = server.port
+    return out
+
+
+def _run_continuous(args, cfg, model, trace=None, reuse=None, server=None):
     """Calibrate, compress, then serve ``trace`` (default: the launcher's
     synthetic trace) with the dense and the compressed model, speculatively
     with ``--draft-ratio``; with ``--calibrate-from-traffic`` the compressed
@@ -170,8 +218,7 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
         return None
     ratio = args.compress_ratio if args.compress_ratio > 0 else 0.6
     if reuse is None:
-        batches = calibration_batches(cfg.vocab_size, n_batches=2,
-                                      batch=args.requests,
+        batches = calibration_batches(cfg, n_batches=2, batch=args.requests,
                                       seq_len=args.prompt_len, seed=args.seed,
                                       device=model.device)
         cmodel, dmodel, reports, dreports, cal, seconds = _compressed_params(
@@ -216,7 +263,10 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
                                    args.prefill_bucket_sizes),
                                draft_model=dmodel, spec_k=args.spec_k,
                                slo_ttft_s=slo_ttft, slo_tpot_s=slo_tpot,
-                               flight_recorder=flight)
+                               flight_recorder=flight,
+                               async_detok=args.detok_async == "on")
+        if server is not None:
+            server.attach(eng)
         worker = None
         if args.calibrate_from_traffic and name == "coala":
             # stream this engine's own traffic through the dense model into
@@ -244,9 +294,16 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
                   f"{int(w['decode_signatures'])} decode + "
                   f"{int(w['prefill_signatures'])} prefill signatures "
                   f"(max_len {int(w['max_len'])})")
-        met, seconds[f"serve_{name}"] = _seconds(
-            m.device, lambda: serve_trace(eng, trace,
-                                          temperature=args.temperature))
+        if args.offline:
+            reqs = [dict(prompt_tokens=prompt, max_new_tokens=nn,
+                         temperature=args.temperature)
+                    for _, prompt, nn in trace]
+            met, seconds[f"serve_{name}"] = _seconds(
+                m.device, lambda: (eng.run_offline(reqs), eng.metrics())[1])
+        else:
+            met, seconds[f"serve_{name}"] = _seconds(
+                m.device, lambda: serve_trace(eng, trace,
+                                              temperature=args.temperature))
         if worker is not None and not worker.join(timeout=3600):
             raise RuntimeError("recalibration: the async solve did not end")
         out["engines"][name], out["metrics"][name] = eng, met
@@ -256,7 +313,8 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
                   f"new={len(r.out_tokens):3d} ttft={r.ttft:.3f}s"
                   + (f" (preempted x{r.preemptions})" if r.preemptions else ""))
         path = "cuda graphs" if eng.cuda_graphs else "eager"
-        print(f"[{name}] aggregate (paged, {m.device.type}, {path}): "
+        mode = "offline" if args.offline else "online"
+        print(f"[{name}] aggregate (paged, {m.device.type}, {path}, {mode}): "
               f"{met['requests']} requests in {seconds[f'serve_{name}']:.2f}s, "
               f"{met['requests_per_sec']:.2f} req/s, "
               f"{met['tokens_per_sec']:.1f} new tok/s "
@@ -300,18 +358,50 @@ def run_continuous(args, cfg, model, trace=None, reuse=None):
     return out
 
 
+def run_fixed(args, cfg, model):
+    """Fixed-batch serving (``repro/launch/serve.py:243-254``): COALA-
+    compress first with ``--compress-ratio`` > 0, then generate
+    ``--new-tokens`` from the pipeline's first batch (``--requests`` rows of
+    ``--prompt-len`` tokens, its vision prefix as extras for a vlm) through
+    ``ServeEngine`` in fp32. Returns the ``tokens`` (B, T0 + new), the
+    ``batch``, the served ``model``, the ``engine`` and the ``seconds``."""
+    seconds = {}
+    if args.compress_ratio > 0:
+        batches = calibration_batches(cfg, n_batches=2, batch=args.requests,
+                                      seq_len=args.prompt_len, seed=args.seed,
+                                      device=model.device)
+        model, _, _, _, _, secs = _compressed_params(model, batches,
+                                                     args.compress_ratio)
+        seconds.update(secs)
+    eng = ServeEngine(model)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=args.prompt_len,
+                                    global_batch=args.requests), cfg,
+                         device=model.device)
+    batch = pipe.get_batch(0)
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    out, seconds["serve_fixed"] = _seconds(model.device, lambda: eng.generate(
+        batch["tokens"], max_new_tokens=args.new_tokens, extras=extras or None,
+        temperature=args.temperature))
+    print(f"served {args.requests} requests x {args.new_tokens} tokens "
+          f"({seconds['serve_fixed']:.2f}s)")
+    print(out[:, -args.new_tokens:])
+    return {"tokens": out, "batch": batch, "model": model, "engine": eng,
+            "seconds": seconds}
+
+
 def main(argv=None, trace=None, reuse=None, cfg=None):
     """Command-line entry point; ``trace`` replaces the synthetic trace,
     ``reuse`` an earlier result supplies the models, the calibrator and the
-    compressed model (see ``run_continuous``, whose result it returns), and
-    ``cfg`` a ModelConfig replaces the one ``--arch``/``--smoke`` name (a
-    full-width configuration cut in depth, say)."""
+    compressed model (see ``run_continuous``, whose result it returns;
+    without ``--continuous``, ``run_fixed``'s), and ``cfg`` a ModelConfig
+    replaces the one ``--arch``/``--smoke`` name (a full-width configuration
+    cut in depth, say)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching over the paged KV cache (the "
-                         "only serving mode ported so far)")
+                    help="continuous batching over the paged KV cache")
     ap.add_argument("--compress-ratio", type=float, default=0.0)
     ap.add_argument("--draft-ratio", type=float, default=0.0,
                     help="self-speculative decoding: also build a harder-"
@@ -349,6 +439,14 @@ def main(argv=None, trace=None, reuse=None, cfg=None):
                          "before serving (CUDA graphs; nothing on the CPU)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature of every request (0 = greedy)")
+    ap.add_argument("--offline", action="store_true",
+                    help="serve the trace through the offline batch lane "
+                         "(run_offline: length-sorted admission, packed "
+                         "bucketed prefills) instead of staggered arrivals")
+    ap.add_argument("--detok-async", choices=("on", "off"), default="on",
+                    help="run detokenize + stream callbacks on the "
+                         "background worker thread (off: inline on the "
+                         "dispatch thread, the ordering oracle)")
     ap.add_argument("--calibrate-from-traffic", action="store_true",
                     help="stream a sampled fraction of served activations "
                          "into COALA calibration and hot-swap recompressed "
@@ -382,6 +480,11 @@ def main(argv=None, trace=None, reuse=None, cfg=None):
     ap.add_argument("--trace-max-events", type=int, default=0,
                     help="cap the tracer's in-memory events as a ring of "
                          "the most recent N (0 = unbounded)")
+    ap.add_argument("--telemetry-port", type=int, default=-1,
+                    help="serve live telemetry HTTP endpoints (/metrics, "
+                         "/healthz, /requests, /snapshot) from the running "
+                         "continuous engines on this port (0 picks an "
+                         "ephemeral port; -1 = off)")
     ap.add_argument("--flight-recorder", type=int, default=0,
                     help="record per-request lifecycle events into a ring "
                          "of this capacity and dump a postmortem bundle "
@@ -397,8 +500,6 @@ def main(argv=None, trace=None, reuse=None, cfg=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("only --continuous serving is ported so far")
     device = resolve_device(args.device)
     if args.trace_out:
         obs_trace.enable(max_events=args.trace_max_events or None)
@@ -410,14 +511,20 @@ def main(argv=None, trace=None, reuse=None, cfg=None):
         gen = torch.Generator(device=device).manual_seed(args.seed)
         model, init_s = _seconds(
             device, lambda: build_model(cfg, device=device).init(gen))
-    out = run_continuous(args, cfg, model, trace=trace, reuse=reuse)
+    if args.continuous:
+        out = run_continuous(args, cfg, model, trace=trace, reuse=reuse)
+    else:
+        out = run_fixed(args, cfg, model)
     if out is not None:
         out["seconds"]["init"] = init_s
     if args.trace_out:
         n = obs_trace.save(args.trace_out)
         obs_trace.disable()
         print(f"wrote {n} trace events to {args.trace_out}")
-    if args.metrics_out and out is not None:
+    if args.metrics_out and not args.continuous:
+        print("--metrics-out needs --continuous (registry lives on the "
+              "continuous engine); skipped")
+    elif args.metrics_out and out is not None:
         with open(args.metrics_out, "w") as f:
             f.write(out["engines"]["coala"].registry.prometheus())
         print(f"wrote metrics exposition to {args.metrics_out}")

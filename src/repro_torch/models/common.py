@@ -1,6 +1,7 @@
 """Shared model building blocks: parallel context, norms (RMSNorm and olmo's
-non-parametric LayerNorm), RoPE, softcap, activations, init (port of
-``repro/models/common.py:11-36`` and ``:84-185``)."""
+non-parametric LayerNorm), RoPE and qwen2-vl's M-RoPE, softcap,
+activations, init (port of ``repro/models/common.py:11-36`` and
+``:84-185``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -99,6 +100,27 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     inv = rope_freqs(head_dim, theta, device=positions.device)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float,
+                  sections):
+    """Qwen2-VL M-RoPE (``repro/models/common.py:150-168``). position_ids:
+    (3, B, T) ints for the (t, h, w) streams; ``sections`` split the
+    head_dim // 2 frequency slots among them, in order. Returns cos/sin
+    (B, T, head_dim // 2). With one position broadcast to all three streams
+    it equals ``rope_cos_sin``."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    inv = rope_freqs(head_dim, theta, device=position_ids.device)
+    ang = position_ids[..., None].float() * inv      # (3, B, T, half)
+    splits, start = [], 0
+    for i, sec in enumerate(sections):
+        splits.append(ang[i, :, :, start:start + sec])
+        start += sec
+    ang_sel = torch.cat(splits, dim=-1)              # (B, T, half)
+    return torch.cos(ang_sel), torch.sin(ang_sel)
 
 
 def apply_rope(x, cos, sin):

@@ -3,7 +3,10 @@
 dense GQA (llama, mistral, smollm, olmo's non-parametric norms, minicpm's
 scaled embedding, residuals and logits, gemma2's local/global alternation,
 softcaps and sandwich norms), deepseek's MoE (dense-FFN prefix layers,
-then MoE FFNs) and deepseek-v2's MLA attention (``kv_lora_rank`` > 0).
+then MoE FFNs), deepseek-v2's MLA attention (``kv_lora_rank`` > 0) and
+qwen2-vl (family ``vlm``): a ``vision_proj`` of precomputed patch embeddings
+placed before the token embeddings, M-RoPE over positions broadcast to its
+three streams, and a loss that skips the vision positions.
 
 ``LM`` is an ``nn.Module`` with the reference's layer layout: ``prefix`` is
 a ``ModuleList`` of the unrolled leading layers (deepseek's first dense-FFN
@@ -12,11 +15,15 @@ layer period, each a ``ModuleDict`` of ``sub{j}`` blocks; a Python loop
 over them replaces ``lax.scan``. The ``state_dict`` names are the JAX
 parameter paths with ``/`` replaced by ``.`` (``blocks/3/sub0/mixer/wq/w``
 -> ``blocks.3.sub0.mixer.wq.w``, ``prefix/0/ffn/up/w`` ->
-``prefix.0.ffn.up.w``), which keeps ``convert.py`` mechanical. The serving
-cache is a list with one dict of page stores per layer, prefix layers
-first: ``{"k", "v"}`` (num_blocks, bs, Hkv, hd) for GQA, the latents
-``{"c": (num_blocks, bs, kv_lora_rank), "k_rope": (num_blocks, bs,
-qk_rope_dim)}`` for MLA.
+``prefix.0.ffn.up.w``), which keeps ``convert.py`` mechanical. A serving
+cache is a list with one dict per layer, prefix layers first: the paged
+stores of ``init_cache`` — ``{"k", "v"}`` (num_blocks, bs, Hkv, hd) for GQA,
+the latents ``{"c": (num_blocks, bs, kv_lora_rank), "k_rope": (num_blocks,
+bs, qk_rope_dim)}`` for MLA — read through block tables by
+``prefill_chunk``, ``verify_chunk`` and ``decode_step``; or the contiguous
+(batch, max_len, ...) cache of ``init_contiguous_cache`` (the JAX
+``init_cache``), filled by ``prefill`` and read by ``decode_step`` at a
+scalar position without block tables.
 
 Every parameter is trainable (``LM.loss`` under autograd); the inference
 entry points run under ``torch.no_grad``.
@@ -33,7 +40,8 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import (CPU_CTX, ParallelCtx, dense_init,
-                                       make_norm, rope_cos_sin, softcap)
+                                       make_norm, mrope_cos_sin, rope_cos_sin,
+                                       softcap)
 from repro_torch.models.ffn import MLP, ExpertBank, MoE
 from repro_torch.models.linear import Linear
 
@@ -141,14 +149,16 @@ class Block(torch.nn.Module):
 
 class LM(torch.nn.Module):
     """Attention-only decoder: training loss, calibration forward, batched
-    paged prefill and paged decode."""
+    paged prefill and paged decode, and a prefill and decode over a
+    contiguous cache."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense and moe only)")
+                f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
+                "only)")
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -157,6 +167,11 @@ class LM(torch.nn.Module):
         self.final_norm = make_norm(cfg, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab_size, **kw)
+        # qwen2-vl's projection of the vision prefix; not a compression
+        # target (the reference's COMPRESSIBLE_KEYS leave it dense)
+        self.vision_proj = (Linear(cfg.d_model, cfg.d_model, **kw)
+                            if cfg.family == "vlm" and cfg.n_vision_tokens
+                            else None)
         prefix, period, n_rep = period_specs(cfg)
         self.prefix = torch.nn.ModuleList([Block(cfg, spec, **kw)
                                            for spec in prefix])
@@ -205,34 +220,70 @@ class LM(torch.nn.Module):
         """Per-layer page stores: {"k", "v"} (num_blocks, bs, Hkv, hd), or
         MLA's latents {"c": (num_blocks, bs, kv_lora_rank), "k_rope":
         (num_blocks, bs, qk_rope_dim)}."""
+        return self._cache_stores((num_blocks, block_size), dtype)
+
+    def init_contiguous_cache(self, batch: int, max_len: int,
+                              dtype=torch.float32) -> List[dict]:
+        """The JAX ``LM.init_cache(batch, max_len)``
+        (``repro/models/transformer.py:244-253``) under its own name, since
+        ``init_cache`` here means the paged stores: the same per-layer
+        stores with (batch, max_len) leading dims, zeros. ``prefill`` fills
+        it and ``decode_step`` without block tables reads it."""
+        return self._cache_stores((batch, max_len), dtype)
+
+    def _cache_stores(self, lead: tuple, dtype) -> List[dict]:
         cfg = self.cfg
-        nb, bs = num_blocks, block_size
         if cfg.kv_lora_rank:
-            shapes = {"c": (nb, bs, cfg.kv_lora_rank),
-                      "k_rope": (nb, bs, cfg.qk_rope_dim)}
+            shapes = {"c": lead + (cfg.kv_lora_rank,),
+                      "k_rope": lead + (cfg.qk_rope_dim,)}
         else:
-            kv = (nb, bs, cfg.n_kv_heads, cfg.head_dim)
+            kv = lead + (cfg.n_kv_heads, cfg.head_dim)
             shapes = {"k": kv, "v": kv}
         return [{name: torch.zeros(shape, dtype=dtype, device=self.device)
                  for name, shape in shapes.items()}
                 for _ in range(cfg.n_layers)]
 
-    # ---------------- backbone ----------------------------------------------
-    def _backbone(self, tokens, *, ctx: ParallelCtx = CPU_CTX,
-                  compute_dtype=None, cache=None, pos=None, paged_tables=None,
-                  lens=None):
-        """Final-normed hidden states and the summed MoE aux loss."""
-        cfg = self.cfg
+    # ---------------- embedding & positions ---------------------------------
+    def _embed(self, tokens, vision_embeds=None):
+        """Token embeddings (minicpm's scale applied), with a vlm's projected
+        vision prefix (B, n_vision, d_model) placed before them."""
         x = self.embed[tokens.long()]
-        if cfg.scale_emb != 1.0:
-            x = x * cfg.scale_emb
+        if self.cfg.scale_emb != 1.0:
+            x = x * self.cfg.scale_emb
+        if vision_embeds is not None:
+            v = torch.as_tensor(vision_embeds, device=self.device).to(x.dtype)
+            if self.vision_proj is not None:
+                v = self.vision_proj(v)
+            x = torch.cat([v, x], dim=1)
+        return x
+
+    def _cos_sin(self, batch: int, t: int, pos=None):
+        """RoPE tables of positions ``pos`` + 0..t-1 (``pos`` None: 0; a
+        scalar; or (B,) per row); M-RoPE over the positions broadcast to its
+        three streams when ``mrope_sections`` are set, as the reference's
+        serving and training paths do."""
+        cfg = self.cfg
+        ar = torch.arange(t, device=self.device)
+        if pos is None:
+            positions = ar
+        elif torch.is_tensor(pos) and pos.ndim == 1:
+            positions = pos.long()[:, None] + ar
+        else:
+            positions = ar + pos
+        if cfg.mrope_sections != (0, 0, 0):
+            return mrope_cos_sin(positions.expand(3, batch, t), cfg.head_dim,
+                                 cfg.rope_theta, cfg.mrope_sections)
+        rope_dim = cfg.qk_rope_dim if cfg.kv_lora_rank else cfg.head_dim
+        return rope_cos_sin(positions, rope_dim, cfg.rope_theta)
+
+    # ---------------- backbone ----------------------------------------------
+    def _backbone(self, x, *, ctx: ParallelCtx = CPU_CTX, compute_dtype=None,
+                  cache=None, pos=None, paged_tables=None, lens=None):
+        """Final-normed hidden states and the summed MoE aux loss of the
+        embedded sequence ``x`` (B, T, d_model; see ``_embed``)."""
         if compute_dtype is not None:
             x = x.to(compute_dtype)
-        t = tokens.shape[1]
-        ar = torch.arange(t, device=self.device)
-        positions = ar if pos is None else pos.long()[:, None] + ar
-        rope_dim = cfg.qk_rope_dim if cfg.kv_lora_rank else cfg.head_dim
-        cos_sin = rope_cos_sin(positions, rope_dim, cfg.rope_theta)
+        cos_sin = self._cos_sin(x.shape[0], x.shape[1], pos)
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, blk in enumerate(self.layers()):
             x, aux = blk(x, cos_sin, cache=None if cache is None else cache[i],
@@ -255,34 +306,43 @@ class LM(torch.nn.Module):
         return self._logit_transform((h @ self._head_w().to(h.dtype)).float())
 
     # ---------------- public: train loss ------------------------------------
-    def loss(self, tokens, *, ctx: ParallelCtx = CPU_CTX, loss_chunk: int = 512,
-             compute_dtype=torch.bfloat16
+    def loss(self, tokens, *, vision_embeds=None, ctx: ParallelCtx = CPU_CTX,
+             loss_chunk: int = 512, compute_dtype=torch.bfloat16
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token CE of ``tokens`` (B, T) with activations in
         ``compute_dtype``; returns ``(ce + aux, {"ce", "aux"})`` (aux is the
-        MoE layers' weighted load-balance loss, 0 for dense models).
-        Differentiable unless ``ctx`` selects the flash kernel, which has no
-        backward: evaluate that under ``no_grad``."""
-        h, aux = self._backbone(tokens, ctx=ctx, compute_dtype=compute_dtype)
-        ce = chunked_ce(h[:, :-1], tokens[:, 1:], self._head_w(),
+        MoE layers' weighted load-balance loss, 0 for dense models). A vlm
+        takes ``vision_embeds`` (B, n_vision_tokens, d_model) and, as the
+        reference does, leaves the first ``n_vision_tokens`` positions out
+        of the CE. Differentiable unless ``ctx`` selects the flash kernel,
+        which has no backward: evaluate that under ``no_grad``."""
+        cfg = self.cfg
+        h, aux = self._backbone(self._embed(tokens, vision_embeds), ctx=ctx,
+                                compute_dtype=compute_dtype)
+        n_vis = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+        ce = chunked_ce(h[:, n_vis:][:, :-1], tokens[:, 1:], self._head_w(),
                         transform=self._logit_transform, chunk=loss_chunk)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------------- public: inference --------------------------------------
     @torch.no_grad()
-    def logits(self, tokens):
-        """Full-sequence causal logits (B, T, vocab) without a cache."""
-        return self._logits(self._backbone(tokens)[0])
+    def logits(self, tokens, vision_embeds=None):
+        """Full-sequence causal logits (B, T, vocab) without a cache (T
+        counts a vlm's vision prefix)."""
+        return self._logits(self._backbone(self._embed(tokens,
+                                                       vision_embeds))[0])
 
     @torch.no_grad()
     def capture_forward(self, tokens, calibrator, *,
                         ctx: ParallelCtx = CPU_CTX,
-                        compute_dtype=torch.float32):
+                        compute_dtype=torch.float32, vision_embeds=None):
         """Forward that streams every target linear's input activations into
         ``calibrator`` (per-layer R factors, never X), activations in
-        ``compute_dtype``. Returns the final hidden states."""
+        ``compute_dtype``; a vlm's ``vision_embeds`` prefix goes through it
+        too, so calibration sees the vision positions. Returns the final
+        hidden states."""
         with calibrator.capture(self):
-            return self._backbone(tokens, ctx=ctx,
+            return self._backbone(self._embed(tokens, vision_embeds), ctx=ctx,
                                   compute_dtype=compute_dtype)[0]
 
     @torch.no_grad()
@@ -301,6 +361,19 @@ class LM(torch.nn.Module):
                                     compute_dtype=compute_dtype)
 
     @torch.no_grad()
+    def prefill(self, tokens, cache, *, vision_embeds=None,
+                ctx: ParallelCtx = CPU_CTX, compute_dtype=None):
+        """Prefill a contiguous cache from ``init_contiguous_cache``: tokens
+        (B, T) after a vlm's ``vision_embeds`` prefix (B, n_vis, d_model)
+        fill positions [0, n_vis + T) of every layer's cache in place, in the
+        cache's dtype, attending through ``sdpa`` (the flash kernel under
+        ``ctx.use_pallas``); activations in ``compute_dtype`` (None: the
+        embedding's). Returns the logits at the last position, (B, vocab)."""
+        h, _ = self._backbone(self._embed(tokens, vision_embeds), ctx=ctx,
+                              compute_dtype=compute_dtype, cache=cache)
+        return self._logits(h[:, -1])
+
+    @torch.no_grad()
     def prefill_chunk(self, tokens, cache, pos, lens, block_tables, *,
                       compute_dtype=None):
         """Prefill a batch of suffix chunks at per-request cache offsets.
@@ -311,8 +384,9 @@ class LM(torch.nn.Module):
         written into the page stores of ``cache`` in place, in the stores'
         dtype; activations are in ``compute_dtype`` (None: the embedding's).
         Returns the logits at each row's last valid token, (B, vocab)."""
-        h, _ = self._backbone(tokens, compute_dtype=compute_dtype, cache=cache,
-                              pos=pos, paged_tables=block_tables, lens=lens)
+        h, _ = self._backbone(self._embed(tokens), compute_dtype=compute_dtype,
+                              cache=cache, pos=pos, paged_tables=block_tables,
+                              lens=lens)
         idx = torch.clamp(lens.long() - 1, min=0)
         h_last = h[torch.arange(h.shape[0], device=h.device), idx]
         return self._logits(h_last)
@@ -326,15 +400,19 @@ class LM(torch.nn.Module):
         ``pos[i]`` (the request's cache length), so ``logits[:, j]`` is the
         target's next-token distribution after position ``pos + j``, which
         accept/reject compares with proposal ``d_{j+1}``."""
-        h, _ = self._backbone(tokens, compute_dtype=compute_dtype, cache=cache,
-                              pos=pos, paged_tables=block_tables, lens=lens)
+        h, _ = self._backbone(self._embed(tokens), compute_dtype=compute_dtype,
+                              cache=cache, pos=pos, paged_tables=block_tables,
+                              lens=lens)
         return self._logits(h)
 
     @torch.no_grad()
-    def decode_step(self, tokens, cache, pos, block_tables, *,
+    def decode_step(self, tokens, cache, pos, block_tables=None, *,
                     compute_dtype=None):
-        """tokens (B, 1); pos (B,) int32 positions being written; returns the
-        next-token logits (B, vocab) and writes K/V into the pages."""
-        h, _ = self._backbone(tokens, compute_dtype=compute_dtype, cache=cache,
-                              pos=pos, paged_tables=block_tables)
+        """tokens (B, 1); returns the next-token logits (B, vocab). With
+        ``block_tables`` (B, nb): pos (B,) int32 positions being written, K/V
+        written into the pages of ``cache``. Without: ``cache`` is contiguous
+        (``init_contiguous_cache``) and pos one scalar position of every
+        row, written there and attended over the whole cache."""
+        h, _ = self._backbone(self._embed(tokens), compute_dtype=compute_dtype,
+                              cache=cache, pos=pos, paged_tables=block_tables)
         return self._logits(h)[:, 0]

@@ -1,6 +1,11 @@
-"""Continuous-batching serving engine over the paged KV pool (port of
-``repro/serve/engine.py:118-131``, ``:209-643``, ``:765-1118`` and
-``:1223-1444``).
+"""Serving engines (port of ``repro/serve/engine.py``): the fixed-batch
+``ServeEngine`` (``:130-185``) and the continuous-batching
+``ContinuousEngine`` over the paged KV pool (``:209-1632``).
+
+``ServeEngine`` is the reference's original loop: one synchronized batch, a
+contiguous cache (``LM.init_contiguous_cache``), one prefill (the flash
+kernel on the GPU) and plain decode steps at one shared position, eagerly.
+It is the oracle the continuous engine's greedy tokens are held against.
 
 ``submit()`` enqueues a request; each ``step()`` admits whatever fits
 (scheduler + block pool), looks up each joiner's longest cached block-aligned
@@ -22,6 +27,20 @@ re-prefilled. Each row samples with its own temperature (greedy at 0) from
 a generator seeded by (request seed, output index), so a preempted request
 resumes on the same trajectory; a request stops at ``max_new_tokens`` or
 ``eos_id``. ``fork()`` clones a running request copy-on-write (best-of-n).
+
+Per-request prefill: a request with ``extras`` (a vlm's ``vision_embeds``
+prefix) is not cacheable and does not take the batched chunked prefill.
+``step()`` prefills it alone over a contiguous cache (``LM.prefill``: the
+flash kernel on the GPU, launched or raising) and writes its first
+``vis_offset + len(tokens)`` positions into its pages
+(``BlockPool.scatter_prefill``); its decode steps then go through the
+same signatures and graphs as every other request, at ``cache_len =
+vis_offset + len(tokens)``. That prefill runs eagerly, not as a captured
+graph, since its length varies by request: it is no capture, so
+``post_warmup_compiles`` stays 0 with vision requests in the trace
+(``request_prefills`` counts these calls). A preempted vision request is
+prefilled again over prompt + output with its extras. Speculation serves
+only cacheable requests.
 
 CUDA graphs take the place of the JAX engine's jit cache. Every step runs
 one of a closed set of signatures — decode ``(b_pad, nb_pad)``, prefill
@@ -86,8 +105,17 @@ layer's capacity comes from the step's padded token count, so a signature
 fixes it and its graph is static; its combine adds without atomics, so a
 replay gives the eager engine's bits.
 
-Waiting for later slices: async detokenize and streaming, the live HTTP
-telemetry endpoints, the offline lane and the fixed-batch engine.
+Host pipeline (``serve/detokenize.py``): every emitted token goes through
+``_emit_stream`` — from the per-request prefill, the batched prefill, decode
+and the speculative round, at the JAX engine's places — to a background
+worker that detokenizes it (``detokenizer``) and runs the request's
+``stream_callback`` in emission order (``async_detok``, on by default; off:
+inline, the ordering oracle). The worker gets Python ints, never a tensor a
+graph owns. ``run()`` and ``run_offline()`` (the MLPerf-style offline lane:
+prompts sorted longest first so same-bucket prompts prefill together,
+results in input order) flush it before returning; ``stream()`` yields
+finished requests as they finish. ``last_step_time`` and ``warmed`` are what
+``obs.TelemetryServer``'s ``/healthz`` reads.
 """
 from __future__ import annotations
 
@@ -97,7 +125,7 @@ import gc
 import math
 import time
 import weakref
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,10 +134,12 @@ from repro_torch.kernels import lowrank_linear as _ll
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.models.attention import MLA
+from repro_torch.models.common import ParallelCtx
 from repro_torch.models.ffn import ExpertBank
 from repro_torch.models.linear import Linear
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import LATENCY_BUCKETS, Registry
+from repro_torch.serve.detokenize import DetokenizeWorker, deliver
 from repro_torch.serve.paged_cache import BlockPool
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -201,6 +231,72 @@ def compute_copy(model, dtype):
     return copy.deepcopy(model, memo)
 
 
+def _vis_offset(model, extras) -> int:
+    """Cache positions a request's vision prefix takes (a vlm's
+    ``vision_embeds`` (1, n_vis, d_model)), 0 otherwise."""
+    if (extras and "vision_embeds" in extras
+            and model.cfg.family == "vlm"):
+        return int(extras["vision_embeds"].shape[1])
+    return 0
+
+
+class ServeEngine:
+    """Fixed-batch generation (``repro/serve/engine.py:130-185``): every
+    row prefills together over one contiguous cache (``LM.prefill``; on the
+    GPU its attention is the flash kernel, ``ParallelCtx(use_pallas=True)``)
+    and decodes in lockstep at one shared position (``LM.decode_step``
+    without block tables: plain attention over the whole cache), eagerly.
+    ``compute_dtype``/``cache_dtype`` as in ``ContinuousEngine``."""
+
+    def __init__(self, model, *, compute_dtype=None, cache_dtype=None):
+        self.model = model
+        self.device = model.device
+        self.compute_dtype = compute_dtype or model.dtype
+        self.cache_dtype = cache_dtype or model.dtype
+        self._target = compute_copy(model, self.compute_dtype)
+        self.ctx = ParallelCtx(use_pallas=self.device.type == "cuda")
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens, max_new_tokens: int, *,
+                 extras: Optional[Dict] = None, temperature: float = 0.0,
+                 seed: int = 0) -> np.ndarray:
+        """prompt_tokens (B, T0) ints -> (B, T0 + max_new_tokens) int32 on
+        the host. ``extras``: model inputs (B, ...) — a vlm's
+        ``vision_embeds``, whose prefix takes the first cache positions, so
+        the decode positions are offset by its length. Greedy at
+        ``temperature`` <= 0, else row i samples from generators seeded by
+        (``seed`` + i, output index)."""
+        prompts = torch.as_tensor(prompt_tokens).to(self.device, torch.int32)
+        b, t0 = prompts.shape
+        extras = dict(extras or {})
+        vis = _vis_offset(self.model, extras)
+        model, cd = self._target, self.compute_dtype
+        cache = model.init_contiguous_cache(b, vis + t0 + max_new_tokens,
+                                            dtype=self.cache_dtype)
+        logits = model.prefill(prompts, cache, ctx=self.ctx, compute_dtype=cd,
+                               **extras)
+        out = [prompts.cpu().numpy()]
+        tok = self._sample(logits, temperature, seed, 0)
+        for i in range(max_new_tokens):
+            out.append(tok)
+            if i == max_new_tokens - 1:
+                break
+            logits = model.decode_step(torch.as_tensor(tok, device=self.device),
+                                       cache, vis + t0 + i, compute_dtype=cd)
+            tok = self._sample(logits, temperature, seed, i + 1)
+        return np.concatenate(out, axis=1).astype(np.int32)
+
+    @staticmethod
+    def _sample(logits, temperature: float, seed: int, index: int):
+        b = logits.shape[0]
+        if temperature <= 0.0:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = sample_rows(logits, [temperature] * b,
+                              [seed + i for i in range(b)], [index] * b)
+        return nxt.cpu().numpy().astype(np.int32)[:, None]
+
+
 def _weak_gauge(obj, read):
     """A gauge callback returning ``read(obj)`` that does not keep ``obj``
     alive (nan once it is gone). The registry belongs to ``obj``: a strong
@@ -283,14 +379,19 @@ class ContinuousEngine:
                  draft_model=None, spec_k: int = 4,
                  slo_ttft_s: Optional[float] = None,
                  slo_tpot_s: Optional[float] = None,
-                 flight_recorder=None):
+                 flight_recorder=None,
+                 detokenizer: Optional[Callable[[int], str]] = None,
+                 async_detok: Optional[bool] = None):
         """``compute_dtype``/``cache_dtype``: activations and KV pool (None:
         the model's dtype; the JAX engine's defaults are bf16 for both).
         ``draft_model``: an ``LM`` of the target's config, served as the
         speculative draft proposing ``spec_k`` tokens a round.
         ``slo_ttft_s``/``slo_tpot_s``: latency SLOs feeding the goodput
         gauge (None: met by every request). ``flight_recorder``: an
-        ``obs.FlightRecorder`` receiving the lifecycle events."""
+        ``obs.FlightRecorder`` receiving the lifecycle events.
+        ``detokenizer``: token id -> text piece, accumulated into each
+        request's ``text``; ``async_detok`` (None = on) runs it and the
+        stream callbacks on a background worker, off inline."""
         self.model = model
         self.draft_model = draft_model
         self.device = model.device
@@ -311,6 +412,9 @@ class ContinuousEngine:
         self.slo_tpot_s = slo_tpot_s
         self._step_idx = 0
         self._swap_epoch = 0
+        # /healthz: readiness (warmup done, or a step taken) and liveness
+        self.last_step_time: Optional[float] = None
+        self.warmed = False
         self.block_size = block_size
         # every model the port serves is a pure-attention LM, so the
         # chunked suffix prefill a cached prefix needs is always there
@@ -323,6 +427,15 @@ class ContinuousEngine:
         self.cuda_graphs = is_cuda if cuda_graphs is None else cuda_graphs
         if self.cuda_graphs and not is_cuda:
             raise ValueError("cuda_graphs needs a model on a CUDA device")
+        # the per-request prefill's attention: the flash kernel on the card
+        self._prefill_ctx = ParallelCtx(use_pallas=is_cuda)
+        self.request_prefills = 0       # per-request (contiguous) prefills
+        # async host pipeline: detokenize + stream callbacks on the worker's
+        # thread (started at the first emission); off = inline delivery
+        self.detokenizer = detokenizer
+        self.async_detok = True if async_detok is None else async_detok
+        self._detok = (DetokenizeWorker(detokenizer) if self.async_detok
+                       else None)
         # one registry per engine: the pool and the scheduler register
         # their own series into it, and metrics() is a view over it
         self.registry = Registry()
@@ -442,14 +555,27 @@ class ContinuousEngine:
     # ------------------------------------------------------------------ API
     def submit(self, prompt_tokens, max_new_tokens: int, *,
                temperature: float = 0.0, seed: int = 0,
-               eos_id: Optional[int] = None) -> int:
+               eos_id: Optional[int] = None,
+               extras: Optional[Dict] = None,
+               stream_callback: Optional[Callable] = None) -> int:
         """Enqueue one request; returns its id. ``temperature`` <= 0 is
         greedy; ``seed`` keys the request's samples; generation stops after
-        ``max_new_tokens`` or at ``eos_id``."""
+        ``max_new_tokens`` or at ``eos_id``. ``extras``: per-request model
+        inputs shaped (1, ...) — a vlm's ``vision_embeds`` — which make the
+        request non-cacheable (prefilled alone, see the module docstring).
+        ``stream_callback`` receives a ``StreamEvent`` per emitted token (on
+        the detokenize worker's thread unless ``async_detok=False``)."""
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        vis = _vis_offset(self.model, extras)
         req = Request(req_id=self._next_id, prompt=prompt,
                       max_new_tokens=max_new_tokens, temperature=temperature,
-                      seed=seed, eos_id=eos_id, cacheable=True)
+                      seed=seed, eos_id=eos_id, extras=extras, vis_offset=vis,
+                      cacheable=not extras and vis == 0,
+                      stream_callback=stream_callback)
+        if self._spec and not req.cacheable:
+            raise ValueError(
+                "speculative decoding serves text-only chunked-prefill "
+                "requests (no extras / vision prefixes)")
         # a verify round transiently writes up to spec_k positions past the
         # budget before rollback: the headroom admission reserves
         need = self.pool.blocks_for(req.cache_budget()
@@ -489,6 +615,7 @@ class ContinuousEngine:
                 self.flight.record("step_exception", error=repr(e))
                 self.dump_postmortem("step_exception")
             raise
+        self.last_step_time = time.perf_counter()
         return done
 
     def _step_inner(self) -> List[Request]:
@@ -500,6 +627,9 @@ class ContinuousEngine:
         admitted = self.scheduler.admit()
         groups: Dict[int, list] = {}
         for req in admitted:
+            if not req.cacheable:
+                self._prefill_request(req)            # extras (vision prefix)
+                continue
             toks = req.prefill_tokens()
             cached = self.pool.alloc(req.req_id, len(toks), tokens=toks)
             if self._spec and self.draft_pool.alloc(
@@ -528,11 +658,76 @@ class ContinuousEngine:
                         else self._decode_step(running))
         return done
 
-    def run(self) -> List[Request]:
-        out: List[Request] = []
+    def stream(self) -> Iterator[Request]:
+        """Drive steps until the queue drains, yielding finished requests.
+        With the async pipeline on, a yielded request's ``text`` and
+        callbacks may still be in flight: ``flush_stream()`` (which
+        ``run()`` calls) waits for them."""
         while self.has_work():
-            out.extend(self.step())
+            yield from self.step()
+
+    def flush_stream(self) -> None:
+        """Block until every emitted token's detokenize/callback work has
+        been delivered by the worker (no-op when synchronous)."""
+        if self._detok is not None:
+            self._detok.flush()
+
+    def run(self) -> List[Request]:
+        out = list(self.stream())
+        self.flush_stream()
         return out
+
+    def run_offline(self, requests, *, sort_by_length: bool = True
+                    ) -> List[Request]:
+        """MLPerf-style offline batch lane (``repro/serve/engine.py:
+        714-763``): ``requests`` are ``(prompt_tokens, max_new_tokens)``
+        pairs or dicts of ``submit()`` kwargs, all enqueued up front, longest
+        prompt first, so prompts landing in the same suffix-length bucket
+        are admitted together and share batched prefill calls; the engine
+        then drives itself to drain and flushes the stream pipeline.
+        Returns the finished requests in *input* order."""
+        norm = []
+        for r in requests:
+            if isinstance(r, dict):
+                norm.append(dict(r))
+            else:
+                prompt, n = r
+                norm.append({"prompt_tokens": prompt, "max_new_tokens": n})
+        order = list(range(len(norm)))
+        if sort_by_length:
+            order.sort(key=lambda i: -len(
+                np.asarray(norm[i]["prompt_tokens"]).reshape(-1)))
+        with trace.span("serve.run_offline", requests=len(norm)):
+            ids = {i: self.submit(**norm[i]) for i in order}
+            while self.has_work():
+                self.step()
+            self.flush_stream()
+        by_id = {r.req_id: r for r in self.finished}
+        return [by_id[ids[i]] for i in range(len(norm))]
+
+    def generate(self, prompt_tokens, max_new_tokens: int, *,
+                 extras: Optional[Dict] = None, temperature: float = 0.0,
+                 seed: int = 0) -> np.ndarray:
+        """Fixed-batch convenience wrapper matching ``ServeEngine.generate``
+        (``repro/serve/engine.py:969-990``): submits every row (row i's
+        extras sliced to (1, ...), seed ``seed`` + i), runs to completion and
+        returns (B, T0 + new) int32, rows stopped early padded with 0."""
+        prompts = (prompt_tokens.cpu().numpy() if torch.is_tensor(prompt_tokens)
+                   else np.asarray(prompt_tokens)).astype(np.int32)
+        ids = []
+        for i in range(prompts.shape[0]):
+            ex = ({k: v[i:i + 1] for k, v in extras.items()} if extras
+                  else None)
+            ids.append(self.submit(prompts[i], max_new_tokens,
+                                   temperature=temperature, seed=seed + i,
+                                   extras=ex))
+        by_id = {r.req_id: r for r in self.run() if r.req_id in set(ids)}
+        rows = []
+        for i, rid in enumerate(ids):
+            out = np.asarray(by_id[rid].out_tokens, np.int32)
+            out = np.pad(out, (0, max_new_tokens - len(out)))   # early EOS
+            rows.append(np.concatenate([prompts[i], out]))
+        return np.stack(rows).astype(np.int32)
 
     def fork(self, req_id: int, *, temperature: Optional[float] = None,
              seed: Optional[int] = None) -> int:
@@ -556,7 +751,8 @@ class ContinuousEngine:
             max_new_tokens=parent.max_new_tokens,
             temperature=parent.temperature if temperature is None
             else temperature,
-            seed=seed, eos_id=parent.eos_id, cacheable=parent.cacheable)
+            seed=seed, eos_id=parent.eos_id, extras=parent.extras,
+            vis_offset=parent.vis_offset, cacheable=parent.cacheable)
         self._next_id += 1
         child.out_tokens = list(parent.out_tokens)
         child.cache_len = parent.cache_len
@@ -732,6 +928,7 @@ class ContinuousEngine:
                         self._graph(("dprefill", b, l, nb))
                 torch.cuda.synchronize(self.device)
         self._warmed = sum(self._captures.values())
+        self.warmed = True                  # /healthz readiness flips here
         dt = time.perf_counter() - t0
         self._warmup_seconds += dt
         return {"warmup_seconds": dt, "max_len": float(max_len),
@@ -905,6 +1102,51 @@ class ContinuousEngine:
                                 config=config, path=path)
 
     # ------------------------------------------------------------ internals
+    def _emit_stream(self, req: Request, token: int, done: bool) -> None:
+        """Hand one emitted token (a Python int) to the host pipeline:
+        queued for the worker, or delivered inline with ``async_detok``
+        off. Nothing to do without a detokenizer and a callback."""
+        if self.detokenizer is None and req.stream_callback is None:
+            return
+        index = len(req.out_tokens) - 1
+        if self._detok is not None:
+            self._detok.submit(req, token, index, done)
+        else:
+            deliver(req, token, index, done, self.detokenizer)
+
+    def _prefill_request(self, req: Request) -> None:
+        """Prefill one non-cacheable request alone (``repro/serve/
+        engine.py:1249-1273``): its vision prefix and tokens (prompt, plus
+        the output after a preemption) over a contiguous cache of its
+        table's length, eagerly through ``LM.prefill`` (no graph: the length
+        varies by request), then the first ``vis_offset + len(tokens)``
+        positions into its pages."""
+        with trace.span("serve.prefill_request", req_id=req.req_id,
+                        tokens=len(req.prompt)):
+            tokens = req.prefill_tokens()
+            l0 = req.vis_offset + len(tokens)
+            self.pool.alloc(req.req_id, l0)
+            nb = len(self.pool.table(req.req_id))
+            model = self._target
+            cache = model.init_contiguous_cache(1, nb * self.block_size,
+                                                dtype=self.cache_dtype)
+            logits = model.prefill(
+                torch.as_tensor(tokens, device=self.device)[None], cache,
+                ctx=self._prefill_ctx, compute_dtype=self.compute_dtype,
+                **(req.extras or {}))
+            self.pool.scatter_prefill([req.req_id], cache, l0)
+            self.request_prefills += 1
+            req.cache_len = l0
+            tok = int(self._sample_tokens(logits, [req])[0])
+            req.out_tokens.append(tok)
+            self._emit_stream(req, tok, req.done)
+            if req.first_token_time is None:
+                req.first_token_time = time.perf_counter()
+                self._h_ttft.observe(req.ttft)
+                if self.flight is not None:
+                    self.flight.record("first_token", req_id=req.req_id,
+                                       ttft_s=req.ttft)
+
     def _finish(self, req: Request) -> None:
         self.scheduler.evict(req)
         if self._spec:
@@ -1147,6 +1389,7 @@ class ContinuousEngine:
         for r, start, ln_i, t in zip(reqs, starts, lens, nxt):
             r.cache_len = start + ln_i
             r.out_tokens.append(int(t))
+            self._emit_stream(r, int(t), r.done)
             if r.first_token_time is None:
                 r.first_token_time = now
                 self._h_ttft.observe(r.ttft)
@@ -1199,6 +1442,7 @@ class ContinuousEngine:
         for r, t in zip(running, nxt):
             r.cache_len += 1
             r.out_tokens.append(int(t))
+            self._emit_stream(r, int(t), r.done)
             if (self.prefix_cache and r.cacheable
                     and r.cache_len % self.block_size == 0):
                 # a generated block just filled: register it so identical
@@ -1310,7 +1554,9 @@ class ContinuousEngine:
             # rejected proposals wrote
             self.pool.truncate(r.req_id, r.cache_len)
             self.draft_pool.truncate(r.req_id, r.cache_len)
-            r.out_tokens.extend(keep)
+            for t in keep:
+                r.out_tokens.append(t)
+                self._emit_stream(r, t, r.done)
             emitted += len(keep)
             if self.prefix_cache and r.cacheable:
                 committed = r.prefill_tokens()[:r.cache_len]

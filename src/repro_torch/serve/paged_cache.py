@@ -36,7 +36,8 @@ The host-side accounting is the JAX pool's, line for line, and so are its
 one standalone), of which ``stats`` is a view. What the port leaves out:
 the recurrent-state slot stores (the port serves only pure-attention LMs, so
 ``fork`` copies no state slot), ``CacheLayout.probe`` and the gather/scatter
-oracle path.
+oracle path. ``scatter_prefill`` writes a per-request prefill's contiguous
+cache (a vlm request with its vision prefix) into the request's pages.
 """
 from __future__ import annotations
 
@@ -372,6 +373,21 @@ class BlockPool:
             self._decref(b)
         self._free_slots.append(self._slots.pop(req_id))
         self._chain.pop(req_id, None)
+
+    def scatter_prefill(self, req_ids, cache, n_tokens: int) -> None:
+        """Write positions [0, n_tokens) of a freshly prefilled contiguous
+        cache (``LM.init_contiguous_cache``; row i for ``req_ids[i]``) into
+        the rows' pages, every store of every layer, with ``index_put_``
+        (``repro/serve/paged_cache.py:573-581``; the rest of the last page
+        stays as the claim zeroed it)."""
+        p = torch.arange(n_tokens, device=self.device)
+        for i, rid in enumerate(req_ids):
+            table = torch.as_tensor(self._tables[rid], device=self.device)
+            idx = (table[p // self.block_size], p % self.block_size)
+            for stores, layer in zip(self.pages, cache):
+                for name, store in stores.items():
+                    store.index_put_(idx, layer[name][i, :n_tokens].to(
+                        store.dtype))
 
     def table(self, req_id: int) -> List[int]:
         return list(self._tables[req_id])

@@ -23,12 +23,16 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Deque, List, Optional
+from typing import Callable, Deque, List, Optional
 
 import numpy as np
 
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import LATENCY_BUCKETS, Registry
+
+WAITING = "waiting"
+RUNNING = "running"
+FINISHED = "finished"
 
 
 @dataclasses.dataclass
@@ -40,8 +44,18 @@ class Request:
     temperature: float = 0.0
     seed: int = 0
     eos_id: Optional[int] = None
-    cacheable: bool = False                  # eligible for prefix caching
-    #                                          (set by the engine)
+    extras: Optional[dict] = None            # vision_embeds, (1, ...)
+    vis_offset: int = 0                      # vlm: vision-prefix cache positions
+    cacheable: bool = False                  # eligible for prefix caching and
+    #                                          batched suffix prefill (set by
+    #                                          the engine: no extras, text-only
+    #                                          cache positions)
+    stream_callback: Optional[Callable] = None  # per-token StreamEvent sink,
+    #                                          run on the detokenize worker
+    #                                          (or inline with async_detok off)
+    text: str = ""                           # detokenized output accumulated
+    #                                          by the detokenize pipeline
+    state: str = WAITING
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     cache_len: int = 0                       # logical positions written to cache
     admit_seq: int = -1                      # order of (latest) admission
@@ -75,7 +89,8 @@ class Request:
     def cache_budget(self) -> int:
         """Worst-case cache positions this request may still occupy."""
         remaining = self.max_new_tokens - len(self.out_tokens)
-        return len(self.prompt) + len(self.out_tokens) + max(remaining, 0)
+        return (self.vis_offset + len(self.prompt) + len(self.out_tokens)
+                + max(remaining, 0))
 
 
 class Scheduler:
@@ -114,6 +129,7 @@ class Scheduler:
         return int(self._c_preemptions.value)
 
     def submit(self, req: Request) -> None:
+        req.state = WAITING
         self.waiting.append(req)
 
     def has_work(self) -> bool:
@@ -143,6 +159,7 @@ class Scheduler:
                     break
                 reserved += need
                 self.waiting.popleft()
+                req.state = RUNNING
                 req.admit_seq = self._admit_seq
                 self._admit_seq += 1
                 self.running.append(req)
@@ -161,6 +178,7 @@ class Scheduler:
         set directly, bypassing the admission queue."""
         if len(self.running) >= self.max_running:
             raise ValueError("running set full")
+        req.state = RUNNING
         req.admit_seq = self._admit_seq
         self._admit_seq += 1
         self.running.append(req)
@@ -169,6 +187,7 @@ class Scheduler:
         """Finished request: free its blocks and leave the running set."""
         self.pool.free(req.req_id)
         self.running.remove(req)
+        req.state = FINISHED
         req.finish_time = time.perf_counter()
         if self.flight is not None:
             self.flight.record("evict", req_id=req.req_id,
@@ -184,6 +203,7 @@ class Scheduler:
                         generated=len(victim.out_tokens)):
             self.pool.free(victim.req_id)
             self.running.remove(victim)
+            victim.state = WAITING
             victim.cache_len = 0
             victim.preemptions += 1
             self._c_preemptions.inc()

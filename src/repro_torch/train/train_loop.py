@@ -34,7 +34,8 @@ def make_train_state(model, generator: Optional[torch.Generator] = None) -> dict
 
 def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
     """Returns ``train_step(state, batch) -> (state, metrics)`` with batch
-    ``{"tokens": (B, T) ints}``. ``ctx`` must not select the flash kernel,
+    ``{"tokens": (B, T) ints}`` (a vlm's also ``vision_embeds``, split into
+    the microbatches with the tokens). ``ctx`` must not select the flash kernel,
     which has no backward (its wrapper raises under autograd)."""
     compute_dtype = getattr(torch, tcfg.compute_dtype)
     mb = tcfg.microbatches
@@ -51,8 +52,11 @@ def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
             p.grad = None
         ce = torch.zeros((), dtype=torch.float32, device=tokens.device)
         aux = torch.zeros_like(ce)
-        for part in tokens.chunk(mb, dim=0):
-            loss, metrics = model_.loss(part, ctx=ctx,
+        vis = batch.get("vision_embeds")
+        parts = zip(tokens.chunk(mb, dim=0),
+                    vis.chunk(mb, dim=0) if vis is not None else [None] * mb)
+        for part, vpart in parts:
+            loss, metrics = model_.loss(part, vision_embeds=vpart, ctx=ctx,
                                         compute_dtype=compute_dtype)
             (loss / mb).backward()
             ce = ce + metrics["ce"].detach() / mb

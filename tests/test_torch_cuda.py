@@ -151,6 +151,8 @@ def fresh_paged_plan():
     (24, 8, 128, [700, 5], 12, 0.0, 0, None),            # G 3, hd 128, bs 12
     (8, 1, 32, [64, 1, 130], 4, 0.0, 0, 9),              # G 8, hd 32, bs 4
     (4, 4, 16, [50, 0], 4, 0.0, 24, 2),                  # G 1, hd 16
+    (12, 2, 128, [456, 300, 17, 1], 16, 0.0, 0, None),   # qwen2-vl: G 6, hd 128
+    (12, 2, 128, [456, 300, 17, 1], 16, 0.0, 0, 5),
 ])
 def test_paged_attention_cuda_splits(cuda, monkeypatch, fresh_paged_plan, dtype, tol, hq,
                                      hkv, hd, lengths, bs, cap, window, splits):
@@ -217,6 +219,7 @@ def _chunked_args(cuda, dtype, hq, hkv, hd, starts, lens, bs, seed=0):
     (8, 8, 128, [3, 100], [61, 70], 12, 0.0, 0),         # bs 12 divides no key tile
     (4, 1, 16, [0, 17], [200, 3], 16, 20.0, 0),          # G 4 hd 16, many row tiles
     (3, 1, 32, [5, 0], [30, 64], 4, 0.0, 9),             # G 3
+    (12, 2, 128, [0, 272, 16], [200, 33, 1], 16, 0.0, 0),  # qwen2-vl: G 6, hd 128
 ])
 def test_chunked_prefill_cuda(cuda, dtype, tol, hq, hkv, hd, starts, lens, bs, cap, window):
     args = _chunked_args(cuda, dtype, hq, hkv, hd, starts, lens, bs)
@@ -331,7 +334,9 @@ def test_paged_kernels_cuda_refuse_other_dtypes(cuda):
     (2, 256, 32, 8, 64, 50.0),      # softcap at the serve calibration's shape
     (8, 256, 16, 16, 192, 0.0),     # MLA's calibration shape (nope + rope)
     (8, 200, 16, 16, 192, 0.0),     # ... at a ragged T
-    (2, 64, 4, 4, 48, 0.0)])        # MLA SMOKE's
+    (2, 64, 4, 4, 48, 0.0),         # MLA SMOKE's
+    (1, 271, 12, 2, 128, 0.0),      # qwen2-vl's per-request prefill: 256
+    (1, 456, 12, 2, 128, 0.0)])     # vision + 15 / 200 text positions, G 6
 def test_flash_attention_cuda(cuda, dtype, tol, b, t, hq, hkv, hd, cap):
     """Within tol of the plain version, one launch per call, and the same
     bits on a second identical call."""
@@ -917,3 +922,79 @@ def test_adapter_step_cuda_matches_cpu(cuda):
         _close(g1[k], g0[k], 1e-4)
     for k in p0:
         _close(p1[k], p0[k], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# qwen2-vl: the per-request prefill of vision requests under CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def vlm_model():
+    """qwen2-vl SMOKE (projections x3, random norm scales) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    model = build_model(get_smoke_config("qwen2_vl_2b"), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Linear):
+                mod.w.mul_(3.0)
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    return model.to(torch.device("cuda"))
+
+
+def _vlm_trace(cfg, n=6, seed=4):
+    """Staggered prompts of 4-16 tokens, 8-12 new, every second request
+    with an N(0, 1) vision prefix (1, n_vision_tokens, d_model)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        prompt = rng.randint(0, cfg.vocab_size, (rng.randint(4, 17),))
+        new = int(rng.randint(8, 13))
+        vis = None
+        if i % 2 == 0:
+            vis = {"vision_embeds": rng.standard_normal(
+                (1, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)}
+        out.append((prompt, new, vis))
+    return out
+
+
+@pytest.mark.cuda
+def test_engine_cuda_vision_requests_graphs_match_eager(vlm_model):
+    """Vision requests (per-request prefill, eager, through the flash
+    kernel) among text requests over a pool that preempts a vision request:
+    graphs give the eager engine's greedy tokens, 0 post-warmup captures,
+    and the fixed-batch engine the continuous engine's tokens."""
+    cfg = vlm_model.cfg
+    trace = _vlm_trace(cfg)
+    knobs = dict(block_size=4, num_blocks=14, max_running=3, bucket_sizes=(1, 2, 3))
+    runs = []
+    for graphs in (True, False):
+        eng = ContinuousEngine(vlm_model, cuda_graphs=graphs, **knobs)
+        if graphs:
+            eng.warmup(max_len=max(len(p) + n + (cfg.n_vision_tokens if v else 0)
+                                   for p, n, v in trace))
+        ops.reset_launch_counts()
+        for prompt, new, vis in trace:
+            eng.submit(prompt, new, extras=vis)
+            eng.step()
+        eng.run()
+        torch.cuda.synchronize()
+        runs.append(({r.req_id: list(r.out_tokens) for r in eng.finished},
+                     eng.metrics(), eng.request_prefills,
+                     ops.eager_launch_counts()["flash_attention"]))
+        eng.release_graphs()
+    (toks, m, prefills, flash), (ref_toks, rm, _, _) = runs
+    assert toks == ref_toks and len(toks) == len(trace)
+    assert m["post_warmup_compiles"] == 0 and m["preemptions"] == rm["preemptions"]
+    assert prefills >= 3 and flash == prefills * cfg.n_layers
+    prompts = np.stack([p[:4] for p, _, _ in trace[:2]])
+    vis = np.concatenate([trace[0][2]["vision_embeds"]] * 2)
+    from repro_torch.serve import ServeEngine
+    fixed = ServeEngine(vlm_model).generate(prompts, 6, extras={"vision_embeds": vis})
+    cont = ContinuousEngine(vlm_model, **knobs)
+    np.testing.assert_array_equal(
+        cont.generate(prompts, 6, extras={"vision_embeds": vis}), fixed)

@@ -72,9 +72,11 @@ def _tokens(cfg, shape, seed=1):
 
 def test_registry_holds_the_seven_ported_configs():
     """The seven configs of the attention-only GQA families and, since MLA
-    was ported, deepseek_v2_lite_16b: eight (the name dates from seven)."""
-    assert sorted(ARCH_IDS) == sorted(FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b"])
-    assert "deepseek_v2_lite_16b" not in NOT_PORTED and len(NOT_PORTED) == 4
+    and qwen2-vl were ported, deepseek_v2_lite_16b and qwen2_vl_2b: nine
+    (the name dates from seven)."""
+    assert sorted(ARCH_IDS) == sorted(FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b",
+                                                  "qwen2_vl_2b"])
+    assert "qwen2_vl_2b" not in NOT_PORTED and len(NOT_PORTED) == 3
     for name, family in NOT_PORTED.items():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match=family.split()[0]):
