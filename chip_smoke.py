@@ -38,7 +38,8 @@ Phases, each printing its own lines:
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
-             llama3_1b at full width and depth: random init from a seeded
+             llama3_1b at full width, its depth cut to 8 of 16 layers
+             (handed as ``cfg``): random init from a seeded
              torch.Generator, calibration on seeded numpy tokens (through the
              flash kernel), COALA compression (ratio 0.6, λ = 4, μ from
              Eq. 5), then the dense and the compressed model each capture
@@ -189,7 +190,32 @@ Phases, each printing its own lines:
              the per-request prefill's M), both paged kernels at phase 11's
              decode batch and largest prefill (G 6, hd 128) and flash at B 1
              T 456 / 271;
-12. profile — only with ``--profile N``: wall and per-kernel device time of
+12. xlstm path — xlstm_1_3b at full width (d_model 2048, 4 heads, mLSTM
+             inner width 4096 / head dim 1024, sLSTM FFN 2 x 2730, vocab
+             50304), its depth cut to 8 of 48 layers (one period: one sLSTM,
+             seven mLSTM), handed as ``cfg``: (a) the serving launcher with
+             ``--continuous --compress-ratio 0.6 --warmup on`` on phase 4's
+             trace over 72 pages (one preemption; the recurrent route: no
+             prefix cache, every request prefilled alone, decode through the
+             graphs with the rows' state slots; 0 post-warmup captures), then
+             on its models the same trace with a fork of request 0 at step 3,
+             through graphs and eagerly (identical tokens, the child on its
+             parent's tokens); (b) the launcher without ``--continuous``
+             (``run_fixed``: 4 rows of 64 tokens, 16 new) against
+             ``ContinuousEngine.generate``; (c) the compression launcher (4
+             pretraining steps through the recurrences under autograd — 10
+             diverge at its lr — and coala with 0 non-finite layers),
+             svd_llm on its trained model and calibrator (non-finite layers
+             recorded), then its Grams through gram_accum (N 2048, 2730,
+             4096) against RᵀR. No attention kernel may launch on it. Phase 7 then
+             also holds lowrank_linear on one mLSTM layer's five projections
+             and the sLSTM's FFN pair (ff_down's K 2730, the kernel's
+             non-vector branch) at M 8 and the longest per-request prefill's
+             M, and gram_accum at (512, 2730) and (512, 4096); phase 3 adds
+             xLSTM SMOKE, dense and COALA: contiguous-cache logits card vs
+             CPU and a preempting trace with a fork through the card's graphs
+             vs the CPU's eager engine (identical tokens);
+13. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
              of the speculative draft served alone and of speculative
@@ -202,9 +228,9 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 11, 7, 12. Launch counts are zeroed
-just before each of the paths 4-6, 10, 8, 9, 9b and 11 (4b, 4c and 4d
-included) and
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 7, 13. Launch counts are
+zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11 and 12 (4b, 4c and
+4d included) and
 read just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
 and lowrank_linear's backward on phase 10's (its launches counted apart too).
@@ -258,11 +284,14 @@ TOL_GRAM = 1e-5             # both dtypes: bf16 converts to fp32 exactly
 SEED = 0
 ITERS = 20                  # timed launches per kernel and variant
 
-# The serve path's traffic: 8 requests, one every 2 engine steps, prompts of
-# 16-200 tokens, 32 new tokens each. The launcher calibrates on 2 batches of
+# The serve path's model: llama3_1b at full width, its depth cut from 16 layers
+# to 8 to leave room for phase 12 in the time limit (its compression, the
+# draft's and phase 4d's solve take time per layer). The serve path's traffic: 8 requests, one
+# every 2 engine steps, prompts of 16-200 tokens, 32 new tokens each. The launcher calibrates on 2 batches of
 # --requests x --prompt-len seeded tokens (2 x 8 x 256). The trace needs 81
 # pages of 16 tokens at its peak; a pool of 72 (one reserved for trash)
 # makes the engine preempt once.
+SERVE_LAYERS = 8
 REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW_TOKENS = 8, 16, 200, 32
 ENGINE_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
 LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6",
@@ -665,6 +694,102 @@ def reference_vlm(torch, dev):
         del m_gpu
 
 
+# xLSTM SMOKE (phase 3): the CPU parity tests' trace (tests/test_torch_xlstm_serve.py):
+# six requests of 5, 9 or 13 prompt tokens and 8-12 new ones, one a step, over
+# 10 usable pages of 4 tokens for 3 running requests (two preemptions), with a
+# fork of request 0 at step 1
+XLSTM_SMOKE_KNOBS = dict(block_size=4, num_blocks=11, max_running=3, bucket_sizes=(1, 2, 3))
+XLSTM_SMOKE_FORK = (1, 0)           # (step, request id)
+
+
+def xlstm_smoke_trace(n=6, seed=4):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        t0 = int(rng.choice([5, 9, 13]))
+        out.append((i, rng.randint(0, 256, (t0,)).astype(np.int32),
+                    int(rng.randint(8, 13))))
+    return out
+
+
+def serve_forked(eng, trace, fork):
+    """Replay ``trace`` (arrival step, prompt, new tokens) keyed to engine
+    steps, forking request ``fork[1]`` at step ``fork[0]``: (tokens by
+    request id, the child's id, metrics)."""
+    fork_step, fork_req = fork
+    pending = list(trace)
+    step, child = 0, None
+    while pending or eng.has_work():
+        while pending and pending[0][0] <= step:
+            _, prompt, new = pending.pop(0)
+            eng.submit(prompt, new)
+        if step == fork_step:
+            child = eng.fork(fork_req)
+        eng.step()
+        step += 1
+    return {r.req_id: list(r.out_tokens) for r in eng.finished}, child, eng.metrics()
+
+
+def reference_xlstm(torch, dev):
+    """xLSTM SMOKE (one sLSTM and three mLSTM layers a period, two periods),
+    dense and COALA-compressed on the CPU: a contiguous-cache prefill and two
+    decode steps card vs CPU (fp32, ``TOL_SERVE``'s tolerance), then the CPU
+    tests' preempting trace with a fork through the card's CUDA graphs
+    (warmup; decode steps carry the rows' state slots) against the CPU's
+    eager engine: identical greedy tokens, 0 post-warmup captures, the fork's
+    child on its parent's tokens."""
+    import copy
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = get_smoke_config("xlstm_1_3b")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 32))) for _ in range(2)]
+    ccpu, _ = compress_model(cpu, calibrate_model(cpu, batches),
+                             CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    tok = rng.randint(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    trace = xlstm_smoke_trace()
+    tol = TOL_SERVE[("float32", "float32")]
+    for name, m_cpu in (("dense", cpu), ("coala", ccpu)):
+        m_gpu = copy.deepcopy(m_cpu).to(dev)
+        outs = []
+        for m, d in ((m_cpu, torch.device("cpu")), (m_gpu, dev)):
+            cache = m.init_contiguous_cache(2, 16)
+            lg = [m.prefill(torch.as_tensor(tok, device=d), cache)]
+            step = torch.as_tensor([[5], [7]], dtype=torch.int32, device=d)
+            for i in range(2):
+                lg.append(m.decode_step(step, cache, 12 + i))
+            outs.append([x.cpu() for x in lg])
+        for i, (a, b) in enumerate(zip(*outs)):
+            compare(f"reference xlstm {name} fp32 step {i} (card vs CPU)", b, a, tol)
+        runs = []
+        for m, graphs in ((m_gpu, True), (m_cpu, False)):
+            eng = ContinuousEngine(m, **XLSTM_SMOKE_KNOBS)
+            if graphs:
+                eng.warmup(max_len=max(len(p) + n for _, p, n in trace))
+            runs.append(serve_forked(eng, trace, XLSTM_SMOKE_FORK))
+            eng.release_graphs()
+        (gt, child, gmet), (ct, _, cmet) = runs
+        same = gt == ct and len(gt) == len(trace) + 1
+        log(f"  reference xlstm {name} engine (card graphs vs CPU eager): greedy tokens "
+            f"{'identical' if same else 'DIFFER'}; {gmet['preemptions']} preemptions, "
+            f"{gmet['decode_compiles']} decode captures, "
+            f"{gmet['post_warmup_compiles']} post-warmup")
+        if (not same or gmet["post_warmup_compiles"] != 0 or gmet["preemptions"] < 1
+                or gt[child] != gt[XLSTM_SMOKE_FORK[1]]):
+            raise Failure(f"xlstm {name}: card engine vs CPU: tokens equal {same}, "
+                          f"{gmet['post_warmup_compiles']} post-warmup captures, "
+                          f"{gmet['preemptions']} preemptions")
+        del m_gpu
+
+
 def reference_group6(torch, ops, dev):
     """The kernels at qwen2-vl's heads (12 query heads over 2 KV heads, a
     GQA group of 6, which no other path runs; hd 128) against their plain
@@ -1024,7 +1149,8 @@ def serve_path(torch, ops):
                         for i, kind in enumerate(("eager", "replayed"))}
         mark = now
 
-    res = launcher.main(LAUNCHER_ARGS, trace=trace)
+    cfg = dataclasses.replace(get_config("llama3_1b"), n_layers=SERVE_LAYERS)
+    res = launcher.main(LAUNCHER_ARGS, trace=trace, cfg=cfg)
     torch.cuda.synchronize()
     res["engines"]["coala"].release_graphs()
     note("launcher")
@@ -1159,7 +1285,7 @@ def serve_spec_path(torch, ops, res):
             "warmup_seconds") + SPEC_KEYS
     TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
     spec = launcher.main(LAUNCHER_ARGS + SPEC_ARGS + TELEMETRY_ARGS, trace=trace,
-                         reuse=res)
+                         reuse=res, cfg=res["models"]["dense"].cfg)
     torch.cuda.synchronize()
     spec["engines"]["coala"].release_graphs()
     draft = spec["draft"]
@@ -1319,7 +1445,8 @@ def serve_recalib_path(torch, ops, res, smi):
 
     recalibrate.RecalibWorker._solve = noting_solve
     try:
-        rec = launcher.main(LAUNCHER_ARGS + RECALIB_ARGS, trace=trace, reuse=res)
+        rec = launcher.main(LAUNCHER_ARGS + RECALIB_ARGS, trace=trace, reuse=res,
+                            cfg=res["models"]["dense"].cfg)
     finally:
         recalibrate.RecalibWorker._solve = solve
     torch.cuda.synchronize()
@@ -2317,6 +2444,264 @@ def vlm_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: xLSTM at full width, the recurrent serving path
+# ---------------------------------------------------------------------------
+
+# xlstm_1_3b (src/repro_torch/configs/xlstm_1_3b.py) at full width: d_model
+# 2048, 4 heads, proj_factor 2 (the mLSTM's inner width 4096, head dim 1024),
+# the sLSTM's FFN 2 x 2730, vocab 50304, tied embeddings; its depth cut from 48
+# layers to 8, one period (one sLSTM, seven mLSTM: the layer pattern needs a
+# whole number of periods): 0.67 G parameters, 2.7 GB in fp32. (a) The
+# continuous launcher, dense and COALA (λ 4), calibrated on 2 x 8 x 256 seeded
+# tokens, on phase 4's trace over 72 pages (one preemption; no prefix cache: a
+# recurrent model's requests are prefilled alone), then on its models the
+# same trace with a fork of request 0 at step 3 (the pool, sized on the CPU
+# with a narrow model of the same vocabulary, preempts once) through graphs and
+# eagerly. (b) The fixed-batch launcher: 4 rows of 64 tokens, 16 new. (c) The
+# compression launcher with 4 pretraining steps and coala; svd_llm through
+# ``compress_model`` on its trained model and calibrator; then the Grams of
+# its calibration batches (gram_accum) against RᵀR.
+XLSTM_LAYERS = 8
+XLSTM_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
+XLSTM_FORK = (3, 0)                 # (step, request id)
+XLSTM_ARGS = ["--continuous", "--arch", "xlstm_1_3b", "--compress-ratio", "0.6",
+              "--requests", str(REQUESTS), "--prompt-len", "256",
+              "--new-tokens", str(NEW_TOKENS),
+              "--block-size", str(XLSTM_KNOBS["block_size"]),
+              "--num-blocks", str(XLSTM_KNOBS["num_blocks"]),
+              "--max-running", str(XLSTM_KNOBS["max_running"]), "--warmup", "on",
+              "--seed", str(SEED), "--device", "cuda"]
+XLSTM_FIXED_ROWS, XLSTM_FIXED_PROMPT, XLSTM_FIXED_NEW = 4, 64, 16
+XLSTM_FIXED_ARGS = ["--arch", "xlstm_1_3b", "--requests", str(XLSTM_FIXED_ROWS),
+                    "--prompt-len", str(XLSTM_FIXED_PROMPT),
+                    "--new-tokens", str(XLSTM_FIXED_NEW), "--seed", str(SEED),
+                    "--device", "cuda"]
+# 4 pretraining steps, not 10: at the launcher's lr 3e-3 (5 warmup steps) the
+# full-width xLSTM's gradient norm grows 86 -> 830 over steps 0-3, then to
+# 1.3e5, 1.1e7, 6.2e7, 5.3e8 and NaN at step 9, leaving NaN weights (measured
+# on an H100; PERF.md)
+XLSTM_COMPRESS_ARGS = ["--arch", "xlstm_1_3b", "--ratio", "0.6", "--lam", "4",
+                       "--pretrain-steps", "4", "--calib-batches", "4",
+                       "--device", "cuda"]
+XLSTM_NO_LAUNCH = ("paged_attention", "chunked_prefill", "flash_attention")
+# the compressed projections: one mLSTM layer's five and the sLSTM's FFN pair,
+# (d_in, d_out); ff_down's d_in 2730 is not a multiple of 4
+XLSTM_PROJECTIONS = {"up": (2048, 8192), "wq": (4096, 4096), "wk": (4096, 4096),
+                     "wv": (4096, 4096), "down": (4096, 2048),
+                     "ff_up": (2048, 5460), "ff_down": (2730, 2048)}
+# gram_accum at the calibration record's 8 x 64 rows: ff_down's input (2730)
+# and the mLSTM's inner width (4096)
+XLSTM_GRAM_CASES = [(512, 2730, True), (512, 4096, True)]
+
+
+def _state_bytes(pool) -> int:
+    """Bytes of one request's state slot: every state leaf of every layer."""
+    return sum(store[0].numel() * store.element_size()
+               for layer in pool._state_layers for store in layer.values())
+
+
+def _check_recurrent(label, eng, met, n_requests):
+    """A recurrent engine: prefix cache and chunked prefill off, every request
+    prefilled alone (again after each preemption), nothing batched."""
+    if eng.prefix_cache or eng.prefill_kernel or met["prefill_batches"] != 0:
+        raise Failure(f"{label}: expected the recurrent route (prefix cache off, no "
+                      "batched prefill)")
+    want = n_requests + met["preemptions"]
+    if eng.request_prefills != want:
+        raise Failure(f"{label}: {eng.request_prefills} per-request prefills, "
+                      f"expected {want}")
+
+
+def xlstm_path(torch, ops):
+    """Phase 12 (see ``XLSTM_LAYERS``): (a) the continuous launcher (warmup,
+    0 post-warmup captures, one preemption), then per model phase 4's trace
+    with a fork through graphs and eagerly (identical tokens; the kernel
+    shapes of the eager runs noted for phase 7); (b) ``run_fixed`` against
+    ``ContinuousEngine.generate``; (c) the compression launcher, coala (0
+    non-finite layers) and svd_llm on its trained model and calibrator (its
+    non-finite layers recorded), and the coala run's Grams through
+    ``gram_accum`` against RᵀR. Returns (summary, noted kernel shapes)."""
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model, compression_summary
+    from repro_torch.launch import compress as compress_launcher
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = dataclasses.replace(get_config("xlstm_1_3b"), n_layers=XLSTM_LAYERS)
+    vocab = cfg.vocab_size
+    out = {"layers": XLSTM_LAYERS, "seconds": {}, "peak_gb": {}}
+    trace = launcher.synthetic_trace(REQUESTS, vocab, seed=SEED, min_prompt=MIN_PROMPT,
+                                     max_prompt=MAX_PROMPT, min_new=NEW_TOKENS,
+                                     max_new=NEW_TOKENS)
+    warm_len = max(len(p) + n for _, p, n in trace)
+
+    # (a) the continuous launcher
+    t0 = time.perf_counter()
+    with SolveTimes(torch) as solves:
+        res = launcher.main(XLSTM_ARGS, trace=trace, cfg=cfg)
+    torch.cuda.synchronize()
+    res["engines"]["coala"].release_graphs()
+    out["seconds"].update(res["seconds"], launcher=time.perf_counter() - t0)
+    models = res["models"]
+    kinds = models["dense"].layer_kinds()
+    if kinds != ["slstm"] + ["mlstm"] * 7:
+        raise Failure(f"xlstm depth cut: layer kinds {kinds}")
+    out.update(params=sum(p.numel() for p in models["dense"].parameters()),
+               compression=compression_summary(res["reports"]), warmup=res["warmup"],
+               solve_s=solves.summary(), nonfinite_coala=len(_nonfinite(res["reports"])))
+    _peak_step(torch, out["peak_gb"], "launcher")
+    if out["nonfinite_coala"]:
+        raise Failure(f"xlstm launcher: {out['nonfinite_coala']} non-finite COALA layers")
+    for name, eng in res["engines"].items():
+        met = res["metrics"][name]
+        out[f"launcher_{name}"] = dict({k: met[k] for k in SERVE_KEYS},
+                                       request_prefills=eng.request_prefills)
+        _check_finished(f"xlstm launcher {name}", eng, trace, vocab)
+        _check_recurrent(f"xlstm launcher {name}", eng, met, len(trace))
+        if (not eng.cuda_graphs or met["post_warmup_compiles"] != 0
+                or met["preemptions"] < 1):
+            raise Failure(f"xlstm launcher {name}: expected CUDA graphs, a preemption "
+                          f"and 0 post-warmup captures, got {met['preemptions']}, "
+                          f"{met['post_warmup_compiles']}")
+        out["state_bytes_per_request"] = _state_bytes(eng.pool)
+        log(f"  [a launcher {name}] {_serve_line(met)}; {eng.request_prefills} "
+            f"per-request prefills")
+    del res, eng
+    torch.cuda.empty_cache()
+    log(f"  [a launcher] {out['params'] / 1e9:.3f} G parameters; calibrate "
+        f"{out['seconds']['calibrate']:.2f} s, compress {out['seconds']['compress']:.2f} s "
+        f"({out['compression']['layers']} linears, kept "
+        f"{out['compression']['kept_ratio']:.4f}), warmup "
+        f"{ {k: round(w['warmup_seconds'], 2) for k, w in out['warmup'].items()} } s; "
+        f"state {out['state_bytes_per_request']} bytes a request")
+
+    # (a) the forked trace on the launcher's models, graphs then eager
+    calls = KernelCalls(ops)            # noted on the eager runs only
+    for name, m in models.items():
+        eng = ContinuousEngine(m, **XLSTM_KNOBS)
+        w = eng.warmup(max_len=warm_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, child, met = serve_forked(eng, trace, XLSTM_FORK)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _check_recurrent(f"xlstm fork {name}", eng, met, len(trace))
+        if (met["post_warmup_compiles"] != 0 or met["preemptions"] < 1
+                or toks[child] != toks[XLSTM_FORK[1]] or len(toks) != len(trace) + 1):
+            raise Failure(f"xlstm fork {name}: {met['post_warmup_compiles']} post-warmup "
+                          f"captures, {met['preemptions']} preemptions, child on the "
+                          f"parent's tokens {toks.get(child) == toks[XLSTM_FORK[1]]}")
+        if eng.pool.available_blocks != eng.pool.usable_blocks:
+            raise Failure(f"xlstm fork {name}: pages leaked")
+        out[f"fork_{name}"] = dict({k: met[k] for k in SERVE_KEYS}, seconds=secs,
+                                   request_prefills=eng.request_prefills, warmup=w)
+        _peak_step(torch, out["peak_gb"], f"fork_{name}")
+        eng.release_graphs()
+        del eng
+        log(f"  [a fork {name}] graphs: {_serve_line(met)}; {secs:.3f} s; "
+            f"{out[f'fork_{name}']['request_prefills']} per-request prefills; the child "
+            f"{child} on its parent's tokens")
+        eng = ContinuousEngine(m, cuda_graphs=False, **XLSTM_KNOBS)
+        t0 = time.perf_counter()
+        with calls:
+            etoks, _, emet = serve_forked(eng, trace, XLSTM_FORK)
+        torch.cuda.synchronize()
+        esecs = time.perf_counter() - t0
+        same = etoks == toks
+        out[f"fork_{name}_eager"] = dict({k: emet[k] for k in SERVE_KEYS}, seconds=esecs)
+        log(f"  [a fork {name}] eager: {_serve_line(emet)}; {esecs:.3f} s; greedy tokens "
+            f"{'identical to' if same else 'DIFFER from'} the graphs'")
+        if not same:
+            raise Failure(f"xlstm {name}: CUDA graphs and the eager engine disagree")
+        del eng
+    shapes = calls.shapes()
+    del models
+    torch.cuda.empty_cache()
+
+    # (b) the fixed-batch launcher, then the continuous engine on its inputs
+    t0 = time.perf_counter()
+    fixed = launcher.main(XLSTM_FIXED_ARGS, cfg=cfg)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_launcher"] = time.perf_counter() - t0
+    cont = ContinuousEngine(fixed["model"], **XLSTM_KNOBS)
+    t0 = time.perf_counter()
+    ctoks = cont.generate(fixed["batch"]["tokens"], XLSTM_FIXED_NEW)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_continuous"] = time.perf_counter() - t0
+    same = np.array_equal(ctoks, fixed["tokens"])
+    out["fixed"] = {"seconds": fixed["seconds"], "identical": same}
+    log(f"  [b fixed] ServeEngine {XLSTM_FIXED_ROWS} x {XLSTM_FIXED_PROMPT} -> "
+        f"{XLSTM_FIXED_NEW} new in {fixed['seconds']['serve_fixed']:.3f} s; "
+        f"ContinuousEngine.generate of the same inputs "
+        f"{out['seconds']['fixed_continuous']:.3f} s: tokens "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same or fixed["tokens"].shape != (XLSTM_FIXED_ROWS,
+                                             XLSTM_FIXED_PROMPT + XLSTM_FIXED_NEW):
+        raise Failure("xlstm: run_fixed and ContinuousEngine.generate disagree")
+    cont.release_graphs()
+    del fixed, cont
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], "fixed")
+
+    # (c) the compression launcher with coala; svd_llm on its trained model and
+    # calibrator (a second launcher run would pretrain the same model from the
+    # same seed and calibrate on the same batches); the Grams
+    t0 = time.perf_counter()
+    coala = compress_launcher.main(XLSTM_COMPRESS_ARGS + ["--method", "coala"], cfg=cfg)
+    torch.cuda.synchronize()
+    out["seconds"]["compress_coala"] = dict(coala["seconds"],
+                                            total=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    svd_model, svd_reports = compress_model(coala["model"], coala["calibrator"],
+                                            CompressConfig(method="svd_llm", ratio=0.6))
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t0
+    svd_summary = dict(compression_summary(svd_reports), method="svd_llm",
+                       base_ce=coala["summary"]["base_ce"],
+                       compressed_ce=compress_launcher.eval_ce(
+                           svd_model, compress_launcher.make_pipeline(cfg, svd_model.device)))
+    out["seconds"]["compress_svd_llm"] = {"compress": svd_s}
+    del svd_model
+    for method, summary, reports in (("coala", coala["summary"], coala["reports"]),
+                                     ("svd_llm", svd_summary, svd_reports)):
+        bad = _nonfinite(reports)
+        out[f"compress_{method}"] = dict(summary, nonfinite=len(bad))
+        log(f"  [c {method}] held-out CE {summary['base_ce']:.4f} -> "
+            f"{summary['compressed_ce']:.4f}; {len(bad)} of {len(reports)} layers "
+            f"non-finite; seconds {json.dumps(out['seconds'][f'compress_{method}'])}")
+    _peak_step(torch, out["peak_gb"], "compress")
+    if out["compress_coala"]["nonfinite"] or not math.isfinite(
+            out["compress_coala"]["compressed_ce"]):
+        raise Failure(f"xlstm coala: {out['compress_coala']}")
+    before = ops.launch_counts()["gram_accum"]
+    t0 = time.perf_counter()
+    cal = calibrate_model(coala["model"], coala["calib_batches"], collect_gram=True,
+                          ctx=compress_launcher.KERNEL_CTX)
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    rf = cal.r_factors()
+    worst = max((torch.linalg.norm(g - rf[p].T @ rf[p]) / torch.linalg.norm(g)).item()
+                for p, g in cal.grams.items())
+    n_gram = ops.launch_counts()["gram_accum"] - before
+    out["gram"] = {"seconds": gram_s, "paths": len(cal.grams), "launches": n_gram,
+                   "max_rel_gap_to_rtr": worst,
+                   "widths": sorted({g.shape[0] for g in cal.grams.values()})}
+    log(f"  [c grams] {len(cal.grams)} Grams (widths {out['gram']['widths']}) in "
+        f"{gram_s:.2f} s, {n_gram} gram_accum launches; max ||G - RᵀR||_F / ||G||_F = "
+        f"{worst:.3e}")
+    if n_gram <= 0 or not worst <= 1e-4 or 2730 not in out["gram"]["widths"]:
+        raise Failure(f"xlstm grams: {out['gram']}")
+    del coala, cal
+    torch.cuda.empty_cache()
+    log(f"  seconds: {json.dumps(out['seconds'])}; peak memory (GB): "
+        f"{json.dumps(out['peak_gb'])}")
+    return out, shapes
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the compression core on phase 5's trained model
 # ---------------------------------------------------------------------------
 
@@ -3076,16 +3461,19 @@ def check_flash(torch, ops, ref, dev, gen, flush):
     return res
 
 
-def check_gram(torch, ops, ref, dev, gen, flush):
-    """gram_accum in fp32 and bf16; the line's numbers are one llama3_1b
-    layer's seven fp32 Grams of one calibration record (6 x (512, 2048) and
-    1 x (512, 8192)); ``per_shape`` keeps each record shape's fp32 figures."""
+def check_gram(torch, ops, ref, dev, gen, flush, cases=GRAM_CASES, weights=GRAM_LAYER,
+               label="one llama3_1b layer's 7 Grams of a 512-token record"):
+    """gram_accum in fp32 and bf16 at ``cases`` (k, n, timed); the line's
+    numbers are the timed fp32 cases each counted ``weights[(k, n)]`` times
+    (by default one llama3_1b layer's seven Grams of one calibration record:
+    6 x (512, 2048) and 1 x (512, 8192)); ``per_shape`` keeps each record
+    shape's fp32 figures."""
     from repro_torch.kernels import gram_accum as ga
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "bound_by": "operations", "per_shape": []}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for k, n, timed_case in GRAM_CASES:
+        for k, n, timed_case in cases:
             a = torch.randn((k, n), generator=gen, device=dev).to(dt)
             got = ops.gram_accum(a)
             want = ref([a])
@@ -3109,7 +3497,7 @@ def check_gram(torch, ops, ref, dev, gen, flush):
                 f"{plain:.4f} ms, a.T @ a {'n/a' if lib is None else f'{lib:.4f} ms'}, "
                 f"bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
             if dtype == "float32":
-                w = GRAM_LAYER[(k, n)]
+                w = weights[(k, n)]
                 res["ms"] += w * ms
                 res["plain_ms"] += w * plain
                 res["library_ms"] += w * lib
@@ -3117,7 +3505,7 @@ def check_gram(torch, ops, ref, dev, gen, flush):
                 res["per_shape"].append(dict(k=k, n=n, tile=tile, ms=ms,
                                              plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                                              bound_by=b_by))
-    log(f"  gram_accum, one llama3_1b layer's 7 Grams of a 512-token record: "
+    log(f"  gram_accum, {label}: "
         f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, a.T @ a "
         f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms")
     return res
@@ -3261,6 +3649,10 @@ def run(args) -> int:
         "eager engine; the kernels at qwen2-vl's heads (G 6, hd 128) vs plain versions")
     reference_vlm(torch, dev)
     reference_group6(torch, ops, dev)
+    log("[3 reference] xlstm_1_3b SMOKE: card vs CPU logits over a contiguous cache, "
+        "and a preempting trace with a fork through the card's graphs vs the CPU's "
+        "eager engine")
+    reference_xlstm(torch, dev)
 
     backward = {}           # lowrank_linear's backward launches by path window
 
@@ -3403,6 +3795,23 @@ def run(args) -> int:
     vlm["peak_memory_gb"] = peak
     log(f"  kernel shapes noted on the qwen2-vl path: {json.dumps(vlm_shapes)}")
 
+    log("[12 xlstm path] python -m repro_torch.launch.serve " + " ".join(XLSTM_ARGS)
+        + f" on xlstm_1_3b at full width, depth cut to {XLSTM_LAYERS} of 48 layers (one "
+        "period: one sLSTM, seven mLSTM), on phase 4's trace; then that trace with a fork "
+        "through graphs and eagerly; python -m repro_torch.launch.serve "
+        + " ".join(XLSTM_FIXED_ARGS) + "; python -m repro_torch.launch.compress "
+        + " ".join(XLSTM_COMPRESS_ARGS) + " --method coala, svd_llm on its model and "
+        "calibrator, its Grams")
+    (xl, xl_shapes), xl_counts, peak = path_window(
+        "xlstm", ("lowrank_linear", "gram_accum"), lambda: xlstm_path(torch, ops))
+    xl["peak_memory_gb"] = peak
+    launched = {k: xl_counts[k] for k in XLSTM_NO_LAUNCH if xl_counts[k] != 0}
+    log(f"  attention kernels on the xlstm path: "
+        f"{ {k: xl_counts[k] for k in XLSTM_NO_LAUNCH} } (must be 0)")
+    if launched:
+        raise Failure(f"attention kernels launched on the xlstm path: {launched}")
+    log(f"  kernel shapes noted on the xlstm path: {json.dumps(xl_shapes)}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -3445,6 +3854,19 @@ def run(args) -> int:
             torch, ops, paged_attention_ref, chunked_prefill_ref, dev, gen, vlm_shapes,
             flush, label="qwen2-vl", heads=VLM_HEADS, scale=None, cap=0.0,
             windows=(0,))}
+    log("[7 kernels] at xlstm_1_3b's shapes (phase 12): one mLSTM layer's five "
+        "projections and the sLSTM's FFN pair (ff_down's K 2730), gram_accum at N 2730 "
+        "and 4096")
+    xlstm_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                  for name, (d_in, d_out) in XLSTM_PROJECTIONS.items()}
+    xlstm_kernels = {
+        "lowrank_linear": check_lowrank(
+            torch, ops, lowrank_linear_ref, dev, gen, xl_shapes, flush, proj=xlstm_proj,
+            model="xlstm_1_3b", extra_rows=(8,)),
+        "gram_accum": check_gram(
+            torch, ops, gram_accum_ref, dev, gen, flush, cases=XLSTM_GRAM_CASES,
+            weights={(k, n): 1 for k, n, _ in XLSTM_GRAM_CASES},
+            label="xlstm_1_3b's two record shapes (512, 2730) and (512, 4096), once each")}
     log("[7 kernels] lowrank_linear at phase 10's adaptive ranks (block 0) and under "
         f"autograd at M {GRAD_ROWS}: rank {ADAPTER_RANK} on the seven projections, and "
         "one odd adaptive rank")
@@ -3476,7 +3898,7 @@ def run(args) -> int:
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[12 profile] {args.profile} decode steps per model")
+        log(f"[13 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
         del res
@@ -3491,7 +3913,7 @@ def run(args) -> int:
                 "compress": comp_counts, "gram": gram_counts,
                 "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
-                "qwen2_vl": vlm_counts}
+                "qwen2_vl": vlm_counts, "xlstm": xl_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -3510,7 +3932,8 @@ def run(args) -> int:
                                   "serve_dtypes": dtypes, "serve_recalib": recalib,
                                   "compress": comp, "gram": gram, "gemma2": gemma,
                                   "deepseek": moe, "deepseek_v2_mla": mla,
-                                  "compression_core": core, "qwen2_vl": vlm},
+                                  "compression_core": core, "qwen2_vl": vlm,
+                                  "xlstm": xl},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,
@@ -3518,6 +3941,7 @@ def run(args) -> int:
                     "gemma2_kernels": gemma_kernels,
                     "mla_kernels": mla_kernels,
                     "vlm_kernels": vlm_kernels,
+                    "xlstm_kernels": xlstm_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

@@ -4,9 +4,9 @@ Only the fields the port reads are kept: ``MoEConfig``, the attention-only
 decoders of ``ModelConfig`` (dense GQA, gemma2's local/global alternation,
 softcaps and sandwich norms, olmo's non-parametric norm, minicpm's scaling,
 deepseek-v2's MLA dims, the MoE layer pattern and qwen2-vl's vision prefix
-and M-RoPE sections), ``TrainConfig`` and the COALA / baseline settings of
-``CompressConfig``. The knobs of the SSM, hybrid and enc-dec families wait
-with those families.
+and M-RoPE sections), xLSTM's ``XLSTMConfig`` (family ``ssm``),
+``TrainConfig`` and the COALA / baseline settings of ``CompressConfig``. The
+knobs of the hybrid (Mamba) and enc-dec families wait with those families.
 """
 from __future__ import annotations
 
@@ -28,6 +28,13 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8              # 1 sLSTM block per this many layers
+    proj_factor: float = 2.0          # mLSTM up-projection factor
+    chunk_size: int = 64              # chunked parallel mLSTM scan
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One architecture. ``family`` selects the block wiring."""
     name: str = "unnamed"
@@ -44,6 +51,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
 
     moe: MoEConfig = MoEConfig()
+    xlstm: XLSTMConfig = XLSTMConfig()
 
     # gemma2-style
     local_window: int = 0             # 0 = all-global; else alternate local/global
@@ -88,14 +96,17 @@ class ModelConfig:
         return self.moe.num_experts > 0
 
     def layer_kind(self, i: int) -> str:
-        """'attn' for every decoder layer of the ported families (the
-        recurrent kinds of the ssm and hybrid families are not ported). The
-        reference config's API: the port's ``LM`` admits only the dense, moe
-        and vlm families, all attention, so its model code does not call
-        it."""
+        """'attn' | 'slstm' | 'mlstm' for decoder layer i: xLSTM (family
+        ``ssm``) puts an sLSTM first in every ``slstm_every`` layers. The
+        hybrid family's Mamba layers are not ported."""
         if self.family == "ssm":
+            if self.xlstm.slstm_every and i % self.xlstm.slstm_every == 0:
+                return "slstm"
+            return "mlstm"
+        if self.family == "hybrid":
             raise NotImplementedError(
-                "family 'ssm' (xLSTM mLSTM/sLSTM layers) is not ported yet")
+                "family 'hybrid' (jamba's mamba/attention layers) is not "
+                "ported yet")
         return "attn"
 
     def layer_is_moe(self, i: int) -> bool:

@@ -3,9 +3,10 @@
 Each module is a copy of its ``repro.configs`` counterpart: CONFIG (the full
 configuration) and SMOKE (a reduced same-family configuration for CPU
 tests). The attention-only decoders are ported: the dense GQA families,
-deepseek's MoE, deepseek-v2's MLA attention over MoE and qwen2-vl's vision
-prefix with M-RoPE. The configurations of the families still to come raise
-``NotImplementedError`` naming their family.
+deepseek's MoE, deepseek-v2's MLA attention over MoE, qwen2-vl's vision
+prefix with M-RoPE, and xLSTM's recurrent mLSTM/sLSTM blocks. The
+configurations of the families still to come raise ``NotImplementedError``
+naming their family.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ ARCH_IDS: List[str] = [
     "smollm_135m",
     "minicpm_2b",
     "qwen2_vl_2b",
+    "xlstm_1_3b",
     # the paper's own evaluation models (compression targets)
     "llama3_1b",
     "mistral_7b",
@@ -30,7 +32,6 @@ ARCH_IDS: List[str] = [
 # the reference's other configurations, by the family that keeps them out
 NOT_PORTED: Dict[str, str] = {
     "whisper_base": "encdec (encoder-decoder with cross-attention)",
-    "xlstm_1_3b": "ssm (xLSTM mLSTM/sLSTM recurrences)",
     "jamba_v0_1_52b": "hybrid (mamba/attention with MoE)",
 }
 

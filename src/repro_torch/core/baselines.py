@@ -21,21 +21,10 @@ import torch
 from repro_torch.core.coala import svd
 
 
-def _svd(m: torch.Tensor):
-    """Reduced SVD. Where ``m`` holds a non-finite value, ``jnp.linalg.svd``
-    returns all-NaN factors while ``torch.linalg.svd`` raises; the port
-    returns the NaN factors, so a failed Cholesky propagates as in the
-    reference."""
-    if bool(torch.isfinite(m).all()):
-        return svd(m)
-    k = min(m.shape)
-    nan = dict(fill_value=float("nan"), dtype=m.dtype, device=m.device)
-    return (torch.full((m.shape[0], k), **nan), torch.full((k,), **nan),
-            torch.full((k, m.shape[1]), **nan))
-
-
 def _svd_trunc(m: torch.Tensor, rank: int):
-    u, s, vt = _svd(m)
+    """Top-``rank`` SVD; NaN factors for a non-finite ``m`` (``svd``), so a
+    failed Cholesky propagates as in the reference."""
+    u, s, vt = svd(m)
     return u[:, :rank], s[:rank], vt[:rank, :]
 
 
@@ -63,7 +52,7 @@ def svd_llm_v2(w: torch.Tensor, gram: torch.Tensor, rank: int
     """SVD-LLM v2 (Algorithm 4): decompose XXᵀ = Us diag(sv) Usᵀ, truncate
     the SVD of W Us S^{1/2}, map back with S^{-1/2} (0 where sv == 0; it
     blows up where sv is tiny, as in the reference)."""
-    us, sv, _ = _svd(gram)
+    us, sv, _ = svd(gram)
     m = w @ (us * torch.sqrt(sv)[None, :])
     u, s, vt = _svd_trunc(m, rank)
     inv_sqrt = torch.where(sv > 0, 1.0 / torch.sqrt(sv), torch.zeros_like(sv))

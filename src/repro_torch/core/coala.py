@@ -38,12 +38,25 @@ def _solver(m: torch.Tensor):
 
 
 def svd(m: torch.Tensor):
-    """Reduced SVD (U, S, Vᵀ) of ``m`` (see ``_solver``)."""
+    """Reduced SVD (U, S, Vᵀ) of ``m`` (see ``_solver``). Where ``m`` holds
+    a non-finite value ``jnp.linalg.svd`` returns all-NaN factors, while
+    ``torch.linalg.svd`` raises — and cuSOLVER's ``gesvd`` first iterates
+    for long (92 s on a 512² NaN matrix on an H100) — so the port returns
+    the NaN factors without a solve, as the reference does."""
+    if not bool(torch.isfinite(m).all()):
+        k = min(m.shape)
+        nan = dict(fill_value=float("nan"), dtype=m.dtype, device=m.device)
+        return (torch.full((m.shape[0], k), **nan), torch.full((k,), **nan),
+                torch.full((k, m.shape[1]), **nan))
     return torch.linalg.svd(m, full_matrices=False, driver=_solver(m))
 
 
 def svdvals(m: torch.Tensor) -> torch.Tensor:
-    """Singular values of ``m``, descending (see ``_solver``)."""
+    """Singular values of ``m``, descending (see ``_solver``); all NaN for
+    a non-finite ``m``, as ``svd``."""
+    if not bool(torch.isfinite(m).all()):
+        return torch.full((min(m.shape),), float("nan"), dtype=m.dtype,
+                          device=m.device)
     return torch.linalg.svdvals(m, driver=_solver(m))
 
 

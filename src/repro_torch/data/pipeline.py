@@ -72,7 +72,7 @@ class TokenPipeline:
 
     def __init__(self, dcfg: DataConfig, model_cfg=None, *, device="cuda"):
         if model_cfg is not None and model_cfg.family not in ("dense", "moe",
-                                                              "vlm"):
+                                                              "vlm", "ssm"):
             raise NotImplementedError(
                 f"family {model_cfg.family!r} has no ported batch extras")
         self.dcfg = dcfg

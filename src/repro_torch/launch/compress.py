@@ -11,7 +11,10 @@ the tokens routed to it, and its training loss carries the load-balance aux
 term. MLA's calibration forward runs the flash kernel at head dim
 nope + rope (192). qwen2_vl_2b's batches carry the pipeline's vision
 prefix through pretraining, evaluation and calibration (its loss skips the
-vision positions; ``vision_proj`` stays dense).
+vision positions; ``vision_proj`` stays dense). xlstm_1_3b pretrains through
+its recurrences (checkpointed per chunk under autograd); its targets are
+the reference's compressible projections (mLSTM's up, wq, wk, wv, down and
+sLSTM's ff_up, ff_down), the gates and recurrences stay dense.
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 Pretraining runs the dense attention path (the flash kernel has no

@@ -21,12 +21,15 @@ families (llama3_1b, mistral_7b, smollm_135m, olmo_1b, minicpm_2b,
 gemma2_27b), deepseek_moe_16b's MoE, deepseek_v2_lite_16b's MLA over MoE
 (its latent KV pages read in plain torch; no paged kernel runs for it) and
 qwen2_vl_2b (calibrated with a seeded vision prefix; the synthetic trace is
-text-only, as the reference's).
+text-only, as the reference's) and xlstm_1_3b (recurrent: ``--prefix-cache
+auto`` serves it with the cache off, ``on`` raises ``ValueError``, and each
+request is prefilled alone, its state kept in a per-request slot).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 On the GPU each engine replays one CUDA graph per step signature;
 ``--warmup on`` captures the whole set the trace can reach before serving.
-``--prefix-cache`` (auto = on) reuses cached block-aligned prompt prefixes,
+``--prefix-cache`` (auto = on for a pure-attention model) reuses cached
+block-aligned prompt prefixes,
 ``--shared-prefix N`` prepends one common N-token prefix to every prompt,
 and ``--temperature`` samples instead of taking the argmax.
 ``--draft-ratio R --spec-k K`` serves both models speculatively: a draft
@@ -430,7 +433,8 @@ def main(argv=None, trace=None, reuse=None, cfg=None):
     ap.add_argument("--prefix-cache", choices=("auto", "on", "off"),
                     default="auto",
                     help="reuse cached block-aligned prompt prefixes "
-                         "(auto = on: the port serves pure-attention LMs)")
+                         "(auto = on for a pure-attention LM, off for a "
+                         "recurrent one; on raises for a recurrent one)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend one common prefix of this many tokens to "
                          "every trace prompt")

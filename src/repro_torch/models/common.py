@@ -1,7 +1,7 @@
 """Shared model building blocks: parallel context, norms (RMSNorm and olmo's
 non-parametric LayerNorm), RoPE and qwen2-vl's M-RoPE, softcap,
-activations, init (port of ``repro/models/common.py:11-36`` and
-``:84-185``)."""
+activations, init and the recurrences' time loop (port of
+``repro/models/common.py:11-36`` and ``:84-221``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,19 +9,24 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """Runtime context threaded through the model's forward passes.
 
-    Of the JAX package's fields only ``use_pallas`` is read by the port: it
-    sends a causal full-sequence attention (no window, Tq == Tk) through
+    Of the JAX package's fields the port reads two. ``use_pallas`` sends a
+    causal full-sequence attention (no window, Tq == Tk) through
     ``kernels.ops.flash_attention``, which on a CUDA tensor launches the
     hand-written CUDA flash kernel (``csrc/flash_attention.cu``) where the
-    JAX package runs its TPU Pallas kernel. The name is the JAX one, so a
-    parity test hands the same settings to both packages."""
+    JAX package runs its TPU Pallas kernel. ``mlstm_chunkwise`` runs an
+    mLSTM over a sequence that is a whole number of chunks in the
+    chunkwise-parallel form (``models/xlstm.py``), which gives the
+    sequential recurrence's numbers in other rounding. The names are the
+    JAX ones, so a parity test hands the same settings to both packages."""
     use_pallas: bool = False
+    mlstm_chunkwise: bool = False
 
 
 CPU_CTX = ParallelCtx()
@@ -152,3 +157,38 @@ def act_fn(name: str):
     gelu_tanh = lambda x: F.gelu(x, approximate="tanh")   # noqa: E731
     return {"silu": F.silu, "gelu": gelu_tanh, "gelu_tanh": gelu_tanh,
             "relu": F.relu}[name]
+
+
+def chunked_scan(f, init, xs, chunk: int):
+    """The reference's ``lax.scan`` over time with chunk-boundary
+    checkpointing (``repro/models/common.py:189-221``), as a Python loop.
+
+    ``f(carry, x_t) -> (carry, y_t)``; ``init`` a tuple of tensors; ``xs`` a
+    tuple of tensors with the time axis first. Returns ``(carry, ys)``, the
+    ``y_t`` stacked on a leading time axis. Without autograd it is a plain
+    loop. Under autograd each run of ``chunk`` steps (a sequence shorter
+    than a chunk is one run) goes through ``torch.utils.checkpoint``, so the
+    backward keeps only the carries at the runs' boundaries and recomputes
+    one run's steps at a time: an mLSTM's (B, H, hd, hd) matrix memory saved
+    at every step of every layer would not fit on the card at full width.
+    The numbers are those of the plain loop either way."""
+    t = xs[0].shape[0]
+
+    def run(carry, *xc):
+        ys = []
+        for i in range(xc[0].shape[0]):
+            carry, y = f(carry, tuple(x[i] for x in xc))
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in tuple(init) + tuple(xs))
+    if not grad:
+        return run(init, *xs)
+    step = chunk if chunk > 0 else t
+    carry, ys = init, []
+    for lo in range(0, t, step):
+        carry, y = torch.utils.checkpoint.checkpoint(
+            run, carry, *(x[lo:lo + step] for x in xs), use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)

@@ -6,7 +6,9 @@ softcaps and sandwich norms), deepseek's MoE (dense-FFN prefix layers,
 then MoE FFNs), deepseek-v2's MLA attention (``kv_lora_rank`` > 0) and
 qwen2-vl (family ``vlm``): a ``vision_proj`` of precomputed patch embeddings
 placed before the token embeddings, M-RoPE over positions broadcast to its
-three streams, and a loss that skips the vision positions.
+three streams, and a loss that skips the vision positions; and xLSTM
+(family ``ssm``, ``models/xlstm.py``): blocks of a pre-norm recurrent mixer
+(mLSTM, or an sLSTM every ``slstm_every`` layers) without an FFN.
 
 ``LM`` is an ``nn.Module`` with the reference's layer layout: ``prefix`` is
 a ``ModuleList`` of the unrolled leading layers (deepseek's first dense-FFN
@@ -23,7 +25,10 @@ bs, qk_rope_dim)}`` for MLA — read through block tables by
 ``prefill_chunk``, ``verify_chunk`` and ``decode_step``; or the contiguous
 (batch, max_len, ...) cache of ``init_contiguous_cache`` (the JAX
 ``init_cache``), filled by ``prefill`` and read by ``decode_step`` at a
-scalar position without block tables.
+scalar position without block tables. A recurrent layer's cache is its fp32
+state (``models/xlstm.py``): per-request slot stores (n_slots, ...) in
+``init_cache``, read and written through the batch's ``slots``, or (batch,
+...) rows in ``init_contiguous_cache``.
 
 Every parameter is trainable (``LM.loss`` under autograd); the inference
 entry points run under ``torch.no_grad``.
@@ -44,6 +49,7 @@ from repro_torch.models.common import (CPU_CTX, ParallelCtx, dense_init,
                                        softcap)
 from repro_torch.models.ffn import MLP, ExpertBank, MoE
 from repro_torch.models.linear import Linear
+from repro_torch.models.xlstm import MLSTM, SLSTM, empty_state
 
 
 def chunked_ce(h, targets, head_w, *, transform: Optional[Callable] = None,
@@ -77,6 +83,7 @@ def chunked_ce(h, targets, head_w, *, transform: Optional[Callable] = None,
 
 @dataclasses.dataclass(frozen=True)
 class SubSpec:
+    kind: str          # attn | mlstm | slstm
     is_moe: bool
     is_local: bool
 
@@ -88,7 +95,8 @@ def period_specs(cfg: ModelConfig):
     n = cfg.n_layers
 
     def spec(i):
-        return SubSpec(cfg.layer_is_moe(i), cfg.layer_is_local_attn(i))
+        return SubSpec(cfg.layer_kind(i), cfg.layer_is_moe(i),
+                       cfg.layer_is_local_attn(i))
 
     base = cfg.first_k_dense
     rest = n - base
@@ -98,6 +106,8 @@ def period_specs(cfg: ModelConfig):
         p = max(p, 2)
     if cfg.uses_moe and cfg.moe_every > 1:
         p = max(p, cfg.moe_every)
+    if cfg.family == "ssm" and cfg.xlstm.slstm_every:
+        p = max(p, cfg.xlstm.slstm_every)
     while rest % p:
         p += 1                      # fall back to a longer period that divides
     for i in range(base, n):
@@ -108,36 +118,58 @@ def period_specs(cfg: ModelConfig):
             [spec(base + j) for j in range(p)], rest // p)
 
 
+_RECURRENT = {"mlstm": MLSTM, "slstm": SLSTM}
+
+
 class Block(torch.nn.Module):
-    """Pre-norm attention + FFN (gated MLP or MoE), both residual, each
-    branch scaled by ``scale_depth / sqrt(n_layers)`` (minicpm) and, with
-    ``post_block_norm`` (gemma2), normed before its residual add."""
+    """Pre-norm mixer + FFN (gated MLP or MoE), both residual, each branch
+    scaled by ``scale_depth / sqrt(n_layers)`` (minicpm) and, with
+    ``post_block_norm`` (gemma2), normed before its residual add. The mixer
+    is attention (GQA or MLA) or, for xLSTM, a recurrent mLSTM/sLSTM, whose
+    block has no FFN: its mixer carries its own projections
+    (``repro/models/transformer.py:129-130``)."""
 
     def __init__(self, cfg: ModelConfig, spec: SubSpec, *, device=None,
                  dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.kind = spec.kind
         self.local = spec.is_local
         self.res_scale = (cfg.scale_depth / math.sqrt(cfg.n_layers)
                           if cfg.scale_depth else 1.0)
         self.norm1 = make_norm(cfg, **kw)
-        self.mixer = MLA(cfg, **kw) if cfg.kv_lora_rank else GQA(cfg, **kw)
-        self.norm2 = make_norm(cfg, **kw)
+        if spec.kind in _RECURRENT:
+            self.mixer = _RECURRENT[spec.kind](cfg, **kw)
+        else:
+            self.mixer = MLA(cfg, **kw) if cfg.kv_lora_rank else GQA(cfg, **kw)
+        self.has_ffn = cfg.family != "ssm"
         self.is_moe = spec.is_moe
-        self.ffn = (MoE(cfg, **kw) if spec.is_moe
-                    else MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw))
+        if self.has_ffn:
+            self.norm2 = make_norm(cfg, **kw)
+            self.ffn = (MoE(cfg, **kw) if spec.is_moe
+                        else MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw))
         self.post = cfg.post_block_norm
         if self.post:
             self.post1 = make_norm(cfg, **kw)
-            self.post2 = make_norm(cfg, **kw)
+            if self.has_ffn:
+                self.post2 = make_norm(cfg, **kw)
 
-    def forward(self, x, cos_sin, **attn_kw):
-        """Returns (x, aux): the MoE's weighted aux loss, None for an MLP."""
-        h = self.mixer(self.norm1(x), cos_sin, local=self.local, **attn_kw)
+    def forward(self, x, cos_sin, *, cache=None, slots=None, ctx=CPU_CTX,
+                **attn_kw):
+        """Returns (x, aux): the MoE's weighted aux loss, None for an MLP
+        or a block without an FFN. ``slots`` are the rows' state slots (a
+        recurrent mixer's; attention ignores them)."""
+        if self.kind in _RECURRENT:
+            h = self.mixer(self.norm1(x), cache=cache, slots=slots, ctx=ctx)
+        else:
+            h = self.mixer(self.norm1(x), cos_sin, local=self.local,
+                           cache=cache, ctx=ctx, **attn_kw)
         if self.post:
             h = self.post1(h)
         x = x + self.res_scale * h
         aux = None
+        if not self.has_ffn:
+            return x, aux
         if self.is_moe:
             h, aux = self.ffn(self.norm2(x))
         else:
@@ -155,10 +187,10 @@ class LM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "vlm"):
+        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
-                "only)")
+                f"family {cfg.family!r} is not ported yet (dense, moe, vlm "
+                "and ssm only)")
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -194,12 +226,20 @@ class LM(torch.nn.Module):
         for rep in self.blocks:
             yield from rep.values()
 
+    def layer_kinds(self) -> List[str]:
+        """Each layer's mixer kind in depth order: 'attn', 'mlstm' or
+        'slstm'. A serving cache's layer holds token pages for 'attn' and
+        per-request state otherwise."""
+        return [blk.kind for blk in self.layers()]
+
     # ---------------- params ------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
         """Random init in place, from ``generator`` (on the model's device):
-        embeddings N(0, 0.02²), projections (MLA's ``w_uk``/``w_uv`` too),
-        routers and expert banks N(0, 1/d_in), norm scales 0."""
+        embeddings N(0, 0.02²), projections (MLA's ``w_uk``/``w_uv`` and
+        mLSTM's gate vectors ``w_i``/``w_f`` too), routers and expert banks
+        N(0, 1/d_in), sLSTM's recurrences ``r_*`` N(0, 1/hd), forget-gate
+        biases 3, mLSTM's ``o_norm_scale`` 1, norm scales 0."""
         self.embed.normal_(0.0, 1.0, generator=generator).mul_(0.02)
         for mod in self.modules():
             if isinstance(mod, Linear):
@@ -209,6 +249,17 @@ class LM(torch.nn.Module):
                 dense_init(mod.w_uv, generator)
             elif isinstance(mod, MoE):
                 dense_init(mod.router, generator)
+            elif isinstance(mod, MLSTM):
+                dense_init(mod.w_i, generator)
+                dense_init(mod.w_f, generator)
+                mod.f_bias.fill_(3.0)
+                mod.o_norm_scale.fill_(1.0)
+            elif isinstance(mod, SLSTM):
+                for g in mod.GATES:
+                    r = getattr(mod, f"r_{g}")
+                    r.normal_(0.0, 1.0, generator=generator).mul_(
+                        1.0 / math.sqrt(r.shape[-1]))
+                mod.f_bias.fill_(3.0)
             elif isinstance(mod, ExpertBank):
                 mod.w.normal_(0.0, 1.0, generator=generator).mul_(
                     1.0 / math.sqrt(mod.w.shape[1]))
@@ -216,22 +267,27 @@ class LM(torch.nn.Module):
 
     # ---------------- caches -----------------------------------------------
     def init_cache(self, num_blocks: int, block_size: int,
-                   dtype=torch.float32) -> List[dict]:
+                   dtype=torch.float32, *, slots: int = 0) -> List[dict]:
         """Per-layer page stores: {"k", "v"} (num_blocks, bs, Hkv, hd), or
         MLA's latents {"c": (num_blocks, bs, kv_lora_rank), "k_rope":
-        (num_blocks, bs, qk_rope_dim)}."""
-        return self._cache_stores((num_blocks, block_size), dtype)
+        (num_blocks, bs, qk_rope_dim)}; a recurrent layer's fp32 state
+        stores with ``slots`` rows, empty (``m`` at -1e30; a slot is written
+        by a request's prefill before any step reads it)."""
+        return self._cache_stores((num_blocks, block_size), dtype, (slots,))
 
     def init_contiguous_cache(self, batch: int, max_len: int,
                               dtype=torch.float32) -> List[dict]:
         """The JAX ``LM.init_cache(batch, max_len)``
         (``repro/models/transformer.py:244-253``) under its own name, since
         ``init_cache`` here means the paged stores: the same per-layer
-        stores with (batch, max_len) leading dims, zeros. ``prefill`` fills
-        it and ``decode_step`` without block tables reads it."""
-        return self._cache_stores((batch, max_len), dtype)
+        stores with (batch, max_len) leading dims, zeros; a recurrent
+        layer's state (batch, ...) in fp32, empty (``m`` at -1e30).
+        ``prefill`` fills it and ``decode_step`` without block tables reads
+        it."""
+        return self._cache_stores((batch, max_len), dtype, (batch,))
 
-    def _cache_stores(self, lead: tuple, dtype) -> List[dict]:
+    def _cache_stores(self, lead: tuple, dtype, state_lead: tuple
+                      ) -> List[dict]:
         cfg = self.cfg
         if cfg.kv_lora_rank:
             shapes = {"c": lead + (cfg.kv_lora_rank,),
@@ -239,9 +295,16 @@ class LM(torch.nn.Module):
         else:
             kv = lead + (cfg.n_kv_heads, cfg.head_dim)
             shapes = {"k": kv, "v": kv}
-        return [{name: torch.zeros(shape, dtype=dtype, device=self.device)
-                 for name, shape in shapes.items()}
-                for _ in range(cfg.n_layers)]
+        out = []
+        for blk in self.layers():
+            if blk.kind in _RECURRENT:
+                out.append(empty_state(blk.mixer.state_shapes(), state_lead,
+                                       self.device))
+            else:
+                out.append({name: torch.zeros(shape, dtype=dtype,
+                                              device=self.device)
+                            for name, shape in shapes.items()})
+        return out
 
     # ---------------- embedding & positions ---------------------------------
     def _embed(self, tokens, vision_embeds=None):
@@ -278,16 +341,21 @@ class LM(torch.nn.Module):
 
     # ---------------- backbone ----------------------------------------------
     def _backbone(self, x, *, ctx: ParallelCtx = CPU_CTX, compute_dtype=None,
-                  cache=None, pos=None, paged_tables=None, lens=None):
+                  cache=None, pos=None, paged_tables=None, lens=None,
+                  slots=None):
         """Final-normed hidden states and the summed MoE aux loss of the
-        embedded sequence ``x`` (B, T, d_model; see ``_embed``)."""
+        embedded sequence ``x`` (B, T, d_model; see ``_embed``). ``slots``
+        (B,) are the rows' state slots in ``cache``'s slot stores."""
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         cos_sin = self._cos_sin(x.shape[0], x.shape[1], pos)
+        if slots is not None:
+            slots = slots.long()
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, blk in enumerate(self.layers()):
             x, aux = blk(x, cos_sin, cache=None if cache is None else cache[i],
-                         pos=pos, paged_tables=paged_tables, lens=lens, ctx=ctx)
+                         pos=pos, paged_tables=paged_tables, lens=lens, ctx=ctx,
+                         slots=slots)
             if aux is not None:
                 aux_total = aux_total + aux
         return self.final_norm(x), aux_total
@@ -367,8 +435,10 @@ class LM(torch.nn.Module):
         (B, T) after a vlm's ``vision_embeds`` prefix (B, n_vis, d_model)
         fill positions [0, n_vis + T) of every layer's cache in place, in the
         cache's dtype, attending through ``sdpa`` (the flash kernel under
-        ``ctx.use_pallas``); activations in ``compute_dtype`` (None: the
-        embedding's). Returns the logits at the last position, (B, vocab)."""
+        ``ctx.use_pallas``); a recurrent layer runs its recurrence over the
+        positions and leaves its final state in the cache; activations in
+        ``compute_dtype`` (None: the embedding's). Returns the logits at the
+        last position, (B, vocab)."""
         h, _ = self._backbone(self._embed(tokens, vision_embeds), ctx=ctx,
                               compute_dtype=compute_dtype, cache=cache)
         return self._logits(h[:, -1])
@@ -407,12 +477,15 @@ class LM(torch.nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, pos, block_tables=None, *,
-                    compute_dtype=None):
+                    slots=None, compute_dtype=None):
         """tokens (B, 1); returns the next-token logits (B, vocab). With
         ``block_tables`` (B, nb): pos (B,) int32 positions being written, K/V
-        written into the pages of ``cache``. Without: ``cache`` is contiguous
+        written into the pages of ``cache``, and a recurrent layer's state
+        read from and written to the rows ``slots`` (B,) of its slot stores
+        (``init_cache(slots=)``). Without: ``cache`` is contiguous
         (``init_contiguous_cache``) and pos one scalar position of every
         row, written there and attended over the whole cache."""
         h, _ = self._backbone(self._embed(tokens), compute_dtype=compute_dtype,
-                              cache=cache, pos=pos, paged_tables=block_tables)
+                              cache=cache, pos=pos, paged_tables=block_tables,
+                              slots=slots)
         return self._logits(h)[:, 0]

@@ -9,8 +9,8 @@ It is the oracle the continuous engine's greedy tokens are held against.
 
 ``submit()`` enqueues a request; each ``step()`` admits whatever fits
 (scheduler + block pool), looks up each joiner's longest cached block-aligned
-prefix in the pool's prefix registry (``prefix_cache``, on by default: the
-port serves only pure-attention LMs) and prefills only the suffix —
+prefix in the pool's prefix registry (``prefix_cache``, on by default for a
+pure-attention LM) and prefills only the suffix —
 suffixes in the same length bucket go together through one
 ``LM.prefill_chunk`` call over the pool's page stores (the chunked-prefill
 kernel on the GPU) — and then runs ONE decode step over the whole running
@@ -41,6 +41,21 @@ graph, since its length varies by request: it is no capture, so
 (``request_prefills`` counts these calls). A preempted vision request is
 prefilled again over prompt + output with its extras. Speculation serves
 only cacheable requests.
+
+Recurrent models (xLSTM's mLSTM/sLSTM, the reference's non-chunked route,
+``repro/serve/engine.py:247-313``): a chunked suffix prefill would need the
+state at every block boundary, so every request is non-cacheable and
+prefilled alone through the per-request prefill, whose final state
+``scatter_prefill`` writes into the request's state slot. The prefix cache
+is off (``prefix_cache=None``; True raises ``ValueError``), and so are
+speculation (a draft raises) and the chunked-prefill kernel
+(``prefill_kernel`` False; True raises). Decode goes through the same
+signatures and graphs as an attention model's, with the rows' state slots
+in the packed int32 inputs (padding rows, and warmup's captures, on the
+pool's trash slot); the recurrence gathers and scatters its slot rows in
+place, so a replay reads and writes the same state stores every time. A
+preempted request gives up its slot and is prefilled again over prompt +
+output; ``fork`` copies the parent's state slot into the child's.
 
 CUDA graphs take the place of the JAX engine's jit cache. Every step runs
 one of a closed set of signatures — decode ``(b_pad, nb_pad)``, prefill
@@ -98,9 +113,9 @@ The caller's model is never written: an engine serving it as it is (the
 compute dtype is the model's) makes its own copy before its first capture
 or swap (``_own_weights``), so the graphs read the engine's tensors.
 
-Model families: every attention-only decoder of ``repro_torch.configs``
-(dense GQA, gemma2's local window and softcaps, deepseek's MoE, deepseek-v2's
-MLA). An MoE
+Model families: every decoder of ``repro_torch.configs`` (dense GQA,
+gemma2's local window and softcaps, deepseek's MoE, deepseek-v2's MLA,
+qwen2-vl, and xLSTM through the recurrent route above). An MoE
 layer's capacity comes from the step's padded token count, so a signature
 fixes it and its graph is static; its combine adds without atomics, so a
 replay gives the eager engine's bits.
@@ -311,12 +326,14 @@ def _weak_gauge(obj, read):
     return value
 
 
-def _layout(sig) -> Tuple[Tuple[str, tuple], ...]:
+def _layout(sig, state: bool = False) -> Tuple[Tuple[str, tuple], ...]:
     """Named int32 inputs of a step signature, in packed order (a spec
-    round's temperatures travel as their fp32 bits)."""
+    round's temperatures travel as their fp32 bits); with ``state`` a
+    decode step also takes the rows' state slots."""
     if sig[0] == "decode":
         _, b, nb = sig
-        return (("tok", (b, 1)), ("pos", (b,)), ("tables", (b, nb)))
+        slots = (("slots", (b,)),) if state else ()
+        return (("tok", (b, 1)), ("pos", (b,)), ("tables", (b, nb))) + slots
     if sig[0] == "spec":
         _, b, nb = sig
         return (("tok", (b, 1)), ("pos", (b,)), ("temps", (b,)),
@@ -331,30 +348,34 @@ def _seg(shape) -> int:
     return -(-math.prod(shape) // 4) * 4
 
 
-def _pack(sig, **arrays) -> np.ndarray:
+def _pack(sig, state: bool = False, **arrays) -> np.ndarray:
     """One flat int32 host array holding a step's inputs."""
     parts = []
-    for name, shape in _layout(sig):
+    for name, shape in _layout(sig, state):
         a = np.zeros(_seg(shape), np.int32)
         a[:math.prod(shape)] = np.asarray(arrays[name], np.int32).reshape(-1)
         parts.append(a)
     return np.concatenate(parts)
 
 
-def _views(sig, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _views(sig, buf: torch.Tensor, state: bool = False
+           ) -> Dict[str, torch.Tensor]:
     """The step's inputs as contiguous views of the packed buffer."""
     out, off = {}, 0
-    for name, shape in _layout(sig):
+    for name, shape in _layout(sig, state):
         out[name] = buf[off:off + math.prod(shape)].view(shape)
         off += _seg(shape)
     return out
 
 
-def _trash_inputs(sig) -> np.ndarray:
-    """All-padding inputs: token 0, position 0, length 1, all-trash tables."""
-    shapes = dict(_layout(sig))
-    return _pack(sig, **{n: (np.ones if n == "lens" else np.zeros)(s)
-                         for n, s in shapes.items()})
+def _trash_inputs(sig, trash_slot: Optional[int] = None) -> np.ndarray:
+    """All-padding inputs: token 0, position 0, length 1, all-trash tables
+    and, with ``trash_slot``, every row's state on that slot."""
+    state = trash_slot is not None
+    shapes = dict(_layout(sig, state))
+    fill = {"lens": 1, "slots": trash_slot}
+    return _pack(sig, state, **{n: np.full(s, fill.get(n, 0))
+                                for n, s in shapes.items()})
 
 
 @dataclasses.dataclass
@@ -375,6 +396,7 @@ class ContinuousEngine:
                  bucket_sizes: Optional[Sequence[int]] = None,
                  prefix_cache: Optional[bool] = None,
                  prefill_bucket_sizes: Optional[Sequence[int]] = None,
+                 prefill_kernel: Optional[bool] = None,
                  cuda_graphs: Optional[bool] = None,
                  draft_model=None, spec_k: int = 4,
                  slo_ttft_s: Optional[float] = None,
@@ -384,8 +406,14 @@ class ContinuousEngine:
                  async_detok: Optional[bool] = None):
         """``compute_dtype``/``cache_dtype``: activations and KV pool (None:
         the model's dtype; the JAX engine's defaults are bf16 for both).
-        ``draft_model``: an ``LM`` of the target's config, served as the
-        speculative draft proposing ``spec_k`` tokens a round.
+        ``prefix_cache`` (None: on for a pure-attention LM, off for a
+        recurrent one, where True raises ``ValueError``) and
+        ``prefill_kernel`` (None: what the model allows — the chunked-prefill
+        kernel for a GQA LM; any other value raises ``ValueError``, since
+        the port has no gather prefill path to run instead) are the JAX
+        engine's switches. ``draft_model``: an ``LM`` of the target's config,
+        served as the speculative draft proposing ``spec_k`` tokens a round
+        (``ValueError`` for a recurrent model).
         ``slo_ttft_s``/``slo_tpot_s``: latency SLOs feeding the goodput
         gauge (None: met by every request). ``flight_recorder``: an
         ``obs.FlightRecorder`` receiving the lifecycle events.
@@ -398,8 +426,17 @@ class ContinuousEngine:
         self.compute_dtype = compute_dtype or model.dtype
         self.cache_dtype = cache_dtype or model.dtype
         self._target = compute_copy(model, self.compute_dtype)
+        kinds = model.layer_kinds()
+        # the chunked (position-offset) prefill that a cached prefix and the
+        # speculative verifier need rides attention alone: a recurrent layer
+        # would need its state at every block boundary
+        self._chunk_ok = all(k == "attn" for k in kinds)
         self._spec = draft_model is not None
         self.spec_k = int(spec_k)
+        if self._spec and not self._chunk_ok:
+            raise ValueError(
+                "speculative decoding needs the chunked (position-offset) "
+                "prefill path as its verifier (pure-attention LM)")
         if self._spec:
             if self.spec_k < 1:
                 raise ValueError("spec_k must be >= 1")
@@ -416,13 +453,27 @@ class ContinuousEngine:
         self.last_step_time: Optional[float] = None
         self.warmed = False
         self.block_size = block_size
-        # every model the port serves is a pure-attention LM, so the
-        # chunked suffix prefill a cached prefix needs is always there
-        self.prefix_cache = True if prefix_cache is None else prefix_cache
+        self.prefix_cache = (self._chunk_ok if prefix_cache is None
+                             else prefix_cache)
+        if self.prefix_cache and not self._chunk_ok:
+            raise ValueError(
+                "prefix caching needs chunked suffix prefill, which this "
+                "model does not support (recurrent/hybrid/enc-dec layers)")
         # the paged kernels read {"k", "v"} pages: MLA's latent pages are
-        # read by its own attention, so neither kernel runs for it
-        self.paged_kernel = not model.cfg.kv_lora_rank
-        self.prefill_kernel = self.paged_kernel
+        # read by its own attention and a recurrent model has none, so
+        # neither kernel runs for them
+        self.paged_kernel = "attn" in kinds and not model.cfg.kv_lora_rank
+        supported = self._chunk_ok and self.paged_kernel
+        self.prefill_kernel = (supported if prefill_kernel is None
+                               else prefill_kernel)
+        if self.prefill_kernel and not supported:
+            raise ValueError(
+                "chunked-prefill kernel unsupported for this model "
+                "(recurrent/hybrid/MLA/enc-dec layers)")
+        if supported and not self.prefill_kernel:
+            raise ValueError(
+                "the port has no gather prefill path: the chunked-prefill "
+                "kernel runs wherever the model allows it")
         is_cuda = self.device.type == "cuda"
         self.cuda_graphs = is_cuda if cuda_graphs is None else cuda_graphs
         if self.cuda_graphs and not is_cuda:
@@ -443,6 +494,8 @@ class ContinuousEngine:
                        max_requests=max_running, dtype=self.cache_dtype,
                        prefix_cache=self.prefix_cache)
         self.pool = BlockPool(model, registry=self.registry, **pool_kw)
+        # a recurrent model's decode steps carry the rows' state slots
+        self._state = self.pool.has_state
         self.scheduler = Scheduler(self.pool, max_running=max_running,
                                    registry=self.registry,
                                    headroom_tokens=self.spec_k
@@ -570,7 +623,7 @@ class ContinuousEngine:
         req = Request(req_id=self._next_id, prompt=prompt,
                       max_new_tokens=max_new_tokens, temperature=temperature,
                       seed=seed, eos_id=eos_id, extras=extras, vis_offset=vis,
-                      cacheable=not extras and vis == 0,
+                      cacheable=self._chunk_ok and not extras and vis == 0,
                       stream_callback=stream_callback)
         if self._spec and not req.cacheable:
             raise ValueError(
@@ -628,7 +681,7 @@ class ContinuousEngine:
         groups: Dict[int, list] = {}
         for req in admitted:
             if not req.cacheable:
-                self._prefill_request(req)            # extras (vision prefix)
+                self._prefill_request(req)    # extras / recurrent models
                 continue
             toks = req.prefill_tokens()
             cached = self.pool.alloc(req.req_id, len(toks), tokens=toks)
@@ -864,7 +917,8 @@ class ContinuousEngine:
         ``(decode_sigs, prefill_sigs)``. In speculative mode the decode sigs
         are the spec rounds', whose block envelope covers the ``spec_k``
         positions a verify round writes past the budget; every prefill sig
-        runs for the draft too."""
+        runs for the draft too. A recurrent model has no prefill sigs: its
+        requests are prefilled alone, eagerly."""
         span = max_len + (self.spec_k if self._spec else 0)
         nb_cap = _pow2_at_least(min(self.pool.blocks_for(span),
                                     self.pool.usable_blocks))
@@ -875,6 +929,8 @@ class ContinuousEngine:
                 decode.append((b, nb))
                 nb *= 2
         prefill = []
+        if not self._chunk_ok:
+            return decode, prefill
         l_buckets = sorted({self._bucket_prefill(n)
                             for n in range(1, max_len + 1)})
         prev = 0
@@ -1120,7 +1176,8 @@ class ContinuousEngine:
         the output after a preemption) over a contiguous cache of its
         table's length, eagerly through ``LM.prefill`` (no graph: the length
         varies by request), then the first ``vis_offset + len(tokens)``
-        positions into its pages."""
+        positions into its pages and, for a recurrent model, its final state
+        into its state slot."""
         with trace.span("serve.prefill_request", req_id=req.req_id,
                         tokens=len(req.prompt)):
             tokens = req.prefill_tokens()
@@ -1200,7 +1257,7 @@ class ContinuousEngine:
         if kind == "decode":
             return self._target.decode_step(
                 inputs["tok"], self.pool.pages, inputs["pos"],
-                inputs["tables"], compute_dtype=cd)
+                inputs["tables"], slots=inputs.get("slots"), compute_dtype=cd)
         if kind == "spec":
             return self._spec_round(inputs)
         model, pool = ((self._draft, self.draft_pool) if kind == "dprefill"
@@ -1249,7 +1306,7 @@ class ContinuousEngine:
         step's output, whether a graph was captured)."""
         if not self.cuda_graphs:
             buf = torch.as_tensor(host, device=self.device)
-            return self._forward(sig, _views(sig, buf)), False
+            return self._forward(sig, _views(sig, buf, self._state)), False
         fresh = sig not in self._graphs
         g = self._graph(sig)
         g.ints.copy_(torch.from_numpy(host))
@@ -1260,8 +1317,8 @@ class ContinuousEngine:
     def _graph(self, sig) -> StepGraph:
         """The captured graph of ``sig``, captured now if missing: one eager
         pass on the capture stream against all-trash inputs (it loads the
-        kernels and sets their plans up, writing only the trash page), then
-        the capture into the engine's graph pool."""
+        kernels and sets their plans up, writing only the trash page and the
+        trash slot), then the capture into the engine's graph pool."""
         g = self._graphs.get(sig)
         if g is not None:
             return g
@@ -1271,8 +1328,9 @@ class ContinuousEngine:
             self._stream = torch.cuda.Stream(dev)
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._reserve_scratch()
-        ints = torch.as_tensor(_trash_inputs(sig), device=dev)
-        inputs = _views(sig, ints)
+        trash = self.pool.trash_slot if self._state else None
+        ints = torch.as_tensor(_trash_inputs(sig, trash), device=dev)
+        inputs = _views(sig, ints, self._state)
         s = self._stream
         s.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(s):
@@ -1422,10 +1480,12 @@ class ContinuousEngine:
         sig = ("decode", b_pad, nb_pad)
         new_sig = self._seen(self._decode_shapes, sig)
         pad = b_pad - b_real
-        host = _pack(sig, tok=[r.out_tokens[-1] for r in running] + [0] * pad,
+        host = _pack(sig, self._state,
+                     tok=[r.out_tokens[-1] for r in running] + [0] * pad,
                      pos=[r.cache_len for r in running] + [0] * pad,
                      tables=self.pool.padded_tables(ids, rows=b_pad,
-                                                  blocks=nb_pad))
+                                                  blocks=nb_pad),
+                     slots=self.pool.slots(ids, rows=b_pad))
         t0 = time.perf_counter()
         with trace.span("serve.decode_step", batch=b_real, sig=str(sig[1:])):
             logits, fresh = self._run(sig, host)

@@ -4,18 +4,31 @@
 Vocabulary as in the JAX package: a *page* is a physical ``block_size``-token
 slab of the pooled page stores (page 0 is the reserved trash page that table
 padding points at); a *block* is a request's logical ``block_size``-token run,
-its *block table* mapping block i to the page holding it; a *slot* is one of
-``max_requests`` per-request entries (admission needs one free); an *intern
-chain* is the prefix registry's token-exact key structure.
+its *block table* mapping block i to the page holding it; a *slot* holds
+per-request state that does not grow with tokens — one of ``max_requests``
+(admission needs one free), slot ``max_requests`` being the reserved trash
+slot that batch padding points at; an *intern chain* is the prefix
+registry's token-exact key structure.
 
-The pool owns the page stores: one dict of (num_blocks, block_size, ...)
-tensors per layer, from ``model.init_cache`` — ``{"k", "v"}`` for GQA,
-MLA's latents ``{"c", "k_rope"}``. Both write new tokens into them in place
-through the block tables. GQA reads its pages in place too, through the
-paged kernels. MLA gathers each row's whole padded envelope of latents at
-every step and layer (``pages[tables]``) and lays the chunk's latents over
-it, as the JAX gather path does. Zeroing and copy-on-write treat every
-store of a layer alike.
+The pool owns the model's serving cache, ``pages``: one dict per layer from
+``model.init_cache``. An attention layer's are page stores of (num_blocks,
+block_size, ...) tensors — ``{"k", "v"}`` for GQA, MLA's latents ``{"c",
+"k_rope"}``. Both write new tokens into them in place through the block
+tables. GQA reads its pages in place too, through the paged kernels. MLA
+gathers each row's whole padded envelope of latents at every step and layer
+(``pages[tables]``) and lays the chunk's latents over it, as the JAX gather
+path does. Zeroing and copy-on-write treat every page store of a layer
+alike. A recurrent layer's (xLSTM's mLSTM and sLSTM) are state stores, one
+per state leaf, of ``max_requests + 1`` slots (``_state_store_shape``,
+``repro/serve/paged_cache.py:191-196``): the model gathers the batch's slot
+rows before its recurrence and scatters them back after it, in place, from
+the slot ids a step hands it (``slots``, padded with the trash slot). The
+leaves are classified by the model's own layer kinds (``LM.layer_kinds``),
+where the JAX pool probes ``init_cache`` shapes (``CacheLayout.probe``): the
+port's cache is a list of per-layer dicts whose kind the model knows. A
+model with no attention layer has no page stores; its blocks are still
+allocated and counted, so admission and preemption follow the reference's
+accounting.
 
 **Prefix caching** (``prefix_cache=True``): blocks are refcounted and a
 registry maps *full* blocks of committed tokens to their pages, so a new
@@ -29,15 +42,16 @@ allocation evicts from that LRU only under pool pressure. Shared blocks are
 never written: writes target the block holding the request's next
 position, which ``extend`` makes exclusive by copy-on-write (``fork``
 shares a whole table, e.g. best-of-n; the first write to the shared tail
-block copies it, one in-place page ``copy_`` per store).
+block copies it, one in-place page ``copy_`` per store; it also copies the
+parent's state slot into the child's).
 
 The host-side accounting is the JAX pool's, line for line, and so are its
 ``pool_*`` registry series (``registry=``: the owning engine's, a private
 one standalone), of which ``stats`` is a view. What the port leaves out:
-the recurrent-state slot stores (the port serves only pure-attention LMs, so
-``fork`` copies no state slot), ``CacheLayout.probe`` and the gather/scatter
-oracle path. ``scatter_prefill`` writes a per-request prefill's contiguous
-cache (a vlm request with its vision prefix) into the request's pages.
+``CacheLayout.probe`` and the gather/scatter oracle path. ``scatter_prefill``
+writes a per-request prefill's contiguous cache (a vlm request with its
+vision prefix, an xLSTM request's final state) into the request's pages and
+state slot.
 """
 from __future__ import annotations
 
@@ -54,11 +68,13 @@ _ROOT = -1                      # parent id of a prefix chain's first block
 
 
 class BlockPool:
-    """Refcounted block allocator + pooled page stores for one model.
+    """Refcounted block allocator + pooled page and state stores for one
+    model.
 
-    Page 0 is reserved as trash; ``alloc``/``extend``/``fork``/``truncate``/
-    ``free`` manage the host-side accounting; newly claimed pages are zeroed
-    and copy-on-write copies pages, both in place on the page stores."""
+    Page 0 and slot ``max_requests`` are reserved as trash; ``alloc``/
+    ``extend``/``fork``/``truncate``/``free`` manage the host-side
+    accounting; newly claimed pages are zeroed and copy-on-write copies
+    pages, both in place on the page stores."""
 
     def __init__(self, model, *, num_blocks: int, block_size: int,
                  max_requests: int, dtype=torch.float32,
@@ -99,7 +115,16 @@ class BlockPool:
         reg.gauge("pool_cached_blocks",
                   "evictable prefix-cache blocks (refcount 0)",
                   fn=lambda lru=self._lru: len(lru))
-        self.pages = model.init_cache(num_blocks, block_size, dtype=dtype)
+        # the stores are never rebound: a captured graph holds their addresses
+        self.pages = model.init_cache(num_blocks, block_size, dtype=dtype,
+                                      slots=max_requests + 1)
+        self._is_state = [k != "attn" for k in model.layer_kinds()]
+        self._page_layers = [layer for layer, st in zip(self.pages,
+                                                        self._is_state)
+                             if not st]
+        self._state_layers = [layer for layer, st in zip(self.pages,
+                                                         self._is_state)
+                              if st]
 
     # ------------------------------------------------------------ accounting
     @property
@@ -129,6 +154,15 @@ class BlockPool:
     @property
     def free_slots(self) -> int:
         return len(self._free_slots)
+
+    @property
+    def trash_slot(self) -> int:
+        return self.max_requests
+
+    @property
+    def has_state(self) -> bool:
+        """Does the model keep per-request state (a recurrent layer)?"""
+        return bool(self._state_layers)
 
     def ref_count(self, block: int) -> int:
         return self._ref.get(block, 0)
@@ -190,7 +224,7 @@ class BlockPool:
         if not blks:
             return
         ids = torch.as_tensor(blks, dtype=torch.long, device=self.device)
-        for layer in self.pages:
+        for layer in self._page_layers:
             for store in layer.values():
                 store.index_fill_(0, ids, 0)
 
@@ -349,14 +383,15 @@ class BlockPool:
         """Page ``src`` into page ``dst`` in every store of every layer (a
         slice-to-slice ``copy_``: ``index_copy_`` refuses a source that
         shares the store's memory)."""
-        for layer in self.pages:
+        for layer in self._page_layers:
             for store in layer.values():
                 store[dst].copy_(store[src])
 
     def fork(self, parent_id: int, child_id: int) -> None:
         """Share the parent's whole table with ``child_id`` (copy-on-write:
-        the first divergent write mid-block copies that block). The port's
-        models keep no recurrent state, so there is no state slot to copy."""
+        the first divergent write mid-block copies that block) and copy its
+        recurrent-state slot into the child's (``_copy_state_slot``,
+        ``repro/serve/paged_cache.py:442-459``, ``:657``)."""
         if child_id in self._tables:
             raise ValueError(f"request {child_id} already allocated")
         if not self._free_slots:
@@ -367,6 +402,10 @@ class BlockPool:
         self._tables[child_id] = table
         self._slots[child_id] = self._free_slots.pop()
         self._chain[child_id] = list(self._chain.get(parent_id, []))
+        src, dst = self._slots[parent_id], self._slots[child_id]
+        for layer in self._state_layers:
+            for store in layer.values():
+                store[dst].copy_(store[src])
 
     def free(self, req_id: int) -> None:
         for b in self._tables.pop(req_id):
@@ -377,20 +416,37 @@ class BlockPool:
     def scatter_prefill(self, req_ids, cache, n_tokens: int) -> None:
         """Write positions [0, n_tokens) of a freshly prefilled contiguous
         cache (``LM.init_contiguous_cache``; row i for ``req_ids[i]``) into
-        the rows' pages, every store of every layer, with ``index_put_``
-        (``repro/serve/paged_cache.py:573-581``; the rest of the last page
-        stays as the claim zeroed it)."""
+        the rows' pages, every page store of every attention layer, with
+        ``index_put_``, and every state leaf of a recurrent layer into the
+        rows' state slots (``repro/serve/paged_cache.py:573-581``; the rest
+        of the last page stays as the claim zeroed it)."""
         p = torch.arange(n_tokens, device=self.device)
         for i, rid in enumerate(req_ids):
             table = torch.as_tensor(self._tables[rid], device=self.device)
             idx = (table[p // self.block_size], p % self.block_size)
-            for stores, layer in zip(self.pages, cache):
+            slot = self._slots[rid]
+            for stores, layer, is_state in zip(self.pages, cache,
+                                               self._is_state):
                 for name, store in stores.items():
-                    store.index_put_(idx, layer[name][i, :n_tokens].to(
-                        store.dtype))
+                    if is_state:
+                        store[slot].copy_(layer[name][i])
+                    else:
+                        store.index_put_(idx, layer[name][i, :n_tokens].to(
+                            store.dtype))
 
     def table(self, req_id: int) -> List[int]:
         return list(self._tables[req_id])
+
+    def slot(self, req_id: int) -> int:
+        return self._slots[req_id]
+
+    def slots(self, req_ids, *, rows: Optional[int] = None) -> np.ndarray:
+        """(rows,) int32 state slots of ``req_ids`` on the host, padding rows
+        on the trash slot (``repro/serve/paged_cache.py:521-526``)."""
+        b = max(rows or len(req_ids), len(req_ids))
+        out = np.full((b,), self.trash_slot, np.int32)
+        out[:len(req_ids)] = [self._slots[r] for r in req_ids]
+        return out
 
     def max_table_blocks(self, req_ids) -> int:
         return max((len(self._tables[r]) for r in req_ids), default=0)

@@ -998,3 +998,88 @@ def test_engine_cuda_vision_requests_graphs_match_eager(vlm_model):
     cont = ContinuousEngine(vlm_model, **knobs)
     np.testing.assert_array_equal(
         cont.generate(prompts, 6, extras={"vision_embeds": vis}), fixed)
+
+
+# xLSTM's first unaligned width on a full-width path: the sLSTM's ff_down
+# takes K 2730 (not a multiple of 4) at rank 702, and calibration records
+# Grams of that width
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m", [8, 200])
+def test_lowrank_linear_cuda_xlstm_ff_down(cuda, dtype, tol, m):
+    x = _randn(10, (m, 2730), cuda, dtype)
+    bt = _randn(11, (2730, 702), cuda, dtype) / 2730 ** 0.5
+    at = _randn(12, (702, 2048), cuda, dtype) / 702 ** 0.5
+    before = ops.launch_counts()["lowrank_linear"]
+    got = ops.lowrank_linear(x, bt.contiguous(), at.contiguous())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_linear"] == before + 1
+    _close(got, lowrank_linear_ref(x, bt, at), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_accum_cuda_xlstm_width(cuda, dtype):
+    a = _randn(13, (512, 2730), cuda, dtype)
+    got = ops.gram_accum(a)
+    torch.cuda.synchronize()
+    want = gram_accum_ref([a])
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(got, got.T)
+
+
+@pytest.fixture(scope="module")
+def xlstm_models():
+    """xLSTM SMOKE, random init, dense and COALA-compressed on the CPU, on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    cfg = get_smoke_config("xlstm_1_3b")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 32)))
+               for _ in range(2)]
+    ccpu, _ = compress_model(cpu, calibrate_model(cpu, batches),
+                             CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    return {"dense": copy.deepcopy(cpu).to("cuda"),
+            "coala": copy.deepcopy(ccpu).to("cuda")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_engine_cuda_xlstm_graphs_match_eager(xlstm_models, name):
+    """The recurrent route on the card: a trace that preempts, with a fork,
+    through CUDA graphs (decode with the rows' state slots in the packed
+    inputs, padding rows on the trash slot) against the eager engine:
+    identical greedy tokens, 0 post-warmup captures, the same kernel
+    launches, none of them attention's."""
+    model = xlstm_models[name]
+    rng = np.random.RandomState(4)
+    trace = [(int(rng.choice([5, 9, 13])), int(rng.randint(8, 13))) for _ in range(6)]
+    trace = [(rng.randint(0, 256, (t0,)).astype(np.int32), new) for t0, new in trace]
+    knobs = dict(block_size=4, num_blocks=11, max_running=3, bucket_sizes=(1, 2, 3))
+    runs = []
+    for graphs in (True, False):
+        eng = ContinuousEngine(model, cuda_graphs=graphs, **knobs)
+        if graphs:
+            eng.warmup(max_len=max(len(p) + n for p, n in trace))
+        ops.reset_launch_counts()
+        child = None
+        for i, (prompt, new) in enumerate(trace):
+            eng.submit(prompt, new)
+            if i == 1:
+                child = eng.fork(0)
+            eng.step()
+        eng.run()
+        torch.cuda.synchronize()
+        runs.append(({r.req_id: list(r.out_tokens) for r in eng.finished},
+                     eng.metrics(), ops.launch_counts(), child))
+        eng.release_graphs()
+    (toks, m, counts, child), (ref_toks, rm, ref_counts, _) = runs
+    assert toks == ref_toks and len(toks) == len(trace) + 1
+    assert toks[child] == toks[0]
+    assert m["post_warmup_compiles"] == 0 and m["preemptions"] == rm["preemptions"] >= 1
+    assert counts == ref_counts
+    assert (counts["lowrank_linear"] > 0) == (name == "coala")
+    assert all(counts[k] == 0 for k in ("paged_attention", "chunked_prefill",
+                                        "flash_attention"))

@@ -71,12 +71,12 @@ def _tokens(cfg, shape, seed=1):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_seven_ported_configs():
-    """The seven configs of the attention-only GQA families and, since MLA
-    and qwen2-vl were ported, deepseek_v2_lite_16b and qwen2_vl_2b: nine
-    (the name dates from seven)."""
+    """The seven configs of the attention-only GQA families and, since MLA,
+    qwen2-vl and xLSTM were ported, deepseek_v2_lite_16b, qwen2_vl_2b and
+    xlstm_1_3b: ten (the name dates from seven)."""
     assert sorted(ARCH_IDS) == sorted(FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b",
-                                                  "qwen2_vl_2b"])
-    assert "qwen2_vl_2b" not in NOT_PORTED and len(NOT_PORTED) == 3
+                                                  "qwen2_vl_2b", "xlstm_1_3b"])
+    assert "xlstm_1_3b" not in NOT_PORTED and len(NOT_PORTED) == 2
     for name, family in NOT_PORTED.items():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match=family.split()[0]):
@@ -89,7 +89,7 @@ def test_configs_are_copies_of_the_jax_ones(name):
                          (get_smoke_config(name), j_smoke(name))):
         for f in dataclasses.fields(ours):
             a, b = getattr(ours, f.name), getattr(theirs, f.name)
-            if f.name == "moe":
+            if f.name in ("moe", "xlstm"):
                 assert dataclasses.asdict(a) == dataclasses.asdict(b)
             else:
                 assert a == b, (name, f.name, a, b)
