@@ -215,7 +215,33 @@ Phases, each printing its own lines:
              xLSTM SMOKE, dense and COALA: contiguous-cache logits card vs
              CPU and a preempting trace with a fork through the card's graphs
              vs the CPU's eager engine (identical tokens);
-13. profile — only with ``--profile N``: wall and per-kernel device time of
+13. whisper path — whisper_base at full width and full depth (6 encoder +
+             6 decoder layers, d_model 512, 8 heads, hd 64, 1500 audio
+             frames; random seeded weights): (a) calibration of 2 x 8 x 256
+             seeded tokens with their frames, COALA (ratio 0.6, λ 4) of the
+             96 projections, then per model phase 4's trace, each request
+             with its own seeded frames, through the continuous engine's
+             encoder–decoder route (every request prefilled alone: encoder,
+             then decoder with flash for its causal self-attention; decode
+             with self K/V through the paged kernel and cross K/V gathered
+             from per-request slots) over 72 pages (one preemption), through
+             graphs, then with a fork of request 0 at step 3 through graphs
+             and eagerly (identical tokens, the child on its parent's
+             tokens, 0 post-warmup captures); (b) the serving launcher's
+             fixed-batch mode (4 x 64 -> 16 with the pipeline's frames)
+             against ``ContinuousEngine.generate``; (c) the compression
+             launcher (10 pretraining steps, coala: 0 non-finite of 96),
+             svd_llm on its model and calibrator (non-finite recorded), its
+             Grams through gram_accum against RᵀR; (d) ``_chunked_sdpa`` at
+             the encoder's 1500 frames under ``dense_attn_max_seq`` 1024 and
+             ragged chunks (q 512, kv 384) against ``dense_sdpa``, times and
+             peaks; (e) the device time of a decode step's cross K/V
+             gather at B 8. chunked_prefill may not launch on it. Phase 7 then also
+             holds lowrank_linear on a decoder layer's 8 decode-time
+             projections at M 8 and an encoder layer's 6 at M 1500,
+             paged_attention at G 1, hd 64, flash at B 1, T 200, G 1, hd 64,
+             and gram_accum at whisper's record shapes;
+14. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
              of the speculative draft served alone and of speculative
@@ -228,9 +254,9 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 7, 13. Launch counts are
-zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11 and 12 (4b, 4c and
-4d included) and
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 7, 14. Launch counts
+are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12 and 13 (4b,
+4c and 4d included) and
 read just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
 and lowrank_linear's backward on phase 10's (its launches counted apart too).
@@ -281,6 +307,10 @@ TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}  # bf16 also: any bf16 operand
 TOL_SERVE = {("float32", "float32"): 1e-3, ("float32", "bfloat16"): 2e-2,
              ("bfloat16", "bfloat16"): 4e-2}
 TOL_GRAM = 1e-5             # both dtypes: bf16 converts to fp32 exactly
+GRAM_TOL_ROWS = 512         # TOL_GRAM holds up to this many rows; past it the
+# two fp32 summation orders drift apart as √k (whisper's 12000-frame records
+# measured 1.2e-5 of the largest entry on an H100), so k rows get
+# TOL_GRAM * √(k / 512)
 SEED = 0
 ITERS = 20                  # timed launches per kernel and variant
 
@@ -372,7 +402,10 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
                # qwen2-vl's per-request prefill (phase 11): one row of 256
                # vision + 200 / 15 text positions, 12 / 2 heads (G 6), hd 128
                ("qwen2-vl B1 T456 G6 hd128", 1, 456, 12, 2, 128, 0.0, None, True),
-               ("qwen2-vl B1 T271 G6 hd128", 1, 271, 12, 2, 128, 0.0, None, False)]
+               ("qwen2-vl B1 T271 G6 hd128", 1, 271, 12, 2, 128, 0.0, None, False),
+               # whisper's per-request prefill (phase 13): the decoder's causal
+               # self-attention over the longest prompt, 8 / 8 heads (G 1), hd 64
+               ("whisper B1 T200 G1", 1, 200, 8, 8, 64, 0.0, None, True)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
@@ -714,16 +747,16 @@ def xlstm_smoke_trace(n=6, seed=4):
 
 
 def serve_forked(eng, trace, fork):
-    """Replay ``trace`` (arrival step, prompt, new tokens) keyed to engine
-    steps, forking request ``fork[1]`` at step ``fork[0]``: (tokens by
+    """Replay ``trace`` (arrival step, prompt, new tokens[, extras]) keyed to
+    engine steps, forking request ``fork[1]`` at step ``fork[0]``: (tokens by
     request id, the child's id, metrics)."""
     fork_step, fork_req = fork
     pending = list(trace)
     step, child = 0, None
     while pending or eng.has_work():
         while pending and pending[0][0] <= step:
-            _, prompt, new = pending.pop(0)
-            eng.submit(prompt, new)
+            _, prompt, new, *extras = pending.pop(0)
+            eng.submit(prompt, new, extras=extras[0] if extras else None)
         if step == fork_step:
             child = eng.fork(fork_req)
         eng.step()
@@ -2702,6 +2735,349 @@ def xlstm_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: whisper at full width and depth, the encoder–decoder path
+# ---------------------------------------------------------------------------
+
+# whisper_base (src/repro_torch/configs/whisper_base.py) at full width and full
+# depth: 6 encoder + 6 decoder layers, d_model 512, 8 / 8 heads (G 1), hd 64,
+# gelu MLPs of 2048 without a gate, vocab 51865 (tied), 1500 audio frames, 32768
+# decoder positions: 87.4 M parameters, 350 MB in fp32. (a) Calibration of 2 x 8
+# x 256 seeded tokens with their frames (the launcher's calibration_batches)
+# through flash, COALA (ratio 0.6, λ 4) of the 96 projections (the launcher's
+# _compressed_params); then per model phase 4's trace, each request with its
+# own (1, 1500, 512) N(0, 1) frames from a seeded numpy generator, over 72
+# pages of 16 tokens (one preemption, and one with a fork of request 0 at step
+# 3: sized on the CPU with a narrow model of the same vocabulary), through
+# graphs; then that trace with the fork through graphs and eagerly. (b) The
+# fixed-batch launcher: 4 rows of 64 tokens with the pipeline's frames, 16
+# new. (c) The compression launcher, 10 pretraining steps and coala; svd_llm
+# on its trained model and calibrator; its Grams. (d) ``_chunked_sdpa`` on the
+# encoder's self-attention shape, B 8 x 1500 frames, under dense_attn_max_seq
+# 1024 and ragged chunks (q 512, kv 384: both pad) against ``dense_sdpa``.
+# (e) The device time of a decode step's cross K/V gather at B 8.
+WHISPER_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
+WHISPER_FORK = (3, 0)               # (step, request id)
+WHISPER_FIXED_ROWS, WHISPER_FIXED_PROMPT, WHISPER_FIXED_NEW = 4, 64, 16
+WHISPER_FIXED_ARGS = ["--arch", "whisper_base", "--requests", str(WHISPER_FIXED_ROWS),
+                      "--prompt-len", str(WHISPER_FIXED_PROMPT),
+                      "--new-tokens", str(WHISPER_FIXED_NEW), "--seed", str(SEED),
+                      "--device", "cuda"]
+WHISPER_COMPRESS_ARGS = ["--arch", "whisper_base", "--ratio", "0.6", "--lam", "4",
+                         "--pretrain-steps", "10", "--calib-batches", "2",
+                         "--device", "cuda"]
+WHISPER_LINEARS = 96                # 6 x 6 encoder + 6 x 10 decoder projections
+WHISPER_NO_LAUNCH = ("chunked_prefill",)
+WHISPER_CHUNKED = dict(dense_attn_max_seq=1024, attn_chunk_q=512, attn_chunk_kv=384)
+# the compressed projections, (d_in, d_out): a decoder layer's eight that a
+# decode step runs (the cross wk / wv run once a request, in its prefill) and
+# an encoder layer's six
+WHISPER_DEC_PROJECTIONS = {
+    "self wq": (512, 512), "self wk": (512, 512), "self wv": (512, 512),
+    "self wo": (512, 512), "cross wq": (512, 512), "cross wo": (512, 512),
+    "up": (512, 2048), "down": (2048, 512)}
+WHISPER_ENC_PROJECTIONS = {
+    "wq": (512, 512), "wk": (512, 512), "wv": (512, 512), "wo": (512, 512),
+    "up": (512, 2048), "down": (2048, 512)}
+WHISPER_HEADS = (8, 8, 64)
+# gram_accum at the compress launcher's records: 8 x 64 decoder tokens, 8 x 1500
+# encoder frames; one encoder + one decoder layer's 16 Grams of a record (the
+# decoder's cross wk / wv see the frames)
+WHISPER_GRAM_CASES = [(512, 512, True), (512, 2048, True), (12000, 512, True),
+                      (12000, 2048, True)]
+WHISPER_GRAM_LAYER = {(512, 512): 7, (512, 2048): 1, (12000, 512): 7, (12000, 2048): 1}
+
+
+def whisper_trace(cfg):
+    """Phase 4's trace with each request's own frames: (arrival step, prompt,
+    new tokens, extras)."""
+    import numpy as np
+    from repro_torch.launch.serve import synthetic_trace
+    trace = synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED, min_prompt=MIN_PROMPT,
+                            max_prompt=MAX_PROMPT, min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    rng = np.random.RandomState(SEED + 13)
+    return [(arrival, prompt, new, {"frames": rng.standard_normal(
+        (1, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)})
+        for arrival, prompt, new in trace]
+
+
+def _check_encdec(label, eng, met, trace, vocab, forks=0):
+    """An encoder–decoder engine: the non-chunked route (every request
+    prefilled alone, again after each preemption), the paged kernel on,
+    every request finished with its full budget of valid tokens, no page
+    leaked."""
+    _check_recurrent(label, eng, met, len(trace))
+    if not (eng.paged_kernel and eng.pool.has_state):
+        raise Failure(f"{label}: expected the paged kernel and state slots")
+    fin = eng.finished
+    if len(fin) != len(trace) + forks or any(
+            len(r.out_tokens) != NEW_TOKENS or not all(0 <= t < vocab for t in r.out_tokens)
+            for r in fin):
+        raise Failure(f"{label}: requests did not all finish with valid tokens")
+    if eng.pool.available_blocks != eng.pool.usable_blocks:
+        raise Failure(f"{label}: pages leaked")
+
+
+def whisper_path(torch, ops):
+    """Phase 13 (see ``WHISPER_KNOBS``): (a) calibration and COALA (0
+    non-finite of 96), then per model phase 4's trace with frames through
+    graphs (one preemption, 0 post-warmup captures), and with a fork through
+    graphs and eagerly (identical tokens, the child on its parent's; kernel
+    shapes of the eager runs noted for phase 7); (b) ``run_fixed`` against
+    ``ContinuousEngine.generate``; (c) the compression launcher, coala (0
+    non-finite) and svd_llm on its model and calibrator (non-finite
+    recorded), its Grams against RᵀR; (d) ``_chunked_sdpa`` against
+    ``dense_sdpa`` at the encoder's 1500 frames; (e) the cross K/V gather of
+    a decode step at B 8, timed. Returns (summary, noted kernel shapes)."""
+    import numpy as np
+    from repro_torch.config import CompressConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model, compression_summary
+    from repro_torch.launch import compress as compress_launcher
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ParallelCtx
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = get_config("whisper_base")
+    out = {"seconds": {}, "peak_gb": {}}
+
+    # (a) calibration and COALA, then the trace per model
+    t0 = time.perf_counter()
+    dense = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    batches = launcher.calibration_batches(cfg, n_batches=2, batch=REQUESTS,
+                                           seq_len=256, seed=SEED, device=dense.device)
+    with SolveTimes(torch) as solves:
+        coala, _, reports, _, _, secs = launcher._compressed_params(dense, batches, 0.6)
+    torch.cuda.synchronize()
+    out["seconds"].update(secs, setup=time.perf_counter() - t0)
+    out.update(params=sum(p.numel() for p in dense.parameters()),
+               compression=compression_summary(reports), solve_s=solves.summary(),
+               nonfinite_coala=len(_nonfinite(reports)))
+    del batches
+    _peak_step(torch, out["peak_gb"], "setup")
+    log(f"  [a setup] {out['params'] / 1e6:.2f} M parameters, {len(dense.enc)} + "
+        f"{len(dense.dec)} layers; calibrate {secs['calibrate']:.2f} s, compress "
+        f"{secs['compress']:.2f} s ({len(reports)} linears, kept "
+        f"{out['compression']['kept_ratio']:.4f}, {out['nonfinite_coala']} non-finite); "
+        f"solves {json.dumps(out['solve_s'])}")
+    if len(reports) != WHISPER_LINEARS or out["nonfinite_coala"]:
+        raise Failure(f"whisper coala: {len(reports)} linears, "
+                      f"{out['nonfinite_coala']} non-finite")
+    trace = whisper_trace(cfg)
+    warm_len = max(len(p) + n for _, p, n, _ in trace)
+    calls = KernelCalls(ops)            # noted on the eager runs only
+    for name, m in (("dense", dense), ("coala", coala)):
+        eng = ContinuousEngine(m, **WHISPER_KNOBS)
+        w = eng.warmup(max_len=warm_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = _with_seconds(eng, _serve_mixed(eng, trace))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _check_encdec(f"whisper {name}", eng, met, trace, cfg.vocab_size)
+        if (not eng.cuda_graphs or met["post_warmup_compiles"] != 0
+                or met["preemptions"] < 1):
+            raise Failure(f"whisper {name}: expected CUDA graphs, a preemption and 0 "
+                          f"post-warmup captures, got {met['preemptions']}, "
+                          f"{met['post_warmup_compiles']}")
+        out["state_bytes_per_request"] = _state_bytes(eng.pool)
+        out[f"serve_{name}"] = dict({k: met[k] for k in SERVE_KEYS}, seconds=secs,
+                                    request_prefills=eng.request_prefills, warmup=w)
+        _peak_step(torch, out["peak_gb"], f"serve_{name}")
+        eng.release_graphs()
+        del eng
+        log(f"  [a trace {name}] graphs: {_serve_line(met)}; {secs:.3f} s; "
+            f"{out[f'serve_{name}']['request_prefills']} per-request prefills; warmup "
+            f"{w['warmup_seconds']:.2f} s")
+        eng = ContinuousEngine(m, **WHISPER_KNOBS)
+        eng.warmup(max_len=warm_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, child, fmet = serve_forked(eng, trace, WHISPER_FORK)
+        torch.cuda.synchronize()
+        fsecs = time.perf_counter() - t0
+        _check_encdec(f"whisper fork {name}", eng, fmet, trace, cfg.vocab_size, forks=1)
+        if (fmet["post_warmup_compiles"] != 0 or fmet["preemptions"] < 1
+                or toks[child] != toks[WHISPER_FORK[1]]):
+            raise Failure(f"whisper fork {name}: {fmet['post_warmup_compiles']} "
+                          f"post-warmup captures, {fmet['preemptions']} preemptions, child "
+                          f"on the parent's tokens {toks.get(child) == toks[WHISPER_FORK[1]]}")
+        out[f"fork_{name}"] = dict({k: fmet[k] for k in SERVE_KEYS}, seconds=fsecs,
+                                   request_prefills=eng.request_prefills)
+        eng.release_graphs()
+        del eng
+        eng = ContinuousEngine(m, cuda_graphs=False, **WHISPER_KNOBS)
+        t0 = time.perf_counter()
+        with calls:
+            etoks, _, emet = serve_forked(eng, trace, WHISPER_FORK)
+        torch.cuda.synchronize()
+        esecs = time.perf_counter() - t0
+        same = etoks == toks
+        out[f"fork_{name}_eager"] = dict({k: emet[k] for k in SERVE_KEYS}, seconds=esecs)
+        _peak_step(torch, out["peak_gb"], f"fork_{name}")
+        del eng
+        log(f"  [a fork {name}] graphs: {_serve_line(fmet)}; {fsecs:.3f} s; eager: "
+            f"{_serve_line(emet)}; {esecs:.3f} s; greedy tokens "
+            f"{'identical to' if same else 'DIFFER from'} the graphs'; the child {child} "
+            f"on its parent's tokens")
+        if not same:
+            raise Failure(f"whisper {name}: CUDA graphs and the eager engine disagree")
+    shapes = calls.shapes()
+    log(f"  [a] state {out['state_bytes_per_request']} bytes a request (cross K/V of "
+        f"{cfg.n_layers} layers)")
+    del dense, coala
+    torch.cuda.empty_cache()
+
+    # (b) the fixed-batch launcher, then the continuous engine on its inputs
+    t0 = time.perf_counter()
+    fixed = launcher.main(WHISPER_FIXED_ARGS)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_launcher"] = time.perf_counter() - t0
+    cont = ContinuousEngine(fixed["model"], **WHISPER_KNOBS)
+    t0 = time.perf_counter()
+    ctoks = cont.generate(fixed["batch"]["tokens"], WHISPER_FIXED_NEW,
+                          extras={"frames": fixed["batch"]["frames"]})
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_continuous"] = time.perf_counter() - t0
+    same = np.array_equal(ctoks, fixed["tokens"])
+    out["fixed"] = {"seconds": fixed["seconds"], "identical": same}
+    log(f"  [b fixed] ServeEngine {WHISPER_FIXED_ROWS} x {WHISPER_FIXED_PROMPT} (with "
+        f"frames) -> {WHISPER_FIXED_NEW} new in {fixed['seconds']['serve_fixed']:.3f} s; "
+        f"ContinuousEngine.generate of the same inputs "
+        f"{out['seconds']['fixed_continuous']:.3f} s: tokens "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same or fixed["tokens"].shape != (WHISPER_FIXED_ROWS,
+                                             WHISPER_FIXED_PROMPT + WHISPER_FIXED_NEW):
+        raise Failure("whisper: run_fixed and ContinuousEngine.generate disagree")
+    cont.release_graphs()
+    del fixed, cont
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], "fixed")
+
+    # (c) the compression launcher with coala; svd_llm on its trained model and
+    # calibrator; the Grams
+    t0 = time.perf_counter()
+    comp = compress_launcher.main(WHISPER_COMPRESS_ARGS + ["--method", "coala"])
+    torch.cuda.synchronize()
+    out["seconds"]["compress_coala"] = dict(comp["seconds"],
+                                            total=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    svd_model, svd_reports = compress_model(comp["model"], comp["calibrator"],
+                                            CompressConfig(method="svd_llm", ratio=0.6))
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t0
+    svd_summary = dict(compression_summary(svd_reports), method="svd_llm",
+                       base_ce=comp["summary"]["base_ce"],
+                       compressed_ce=compress_launcher.eval_ce(
+                           svd_model, compress_launcher.make_pipeline(cfg, svd_model.device)))
+    out["seconds"]["compress_svd_llm"] = {"compress": svd_s}
+    del svd_model
+    for method, summary, reps in (("coala", comp["summary"], comp["reports"]),
+                                  ("svd_llm", svd_summary, svd_reports)):
+        bad = _nonfinite(reps)
+        out[f"compress_{method}"] = dict(summary, nonfinite=len(bad))
+        log(f"  [c {method}] held-out CE {summary['base_ce']:.4f} -> "
+            f"{summary['compressed_ce']:.4f}; {len(bad)} of {len(reps)} layers "
+            f"non-finite; seconds {json.dumps(out['seconds'][f'compress_{method}'])}")
+    _peak_step(torch, out["peak_gb"], "compress")
+    if (len(comp["reports"]) != WHISPER_LINEARS or out["compress_coala"]["nonfinite"]
+            or not math.isfinite(out["compress_coala"]["compressed_ce"])):
+        raise Failure(f"whisper coala: {out['compress_coala']}")
+    before = ops.launch_counts()["gram_accum"]
+    t0 = time.perf_counter()
+    cal = calibrate_model(comp["model"], comp["calib_batches"], collect_gram=True,
+                          ctx=compress_launcher.KERNEL_CTX)
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    rf = cal.r_factors()
+    worst = max((torch.linalg.norm(g - rf[p].T @ rf[p]) / torch.linalg.norm(g)).item()
+                for p, g in cal.grams.items())
+    n_gram = ops.launch_counts()["gram_accum"] - before
+    out["gram"] = {"seconds": gram_s, "paths": len(cal.grams), "launches": n_gram,
+                   "max_rel_gap_to_rtr": worst,
+                   "widths": sorted({g.shape[0] for g in cal.grams.values()})}
+    log(f"  [c grams] {len(cal.grams)} Grams (widths {out['gram']['widths']}) in "
+        f"{gram_s:.2f} s, {n_gram} gram_accum launches; max ||G - RᵀR||_F / ||G||_F = "
+        f"{worst:.3e}")
+    if n_gram <= 0 or not worst <= 1e-4 or out["gram"]["widths"] != [512, 2048]:
+        raise Failure(f"whisper grams: {out['gram']}")
+    del comp, cal
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], "grams")
+
+    # (d) _chunked_sdpa on the card at the encoder's shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hq, hkv, hd = WHISPER_HEADS
+    q, k, v = (torch.randn((REQUESTS, cfg.n_audio_frames, h, hd), generator=gen,
+                           device="cuda") for h in (hq, hkv, hkv))
+    ctx = ParallelCtx(**WHISPER_CHUNKED)
+    kw = dict(causal=False, window=0, cap=0.0, scale=hd ** -0.5)
+    res, hits = {}, []
+    chunked = attn._chunked_sdpa
+
+    def counted(*a, **kwa):
+        hits.append(1)
+        return chunked(*a, **kwa)
+    for label, fn in (("chunked", lambda: attn.sdpa(q, k, v, ctx=ctx, causal=False)),
+                      ("dense", lambda: attn.dense_sdpa(q, k, v, **kw))):
+        attn._chunked_sdpa = counted
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        # wall time of whole calls: the chunked loop's ~200 launches a call
+        # are host-bound, which a device timer alone would not show
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+        res[label] = dict(out=o, peak_mb=peak,
+                          wall_ms=(time.perf_counter() - t0) * 1e3 / ITERS)
+        attn._chunked_sdpa = chunked
+    if len(hits) != ITERS + 1:
+        raise Failure(f"whisper: sdpa past dense_attn_max_seq took _chunked_sdpa "
+                      f"{len(hits)} times in {ITERS + 1} calls (and dense_sdpa none)")
+    err = compare(f"_chunked_sdpa B{REQUESTS} T{cfg.n_audio_frames} H{hq} hd{hd} "
+                  f"(q 512, kv 384) vs dense_sdpa", res["chunked"]["out"],
+                  res["dense"]["out"], TOL_ATTN["float32"])
+    out["chunked_sdpa"] = {k: {kk: vv for kk, vv in r.items() if kk != "out"}
+                           for k, r in res.items()}
+    out["chunked_sdpa"]["max_abs_err"] = err
+    log(f"  [d chunked sdpa] encoder self-attention B {REQUESTS} x {cfg.n_audio_frames} "
+        f"frames, {hq} heads, hd {hd}: _chunked_sdpa {res['chunked']['wall_ms']:.4f} ms "
+        f"(wall), peak {res['chunked']['peak_mb']:.1f} MB above its inputs; dense_sdpa "
+        f"{res['dense']['wall_ms']:.4f} ms, peak {res['dense']['peak_mb']:.1f} MB; max "
+        f"|err| {err:.3e}")
+    del q, k, v, res
+
+    # (e) the cross K/V gather of one decode step at B 8: every layer's ck and
+    # cv rows of the batch's slots out of stores of max_running + 1 slots
+    n_slots = WHISPER_KNOBS["max_running"] + 1
+    stores = [torch.randn((n_slots, cfg.n_audio_frames, hkv, hd), generator=gen,
+                          device="cuda") for _ in range(2 * cfg.n_layers)]
+    slots = torch.arange(REQUESTS, device="cuda")
+    flush = torch.empty(256 << 18, dtype=torch.float32, device="cuda")
+    gather_ms = timed(torch, lambda: [st.index_select(0, slots) for st in stores], flush)
+    nbytes = 2 * len(stores) * REQUESTS * stores[0][0].numel() * 4    # read + write
+    out["cross_gather"] = {"ms": gather_ms, "bytes": nbytes,
+                           "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    log(f"  [e cross gather] {len(stores)} stores x {REQUESTS} rows of "
+        f"{stores[0][0].numel() * 4} bytes: {gather_ms:.4f} ms on the card for "
+        f"{nbytes / 1e6:.1f} MB read + written (byte bound "
+        f"{out['cross_gather']['bound_ms']:.4f} ms)")
+    del stores, flush
+    torch.cuda.empty_cache()
+    log(f"  seconds: {json.dumps(out['seconds'])}; peak memory (GB): "
+        f"{json.dumps(out['peak_gb'])}")
+    return out, shapes
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the compression core on phase 5's trained model
 # ---------------------------------------------------------------------------
 
@@ -3313,11 +3689,11 @@ def _window_keys(start: int, n: int, window: int) -> int:
 
 
 def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, *,
-                           label, heads, scale, cap, windows):
-    """paged_attention and chunked_prefill at a family's ``heads`` (Hq, Hkv,
-    hd), query ``scale`` and softcap ``cap``, with each of ``windows`` (0: no
-    window), at its path's largest decode batch and largest prefill noted in
-    ``shapes``, in fp32 and bf16; timed in fp32 against the plain version,
+                           label, heads, scale, cap, windows, chunked=True):
+    """paged_attention and (``chunked``) chunked_prefill at a family's
+    ``heads`` (Hq, Hkv, hd), query ``scale`` and softcap ``cap``, with each of
+    ``windows`` (0: no window), at its path's largest decode batch and largest
+    prefill noted in ``shapes``, in fp32 and bf16; timed in fp32 against the plain version,
     SDPA (the same masks and scale; no softcap: no library call has one) and
     the bound. gemma2 (phase 8): its local layer's window 4096 and its global
     layer, a row past the window among the decode rows and the 4400-token
@@ -3329,8 +3705,9 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
     sdpa_name = "SDPA (no softcap)" if cap else "SDPA"
     res = {"paged": {}, "chunked": {}}
     lengths, pads = shapes["paged_lengths"], shapes["paged_pad_rows"]
-    starts, lens, cpads, lq = (shapes["chunked_starts"], shapes["chunked_lens"],
-                               shapes["chunked_pad_rows"], shapes["chunked_l"])
+    if chunked:
+        starts, lens, cpads, lq = (shapes["chunked_starts"], shapes["chunked_lens"],
+                                   shapes["chunked_pad_rows"], shapes["chunked_l"])
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for window in windows:
@@ -3369,6 +3746,8 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
                 res["paged"][layer] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                            lengths=lengths)
+            if not chunked:
+                continue
             totals = [s + lq for s in starts]
             kp, vp, tables = _pages(torch, dev, gen, totals, bs, hkv, hd, dt, cpads)
             q = torch.randn((len(lens), lq, hq, hd), generator=gen, device=dev).to(dt)
@@ -3477,7 +3856,8 @@ def check_gram(torch, ops, ref, dev, gen, flush, cases=GRAM_CASES, weights=GRAM_
             a = torch.randn((k, n), generator=gen, device=dev).to(dt)
             got = ops.gram_accum(a)
             want = ref([a])
-            err = compare(f"gram_accum {dtype} ({k}, {n})", got, want, TOL_GRAM)
+            err = compare(f"gram_accum {dtype} ({k}, {n})", got, want,
+                          TOL_GRAM * max(1.0, math.sqrt(k / GRAM_TOL_ROWS)))
             if not torch.equal(got, got.T):
                 raise Failure("gram_accum: G is not exactly symmetric")
             if not torch.equal(ops.gram_accum(a), got):
@@ -3812,6 +4192,23 @@ def run(args) -> int:
         raise Failure(f"attention kernels launched on the xlstm path: {launched}")
     log(f"  kernel shapes noted on the xlstm path: {json.dumps(xl_shapes)}")
 
+    log("[13 whisper path] whisper_base at full width and full depth (6 + 6 layers): "
+        "calibration 2 x 8 x 256 with frames, COALA 0.6, then phase 4's trace with "
+        "frames through the continuous engine (graphs; with a fork, graphs and eager); "
+        "python -m repro_torch.launch.serve " + " ".join(WHISPER_FIXED_ARGS)
+        + "; python -m repro_torch.launch.compress " + " ".join(WHISPER_COMPRESS_ARGS)
+        + " --method coala, svd_llm on its model and calibrator, its Grams; "
+        "_chunked_sdpa at 1500 frames")
+    (wh, wh_shapes), wh_counts, peak = path_window(
+        "whisper", ("lowrank_linear", "paged_attention", "flash_attention", "gram_accum"),
+        lambda: whisper_path(torch, ops))
+    wh["peak_memory_gb"] = peak
+    launched = {k: wh_counts[k] for k in WHISPER_NO_LAUNCH if wh_counts[k] != 0}
+    log(f"  chunked_prefill on the whisper path: {wh_counts['chunked_prefill']} (must be 0)")
+    if launched:
+        raise Failure(f"kernels launched on the whisper path: {launched}")
+    log(f"  kernel shapes noted on the whisper path: {json.dumps(wh_shapes)}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -3867,6 +4264,32 @@ def run(args) -> int:
             torch, ops, gram_accum_ref, dev, gen, flush, cases=XLSTM_GRAM_CASES,
             weights={(k, n): 1 for k, n, _ in XLSTM_GRAM_CASES},
             label="xlstm_1_3b's two record shapes (512, 2730) and (512, 4096), once each")}
+    log("[7 kernels] at whisper_base's shapes (phase 13): a decoder layer's 8 "
+        "decode-time projections and an encoder layer's 6, paged_attention at G 1 and "
+        "hd 64, gram_accum at its records (flash's case is in the flash line above)")
+    dec_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                for name, (d_in, d_out) in WHISPER_DEC_PROJECTIONS.items()}
+    enc_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                for name, (d_in, d_out) in WHISPER_ENC_PROJECTIONS.items()}
+    m_dec = wh_shapes["lowrank_m_decode"]
+    whisper_kernels = {
+        "lowrank_decoder": check_lowrank(
+            torch, ops, lowrank_linear_ref, dev, gen,
+            {"lowrank_m_decode": m_dec, "lowrank_m_max": m_dec}, flush, proj=dec_proj,
+            model="whisper_base decoder", extra_rows=(8,)),
+        "lowrank_encoder": check_lowrank(
+            torch, ops, lowrank_linear_ref, dev, gen,
+            {"lowrank_m_decode": 8, "lowrank_m_max": wh_shapes["lowrank_m_max"]}, flush,
+            proj=enc_proj, model="whisper_base encoder"),
+        "attention": check_family_attention(
+            torch, ops, paged_attention_ref, chunked_prefill_ref, dev, gen, wh_shapes,
+            flush, label="whisper", heads=WHISPER_HEADS, scale=None, cap=0.0,
+            windows=(0,), chunked=False),
+        "gram_accum": check_gram(
+            torch, ops, gram_accum_ref, dev, gen, flush, cases=WHISPER_GRAM_CASES,
+            weights=WHISPER_GRAM_LAYER,
+            label="one whisper_base encoder + decoder layer's 16 Grams of a record (8 x "
+                  "64 tokens, 8 x 1500 frames)")}
     log("[7 kernels] lowrank_linear at phase 10's adaptive ranks (block 0) and under "
         f"autograd at M {GRAD_ROWS}: rank {ADAPTER_RANK} on the seven projections, and "
         "one odd adaptive rank")
@@ -3898,7 +4321,7 @@ def run(args) -> int:
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[13 profile] {args.profile} decode steps per model")
+        log(f"[14 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
         del res
@@ -3913,7 +4336,7 @@ def run(args) -> int:
                 "compress": comp_counts, "gram": gram_counts,
                 "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
-                "qwen2_vl": vlm_counts, "xlstm": xl_counts}
+                "qwen2_vl": vlm_counts, "xlstm": xl_counts, "whisper": wh_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -3933,7 +4356,7 @@ def run(args) -> int:
                                   "compress": comp, "gram": gram, "gemma2": gemma,
                                   "deepseek": moe, "deepseek_v2_mla": mla,
                                   "compression_core": core, "qwen2_vl": vlm,
-                                  "xlstm": xl},
+                                  "xlstm": xl, "whisper": wh},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,
@@ -3942,6 +4365,7 @@ def run(args) -> int:
                     "mla_kernels": mla_kernels,
                     "vlm_kernels": vlm_kernels,
                     "xlstm_kernels": xlstm_kernels,
+                    "whisper_kernels": whisper_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

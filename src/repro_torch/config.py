@@ -4,9 +4,10 @@ Only the fields the port reads are kept: ``MoEConfig``, the attention-only
 decoders of ``ModelConfig`` (dense GQA, gemma2's local/global alternation,
 softcaps and sandwich norms, olmo's non-parametric norm, minicpm's scaling,
 deepseek-v2's MLA dims, the MoE layer pattern and qwen2-vl's vision prefix
-and M-RoPE sections), xLSTM's ``XLSTMConfig`` (family ``ssm``),
-``TrainConfig`` and the COALA / baseline settings of ``CompressConfig``. The
-knobs of the hybrid (Mamba) and enc-dec families wait with those families.
+and M-RoPE sections), whisper's encoder depth and audio frames (family
+``encdec``), xLSTM's ``XLSTMConfig`` (family ``ssm``), ``TrainConfig`` and
+the COALA / baseline settings of ``CompressConfig``. The knobs of the hybrid
+(Mamba) family wait with that family.
 """
 from __future__ import annotations
 
@@ -79,6 +80,10 @@ class ModelConfig:
     moe_offset: int = 0
     first_k_dense: int = 0            # first k layers use dense FFN (deepseek)
 
+    # enc-dec (whisper)
+    n_enc_layers: int = 0
+    n_audio_frames: int = 1500        # stub frontend sequence length
+
     # vlm (qwen2-vl)
     n_vision_tokens: int = 0          # prefix of precomputed patch embeds
     mrope_sections: Tuple[int, int, int] = (0, 0, 0)  # M-RoPE t/h/w splits
@@ -90,6 +95,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
 
     @property
     def uses_moe(self) -> bool:

@@ -1,26 +1,31 @@
-"""Convert between the JAX package's parameter pytree and the port's ``LM``.
+"""Convert between the JAX package's parameter pytree and the port's ``LM``
+or ``EncDecLM``.
 
 The JAX tree is nested dicts (and the ``prefix`` list of unrolled layers)
 of numpy arrays — the caller maps ``np.asarray`` over the JAX params — with
 a leading ``n_rep`` axis stacked on every ``blocks`` leaf
-(``models/transformer.py:240`` of the JAX package). Linear leaves are dense
+(``models/transformer.py:240`` of the JAX package), and an encoder–decoder's
+layers stacked over their layer axis in ``enc`` and ``dec``
+(``models/encdec.py:69-70`` there). Linear leaves are dense
 ``{"w"}``, factored ``{"b_t", "a_t"}`` or, with an adapter, all three; an MoE expert bank is a bare
 (E, d_in, d_out) array or, factored per expert, the tuple ``(b_t, a_t)``;
 olmo's norms are empty dicts. The port's ``state_dict`` names are the same
 paths with ``/`` replaced by ``.``, the ``n_rep`` axis unstacked into
 ``blocks.<rep>``, prefix layers at ``prefix.<i>``, and an expert bank's
 leaves under ``….w_gate.w`` (dense) or ``….w_gate.b_t`` / ``….w_gate.a_t``
-(factored), so the conversion is mechanical and bit-exact both ways.
+(factored), so the conversion is mechanical and bit-exact both ways. The
+``enc`` and ``dec`` stacks unstack into ``enc.<i>.…`` / ``dec.<i>.…`` as
+``blocks`` does.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import LM, build_model
+from repro_torch.models import STACKED, build_model
 from repro_torch.models.common import NonParametricLN
 from repro_torch.models.ffn import ExpertBank
 from repro_torch.models.linear import Linear
@@ -44,19 +49,20 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
 def _unstack_blocks(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     out = {}
     for k, v in flat.items():
-        if k.startswith("blocks."):
-            rest = k[len("blocks."):]
+        head, _, rest = k.partition(".")
+        if head in STACKED:
             for r in range(v.shape[0]):
-                out[f"blocks.{r}.{rest}"] = v[r]
+                out[f"{head}.{r}.{rest}"] = v[r]
         else:
             out[k] = v
     return out
 
 
 def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda",
-                      dtype=torch.float32) -> LM:
-    """Build an ``LM`` on ``device`` holding the JAX tree's parameters.
-    The MoE routers stay fp32 whatever ``dtype`` is, as in the reference."""
+                      dtype=torch.float32):
+    """Build the model of ``cfg`` (``build_model``) on ``device`` holding
+    the JAX tree's parameters. The MoE routers stay fp32 whatever ``dtype``
+    is, as in the reference."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     flat = _unstack_blocks(flat)
@@ -94,7 +100,7 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda",
     return model
 
 
-def params_to_numpy(model: LM):
+def params_to_numpy(model):
     """Inverse of ``params_from_numpy``: the JAX-layout tree of numpy arrays."""
     def arr(p):
         return p.detach().cpu().numpy()
@@ -111,20 +117,21 @@ def params_to_numpy(model: LM):
     for name, p in model.named_parameters():
         if name.rsplit(".", 1)[0] not in banks:
             leaves[name] = arr(p)
-    tree: dict = {"prefix": [{} for _ in model.prefix]}
-    stacked: Dict[str, list] = {}
+    tree: dict = ({"prefix": [{} for _ in model.prefix]}
+                  if hasattr(model, "prefix") else {})
+    stacked: Dict[Tuple[str, str], list] = {}
     for name, leaf in leaves.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            stacked.setdefault(".".join(parts[2:]), []).append(
+        if parts[0] in STACKED:
+            stacked.setdefault((parts[0], ".".join(parts[2:])), []).append(
                 (int(parts[1]), leaf))
         elif parts[0] == "prefix":
             _put(tree["prefix"][int(parts[1])], parts[2:], leaf)
         else:
             _put(tree, parts, leaf)
-    for rest, items in stacked.items():
+    for (head, rest), items in stacked.items():
         items.sort(key=lambda it: it[0])
-        _put(tree, ["blocks"] + rest.split("."),
+        _put(tree, [head] + rest.split("."),
              _stack([leaf for _, leaf in items]))
     return tree
 

@@ -4,8 +4,9 @@
 Each target linear owns an ``RStreamer``; every captured activation chunk
 folds into a running n×n R via TSQR, so the calibration matrix X is never
 materialized. Capture is a forward pre-hook on every ``Linear`` of the
-decoder blocks, keyed by the JAX parameter path ('blocks/3/sub0/mixer/wq',
-'prefix/0/ffn/up'), and each MoE layer's ``expert_sink``, which records per
+layer stacks, keyed by the JAX parameter path ('blocks/3/sub0/mixer/wq',
+'prefix/0/ffn/up', an encoder–decoder's 'enc/0/attn/wq' and
+'dec/1/cross/wk'), and each MoE layer's ``expert_sink``, which records per
 expert the inputs of the tokens it took with a non-zero gate and their GLU
 hidden states ('blocks/0/sub0/ffn/expert5/in', '…/expert5/hid'), as the
 reference's ``CaptureDict`` does.
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core.tsqr import RStreamer, square_r
 from repro_torch.kernels import ops
+from repro_torch.models import STACKED
 from repro_torch.models.common import CPU_CTX, ParallelCtx
 from repro_torch.models.ffn import MoE
 from repro_torch.models.linear import Linear
@@ -28,16 +30,19 @@ from repro_torch.models.linear import Linear
 
 def block_modules(model, kind):
     """(JAX-style path, module) of every module of type ``kind`` in the
-    decoder blocks, in depth order (prefix layers first)."""
-    for head in ("prefix", "blocks"):
+    layer stacks, in depth order: an LM's prefix layers, then its blocks;
+    an encoder–decoder's encoder layers, then its decoder layers."""
+    for head in ("prefix",) + STACKED:
+        if not hasattr(model, head):
+            continue
         for name, mod in getattr(model, head).named_modules(prefix=head):
             if isinstance(mod, kind):
                 yield name.replace(".", "/"), mod
 
 
 def linear_paths(model):
-    """(JAX-style path, Linear) for every projection in the decoder blocks,
-    prefix layers first."""
+    """(JAX-style path, Linear) for every projection in the layer stacks,
+    in ``block_modules``' order."""
     yield from block_modules(model, Linear)
 
 
@@ -110,16 +115,17 @@ class Calibrator:
 def calibrate_model(model, batches: Iterable, *, collect_gram: bool = False,
                     ctx: ParallelCtx = CPU_CTX) -> Calibrator:
     """Run capture over calibration batches on the model's device — each
-    (B, T) token ints, or a pipeline batch ``{"tokens", "vision_embeds"}``
-    whose vision prefix goes through the forward too (a vlm); returns the
-    filled Calibrator. ``ctx`` picks the attention path of the forward (the
-    flash kernel with ``use_pallas``); it changes no result beyond
-    rounding."""
+    (B, T) token ints, or a pipeline batch ``{"tokens", ...}`` whose other
+    entries are the model's inputs beside the tokens (a vlm's
+    ``vision_embeds`` prefix, an encoder–decoder's ``frames``), which go
+    through the forward too; returns the filled Calibrator. ``ctx`` picks the
+    attention path of the forward (the flash kernel with ``use_pallas``); it
+    changes no result beyond rounding."""
     cal = Calibrator(collect_gram=collect_gram)
     for batch in batches:
         if isinstance(batch, dict):
-            model.capture_forward(batch["tokens"], cal, ctx=ctx,
-                                  vision_embeds=batch.get("vision_embeds"))
+            extras = {k: v for k, v in batch.items() if k != "tokens"}
+            model.capture_forward(batch["tokens"], cal, ctx=ctx, **extras)
         else:
             model.capture_forward(batch, cal, ctx=ctx)
     return cal

@@ -10,8 +10,9 @@ learns well below the uniform CE. The bits come from a CPU
 jax.random's, so the tokens differ from the JAX package's while the
 recurrence and the determinism are the same. A vlm's batch also carries
 ``vision_embeds`` (B, n_vision_tokens, d_model) N(0, 1) from a generator
-seeded with ``fold_in(seed + 2, step)``, the reference's key
-(``repro/data/pipeline.py:70-74``).
+seeded with ``fold_in(seed + 2, step)``, and an encoder–decoder's ``frames``
+(B, n_audio_frames, d_model) N(0, 1) from one seeded with ``fold_in(seed +
+1, step)``: the reference's keys (``repro/data/pipeline.py:65-74``).
 """
 from __future__ import annotations
 
@@ -60,21 +61,23 @@ def _batch_tokens(dcfg: DataConfig, step: int) -> torch.Tensor:
     return torch.stack(rows, dim=1).to(torch.int32)
 
 
-def _vision_embeds(dcfg: DataConfig, cfg, step: int) -> torch.Tensor:
-    gen = torch.Generator().manual_seed(fold_in(dcfg.seed + 2, step))
-    return torch.randn((dcfg.global_batch, cfg.n_vision_tokens, cfg.d_model),
-                       generator=gen)
+def _normal(dcfg: DataConfig, seed: int, step: int, n: int, d: int
+            ) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(fold_in(seed, step))
+    return torch.randn((dcfg.global_batch, n, d), generator=gen)
 
 
 class TokenPipeline:
     """get_batch(step) -> {"tokens": (B, T) int32 on ``device``}, plus
-    ``vision_embeds`` (B, n_vision_tokens, d_model) fp32 for a vlm."""
+    ``vision_embeds`` (B, n_vision_tokens, d_model) fp32 for a vlm and
+    ``frames`` (B, n_audio_frames, d_model) fp32 for an encoder–decoder."""
 
     def __init__(self, dcfg: DataConfig, model_cfg=None, *, device="cuda"):
-        if model_cfg is not None and model_cfg.family not in ("dense", "moe",
-                                                              "vlm", "ssm"):
+        if model_cfg is not None and model_cfg.family not in (
+                "dense", "moe", "vlm", "ssm", "encdec"):
             raise NotImplementedError(
-                f"family {model_cfg.family!r} has no ported batch extras")
+                f"family {model_cfg.family!r} (jamba's hybrid) has no ported "
+                "batch extras")
         self.dcfg = dcfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
@@ -83,8 +86,13 @@ class TokenPipeline:
         batch = {"tokens": _batch_tokens(self.dcfg, step).to(self.device)}
         cfg = self.model_cfg
         if cfg is not None and cfg.family == "vlm":
-            batch["vision_embeds"] = _vision_embeds(self.dcfg, cfg,
-                                                    step).to(self.device)
+            batch["vision_embeds"] = _normal(
+                self.dcfg, self.dcfg.seed + 2, step, cfg.n_vision_tokens,
+                cfg.d_model).to(self.device)
+        if cfg is not None and cfg.family == "encdec":
+            batch["frames"] = _normal(
+                self.dcfg, self.dcfg.seed + 1, step, cfg.n_audio_frames,
+                cfg.d_model).to(self.device)
         return batch
 
     def iter_from(self, step: int) -> Iterator[Dict[str, torch.Tensor]]:

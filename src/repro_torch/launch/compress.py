@@ -15,6 +15,10 @@ vision positions; ``vision_proj`` stays dense). xlstm_1_3b pretrains through
 its recurrences (checkpointed per chunk under autograd); its targets are
 the reference's compressible projections (mLSTM's up, wq, wk, wv, down and
 sLSTM's ff_up, ff_down), the gates and recurrences stay dense.
+whisper_base's batches carry the pipeline's ``frames`` through pretraining,
+evaluation and calibration; its targets are the 16 projections of every
+encoder and decoder layer (the cross ``wk``/``wv`` calibrated on the encoder
+outputs).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 Pretraining runs the dense attention path (the flash kernel has no
@@ -60,13 +64,19 @@ def make_pipeline(cfg, device) -> TokenPipeline:
                          device=device)
 
 
+def _extras(batch) -> dict:
+    """A pipeline batch's model inputs beside the tokens (a vlm's
+    ``vision_embeds``, an encoder–decoder's ``frames``)."""
+    return {k: v for k, v in batch.items() if k != "tokens"}
+
+
 def eval_ce(model, pipe: TokenPipeline, *, ctx: ParallelCtx = KERNEL_CTX,
             n_batches: int = 4) -> float:
     """Mean fp32 CE over the held-out batches 1000..1000+n_batches-1."""
     with torch.no_grad():
         return float(np.mean([
-            float(model.loss(b["tokens"], vision_embeds=b.get("vision_embeds"),
-                             ctx=ctx, compute_dtype=torch.float32)[0])
+            float(model.loss(b["tokens"], ctx=ctx, compute_dtype=torch.float32,
+                             **_extras(b))[0])
             for b in (pipe.get_batch(1000 + i) for i in range(n_batches))]))
 
 
@@ -74,7 +84,8 @@ def main(argv=None, cfg=None):
     """Command-line entry point. Prints the JSON summary and returns a dict
     with ``summary``, ``reports``, the trained ``model``, the ``compressed``
     model, the ``calibrator``, the ``calib_batches`` ((B, T) tokens, or a
-    vlm's ``{"tokens", "vision_embeds"}`` batches) and the ``seconds`` of
+    vlm's ``{"tokens", "vision_embeds"}`` and an encoder–decoder's
+    ``{"tokens", "frames"}`` batches) and the ``seconds`` of
     each phase (pretrain, eval, calibrate, compress). ``cfg``, a
     ModelConfig, replaces the one ``--arch``/``--smoke`` name (a
     full-width configuration cut in depth, say)."""
@@ -116,8 +127,8 @@ def main(argv=None, cfg=None):
     base_ce = eval_ce(model, pipe)
     seconds["eval"] = time.perf_counter() - t0
 
-    # token tensors, or whole batches where they carry a vision prefix
-    calib_batches = [b if "vision_embeds" in b else b["tokens"]
+    # token tensors, or whole batches where they carry other model inputs
+    calib_batches = [b if _extras(b) else b["tokens"]
                      for b in (pipe.get_batch(2000 + i)
                                for i in range(args.calib_batches))]
     _sync(device)

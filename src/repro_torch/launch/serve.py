@@ -23,7 +23,12 @@ gemma2_27b), deepseek_moe_16b's MoE, deepseek_v2_lite_16b's MLA over MoE
 qwen2_vl_2b (calibrated with a seeded vision prefix; the synthetic trace is
 text-only, as the reference's) and xlstm_1_3b (recurrent: ``--prefix-cache
 auto`` serves it with the cache off, ``on`` raises ``ValueError``, and each
-request is prefilled alone, its state kept in a per-request slot).
+request is prefilled alone, its state kept in a per-request slot), and
+whisper_base (encoder–decoder: calibrated with seeded frames; the fixed-batch
+mode serves the pipeline's frames; the synthetic trace carries no frames, as
+the reference's, so ``--continuous`` raises the engine's ``ValueError`` at
+the first submit where the reference crashes; a caller serves it by
+submitting requests with ``extras={"frames": ...}``).
 
 Runs on the GPU by default and raises without one unless ``--device cpu``.
 On the GPU each engine replays one CUDA graph per step signature;
@@ -121,16 +126,20 @@ def calibration_batches(cfg, *, n_batches: int, batch: int, seq_len: int,
     """Seeded numpy calibration tokens, (batch, seq_len) per batch; for a
     vlm each batch is ``{"tokens", "vision_embeds"}`` with an N(0, 1)
     vision prefix (batch, n_vision_tokens, d_model) from the same stream, so
-    calibration sees the prefix, as the reference's pipeline batches do."""
+    calibration sees the prefix, as the reference's pipeline batches do, and
+    for an encoder–decoder ``{"tokens", "frames"}`` with N(0, 1) frames
+    (batch, n_audio_frames, d_model) from the same stream."""
     rng = np.random.RandomState(seed)
     out = []
+    extra = {"vlm": ("vision_embeds", cfg.n_vision_tokens),
+             "encdec": ("frames", cfg.n_audio_frames)}.get(cfg.family)
     for _ in range(n_batches):
         tok = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq_len)),
                               device=device)
-        if cfg.family == "vlm" and cfg.n_vision_tokens:
-            vis = rng.standard_normal((batch, cfg.n_vision_tokens, cfg.d_model))
-            out.append({"tokens": tok, "vision_embeds": torch.as_tensor(
-                vis, dtype=torch.float32, device=device)})
+        if extra is not None and extra[1]:
+            x = rng.standard_normal((batch, extra[1], cfg.d_model))
+            out.append({"tokens": tok, extra[0]: torch.as_tensor(
+                x, dtype=torch.float32, device=device)})
         else:
             out.append(tok)
     return out
@@ -365,7 +374,8 @@ def run_fixed(args, cfg, model):
     """Fixed-batch serving (``repro/launch/serve.py:243-254``): COALA-
     compress first with ``--compress-ratio`` > 0, then generate
     ``--new-tokens`` from the pipeline's first batch (``--requests`` rows of
-    ``--prompt-len`` tokens, its vision prefix as extras for a vlm) through
+    ``--prompt-len`` tokens, with a vlm's vision prefix or an
+    encoder–decoder's frames as extras) through
     ``ServeEngine`` in fp32. Returns the ``tokens`` (B, T0 + new), the
     ``batch``, the served ``model``, the ``engine`` and the ``seconds``."""
     seconds = {}

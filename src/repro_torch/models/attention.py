@@ -1,12 +1,14 @@
-"""GQA and MLA attention (port of ``repro/models/attention.py:196-294`` and
-``:298-359``).
+"""GQA, MLA and cross-attention (port of ``repro/models/attention.py:
+118-294``, ``:298-359`` and ``:366-398``).
 
 Three execution paths:
-  * contiguous, no cache — ``sdpa`` over the whole sequence, causal: the
-    training loss, evaluation and the calibration forward
-    (``LM.capture_forward``). With ``ctx.use_pallas`` it runs
-    ``ops.flash_attention`` (the CUDA flash kernel on a CUDA tensor), else
-    the masked einsum ``dense_sdpa``;
+  * contiguous, no cache — ``sdpa`` over the whole sequence, causal (or,
+    for whisper's encoder, not): the training loss, evaluation and the
+    calibration forward (``LM.capture_forward``). With ``ctx.use_pallas`` a
+    causal one runs ``ops.flash_attention`` (the CUDA flash kernel on a CUDA
+    tensor); any other runs ``_chunked_sdpa``, an online softmax over
+    blocks in plain torch, when the query or key length exceeds
+    ``ctx.dense_attn_max_seq``, else the masked einsum ``dense_sdpa``;
   * contiguous cache — ``LM.prefill`` / ``LM.decode_step`` without block
     tables (``ServeEngine`` and the continuous engine's per-request prefill):
     a prefill writes positions [0, t) of the (B, max_len, ...) cache and
@@ -30,10 +32,16 @@ it writes the new latents and attends in latent space through the absorbed
 read through its block table, in plain torch, as the JAX package computes
 it in XLA einsums outside any Pallas kernel. It never calls the paged
 kernels, whose pages are K/V.
+
+``CrossAttention`` (whisper's decoder) attends from the decoder stream to
+the encoder outputs through K/V that ``cross_cache_from_encoder`` computes
+once per request; it is never causal and has no RoPE, so ``sdpa`` never
+takes the flash kernel for it: plain torch, as the reference's XLA.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import CPU_CTX, ParallelCtx, apply_rope, softcap
@@ -47,13 +55,14 @@ def _scalar(q_offset) -> bool:
 
 
 def _mask_bias(tq: int, tk: int, q_offset, *, causal: bool, window: int,
-               device):
+               device, k_offset: int = 0):
     """Additive mask from global positions: queries at ``q_offset + j``
-    (``q_offset`` scalar, or (B,) per row), keys at 0..tk-1. Returns
-    (tq, tk), or (B, tq, tk) for per-row offsets."""
+    (``q_offset`` scalar, or (B,) per row), keys at ``k_offset`` ..
+    ``k_offset`` + tk - 1. Returns (tq, tk), or (B, tq, tk) for per-row
+    offsets."""
     ar = torch.arange(tq, device=device)
     iq = ar + q_offset if _scalar(q_offset) else q_offset.long()[:, None] + ar
-    d = iq[..., None] - torch.arange(tk, device=device)
+    d = iq[..., None] - torch.arange(k_offset, k_offset + tk, device=device)
     ok = torch.ones_like(d, dtype=torch.bool)
     if causal:
         ok &= d >= 0
@@ -82,18 +91,83 @@ def dense_sdpa(q, k, v, *, causal: bool, window: int, cap: float, scale,
     return o.reshape(b, tq, hq, hd)
 
 
+def _chunked_sdpa(q, k, v, *, q_offset, causal: bool, window: int,
+                  cap: float, scale, chunk_q: int, chunk_kv: int):
+    """``dense_sdpa``'s attention with O(chunk_q x chunk_kv) score memory
+    (``repro/models/attention.py:118-193``): an online softmax in fp32 over
+    key blocks of ``chunk_kv`` for each query block of ``chunk_q``. Ragged
+    lengths are padded to whole blocks: padded keys are masked out (every
+    key at or past the true length), padded queries are sliced off."""
+    tq, tk = q.shape[1], k.shape[1]
+    cq, ck = min(chunk_q, tq), min(chunk_kv, tk)
+    pad_q, pad_k = (-tq) % cq, (-tk) % ck
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    out = _chunked_sdpa_padded(q, k, v, q_offset=q_offset, causal=causal,
+                               window=window, cap=cap, scale=scale, cq=cq,
+                               ck=ck, kv_valid=tk)
+    return out[:, :tq]
+
+
+def _chunked_sdpa_padded(q, k, v, *, q_offset, causal: bool, window: int,
+                         cap: float, scale, cq: int, ck: int, kv_valid: int):
+    """The block loops of ``_chunked_sdpa`` over whole blocks: Python loops
+    where the reference scans, with its running max ``m``, sum ``l`` and
+    accumulator, and its ``acc / max(l, 1e-30)``."""
+    b, tq, hq, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    outs = []
+    for q0 in range(0, tq, cq):
+        q_blk = q[:, q0:q0 + cq].reshape(b, cq, hkv, g, hd)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, tk, ck):
+            k_blk, v_blk = k[:, k0:k0 + ck], v[:, k0:k0 + ck]
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk).float() * scale
+            s = softcap(s, cap)
+            bias = _mask_bias(cq, ck, q_offset + q0, causal=causal,
+                              window=window, device=q.device, k_offset=k0)
+            s = s + (bias[:, None, None] if bias.ndim == 3 else bias)
+            valid = torch.arange(k0, k0 + ck, device=q.device) < kv_valid
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(v_blk.dtype), v_blk)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.movedim(3, 1).reshape(b, cq, hq, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 def sdpa(q, k, v, *, ctx: ParallelCtx, q_offset=0, causal: bool = True,
          window: int = 0, cap: float = 0.0, scale=None):
-    """Attention over a contiguous sequence: the flash kernel under exactly
+    """Attention over a contiguous sequence, in the reference's order
+    (``repro/models/attention.py:196-210``): the flash kernel under exactly
     the JAX package's condition (``ctx.use_pallas``, causal, Tq == Tk, no
-    window, a scalar ``q_offset``; ``repro/models/attention.py:196-204``),
-    else ``dense_sdpa``."""
+    window, a scalar ``q_offset``), else ``_chunked_sdpa`` when the query
+    or key length exceeds ``ctx.dense_attn_max_seq``, else
+    ``dense_sdpa``."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if (ctx.use_pallas and causal and q.shape[1] == k.shape[1]
             and window == 0 and _scalar(q_offset)):
         return ops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), scale=scale, cap=cap)
+    if max(q.shape[1], k.shape[1]) > ctx.dense_attn_max_seq:
+        return _chunked_sdpa(q, k, v, q_offset=q_offset, causal=causal,
+                             window=window, cap=cap, scale=scale,
+                             chunk_q=ctx.attn_chunk_q,
+                             chunk_kv=ctx.attn_chunk_kv)
     return dense_sdpa(q, k, v, causal=causal, window=window, cap=cap,
                       scale=scale, q_offset=q_offset)
 
@@ -109,18 +183,22 @@ class GQA(torch.nn.Module):
         self.wv = Linear(d, cfg.n_kv_heads * hd, **kw)
         self.wo = Linear(cfg.n_heads * hd, d, **kw)
 
-    def forward(self, x, cos_sin, *, local: bool = False, cache=None,
-                pos=None, paged_tables=None, lens=None,
+    def forward(self, x, cos_sin, *, local: bool = False, causal: bool = True,
+                cache=None, pos=None, paged_tables=None, lens=None,
                 ctx: ParallelCtx = CPU_CTX):
+        """``cos_sin`` None applies no RoPE and ``causal`` False masks
+        nothing (whisper's encoder), as ``gqa_apply`` takes them; the paged
+        path is causal whatever ``causal`` says."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
         q = self.wq(x).reshape(b, t, cfg.n_heads, hd)
         k = self.wk(x).reshape(b, t, cfg.n_kv_heads, hd)
         v = self.wv(x).reshape(b, t, cfg.n_kv_heads, hd)
-        cos, sin = cos_sin
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if cos_sin is not None:
+            cos, sin = cos_sin
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
         window = cfg.local_window if local else 0
         scale = cfg.query_scale if cfg.query_scale > 0 else 1.0 / (hd ** 0.5)
         cap = cfg.attn_logit_softcap
@@ -131,12 +209,12 @@ class GQA(torch.nn.Module):
             kc[:, pos:pos + t] = k.to(kc.dtype)
             vc[:, pos:pos + t] = v.to(vc.dtype)
             o = sdpa(q, kc.to(q.dtype), vc.to(q.dtype), ctx=ctx, q_offset=pos,
-                     causal=True, window=window, cap=cap, scale=scale)
+                     causal=causal, window=window, cap=cap, scale=scale)
         elif paged_tables is None:
             if cache is not None:                 # prefill: fill [0, t)
                 cache["k"][:, :t] = k.to(cache["k"].dtype)
                 cache["v"][:, :t] = v.to(cache["v"].dtype)
-            o = sdpa(q, k, v, ctx=ctx, causal=True, window=window, cap=cap,
+            o = sdpa(q, k, v, ctx=ctx, causal=causal, window=window, cap=cap,
                      scale=scale)
         else:
             # paged serving: write row i's t tokens at positions pos[i] + j
@@ -161,6 +239,35 @@ class GQA(torch.nn.Module):
                     scale=scale, cap=cap,
                     window=window).to(q.dtype)
         return self.wo(o.reshape(b, t, cfg.n_heads * hd))
+
+
+class CrossAttention(GQA):
+    """Whisper's decoder cross-attention: ``cross_attn_init`` is
+    ``gqa_init``, so the projections are GQA's ``wq``/``wk``/``wv``/``wo``
+    (calibration and compression find them by those names); the forward is
+    ``cross_attn_apply`` (``repro/models/attention.py:374-398``) over the
+    K/V of ``cross_cache_from_encoder``: non-causal ``sdpa`` at the default
+    scale, no RoPE, no softcap."""
+
+    def forward(self, x, ck, cv, *, ctx: ParallelCtx = CPU_CTX):
+        """x (B, T, d_model) attends over ``ck``/``cv`` (B, S, Hkv, hd),
+        cast to x's dtype."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        q = self.wq(x).reshape(b, t, cfg.n_heads, cfg.head_dim)
+        o = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), ctx=ctx, causal=False)
+        return self.wo(o.reshape(b, t, cfg.n_heads * cfg.head_dim))
+
+
+def cross_cache_from_encoder(cross: CrossAttention, enc_out):
+    """The cross K/V of the encoder outputs ``enc_out`` (B, S, d_model),
+    computed once per request (``repro/models/attention.py:366-371``):
+    ``{"ck", "cv"}`` (B, S, Hkv, hd) in enc_out's dtype (a cache store
+    casts them to its own as it takes them)."""
+    cfg = cross.cfg
+    b, s, _ = enc_out.shape
+    return {"ck": cross.wk(enc_out).reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+            "cv": cross.wv(enc_out).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)}
 
 
 class MLA(torch.nn.Module):

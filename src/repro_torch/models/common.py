@@ -16,17 +16,24 @@ import torch.utils.checkpoint
 class ParallelCtx:
     """Runtime context threaded through the model's forward passes.
 
-    Of the JAX package's fields the port reads two. ``use_pallas`` sends a
+    Of the JAX package's fields the port reads five. ``use_pallas`` sends a
     causal full-sequence attention (no window, Tq == Tk) through
     ``kernels.ops.flash_attention``, which on a CUDA tensor launches the
     hand-written CUDA flash kernel (``csrc/flash_attention.cu``) where the
-    JAX package runs its TPU Pallas kernel. ``mlstm_chunkwise`` runs an
-    mLSTM over a sequence that is a whole number of chunks in the
+    JAX package runs its TPU Pallas kernel. Any other attention whose query
+    or key length exceeds ``dense_attn_max_seq`` runs ``_chunked_sdpa``
+    (``models/attention.py``) over ``attn_chunk_q`` x ``attn_chunk_kv``
+    blocks instead of the dense einsum. ``mlstm_chunkwise`` runs an mLSTM
+    over a sequence that is a whole number of chunks in the
     chunkwise-parallel form (``models/xlstm.py``), which gives the
-    sequential recurrence's numbers in other rounding. The names are the
-    JAX ones, so a parity test hands the same settings to both packages."""
+    sequential recurrence's numbers in other rounding. The names and
+    defaults are the JAX ones, so a parity test hands the same settings to
+    both packages."""
     use_pallas: bool = False
     mlstm_chunkwise: bool = False
+    dense_attn_max_seq: int = 2048
+    attn_chunk_q: int = 2048
+    attn_chunk_kv: int = 1024
 
 
 CPU_CTX = ParallelCtx()

@@ -28,18 +28,21 @@ from repro_torch.models.linear import Linear
 
 
 class MLP(torch.nn.Module):
-    """down(act(gate(x)) * up(x))."""
+    """down(act(gate(x)) * up(x)), or with ``glu=False`` (whisper's MLP,
+    which has no ``gate``) down(act(up(x)))."""
 
-    def __init__(self, d_model: int, d_ff: int, act: str, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, d_model: int, d_ff: int, act: str, *, glu: bool = True,
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.up = Linear(d_model, d_ff, **kw)
         self.down = Linear(d_ff, d_model, **kw)
-        self.gate = Linear(d_model, d_ff, **kw)
+        self.gate = Linear(d_model, d_ff, **kw) if glu else None
         self.act = act_fn(act)
 
     def forward(self, x):
+        if self.gate is None:
+            return self.down(self.act(self.up(x)))
         return self.down(self.act(self.gate(x)) * self.up(x))
 
 

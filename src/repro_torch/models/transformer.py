@@ -187,10 +187,13 @@ class LM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  dtype=torch.float32):
         super().__init__()
+        if cfg.family == "encdec":
+            raise ValueError("family 'encdec' is models.encdec.EncDecLM's "
+                             "(build_model picks it)")
         if cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, moe, vlm "
-                "and ssm only)")
+                f"family {cfg.family!r} is not ported yet (jamba's hybrid; "
+                "dense, moe, vlm, ssm and encdec are)")
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg

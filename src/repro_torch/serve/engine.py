@@ -57,6 +57,18 @@ place, so a replay reads and writes the same state stores every time. A
 preempted request gives up its slot and is prefilled again over prompt +
 output; ``fork`` copies the parent's state slot into the child's.
 
+Encoder–decoders (whisper's ``EncDecLM``) take the same non-chunked route:
+every request carries its encoder input ``extras={"frames": (1,
+n_audio_frames, d_model)}`` (``submit`` raises ``ValueError`` without it,
+where the JAX engine fails on ``None``) and is prefilled alone — encoder,
+then decoder over the prompt, the flash kernel for its causal
+self-attention on the card — writing its self-attention K/V into its pages
+and its cross K/V into its state slot. Decode runs the decoder's
+self-attention through the paged-attention kernel over the pages
+(``paged_kernel`` True, where the JAX engine reads them through its gather
+path) and its cross-attention in plain torch over the slot rows it gathers
+(``slots`` in the packed inputs), never written back.
+
 CUDA graphs take the place of the JAX engine's jit cache. Every step runs
 one of a closed set of signatures — decode ``(b_pad, nb_pad)``, prefill
 ``(b_pad, l_pad, nb_pad)`` — and a CUDA engine captures one
@@ -115,7 +127,8 @@ or swap (``_own_weights``), so the graphs read the engine's tensors.
 
 Model families: every decoder of ``repro_torch.configs`` (dense GQA,
 gemma2's local window and softcaps, deepseek's MoE, deepseek-v2's MLA,
-qwen2-vl, and xLSTM through the recurrent route above). An MoE
+qwen2-vl, xLSTM through the recurrent route above, and whisper's
+encoder–decoder through the same route). An MoE
 layer's capacity comes from the step's padded token count, so a signature
 fixes it and its graph is static; its combine adds without atomics, so a
 replay gives the eager engine's bits.
@@ -459,10 +472,12 @@ class ContinuousEngine:
             raise ValueError(
                 "prefix caching needs chunked suffix prefill, which this "
                 "model does not support (recurrent/hybrid/enc-dec layers)")
-        # the paged kernels read {"k", "v"} pages: MLA's latent pages are
-        # read by its own attention and a recurrent model has none, so
-        # neither kernel runs for them
-        self.paged_kernel = "attn" in kinds and not model.cfg.kv_lora_rank
+        # the paged kernels read {"k", "v"} pages (an encoder-decoder's
+        # decoder self-attention's too): MLA's latent pages are read by its
+        # own attention and a recurrent model has none, so neither kernel
+        # runs for them
+        self.paged_kernel = (bool({"attn", "cross"} & set(kinds))
+                             and not model.cfg.kv_lora_rank)
         supported = self._chunk_ok and self.paged_kernel
         self.prefill_kernel = (supported if prefill_kernel is None
                                else prefill_kernel)
@@ -614,11 +629,17 @@ class ContinuousEngine:
         """Enqueue one request; returns its id. ``temperature`` <= 0 is
         greedy; ``seed`` keys the request's samples; generation stops after
         ``max_new_tokens`` or at ``eos_id``. ``extras``: per-request model
-        inputs shaped (1, ...) — a vlm's ``vision_embeds`` — which make the
+        inputs shaped (1, ...) — a vlm's ``vision_embeds``, an
+        encoder–decoder's ``frames`` (required there) — which make the
         request non-cacheable (prefilled alone, see the module docstring).
         ``stream_callback`` receives a ``StreamEvent`` per emitted token (on
         the detokenize worker's thread unless ``async_detok=False``)."""
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        if self.model.cfg.family == "encdec" and not (extras and
+                                                      "frames" in extras):
+            raise ValueError(
+                "an encoder-decoder request needs its encoder input: "
+                "extras={'frames': (1, n_audio_frames, d_model)}")
         vis = _vis_offset(self.model, extras)
         req = Request(req_id=self._next_id, prompt=prompt,
                       max_new_tokens=max_new_tokens, temperature=temperature,

@@ -17,18 +17,22 @@ block_size, ...) tensors — ``{"k", "v"}`` for GQA, MLA's latents ``{"c",
 tables. GQA reads its pages in place too, through the paged kernels. MLA
 gathers each row's whole padded envelope of latents at every step and layer
 (``pages[tables]``) and lays the chunk's latents over it, as the JAX gather
-path does. Zeroing and copy-on-write treat every page store of a layer
-alike. A recurrent layer's (xLSTM's mLSTM and sLSTM) are state stores, one
-per state leaf, of ``max_requests + 1`` slots (``_state_store_shape``,
+path does. Zeroing and copy-on-write treat every page store alike. A
+recurrent layer's (xLSTM's mLSTM and sLSTM) are state stores, one per state
+leaf, of ``max_requests + 1`` slots (``_state_store_shape``,
 ``repro/serve/paged_cache.py:191-196``): the model gathers the batch's slot
 rows before its recurrence and scatters them back after it, in place, from
-the slot ids a step hands it (``slots``, padded with the trash slot). The
-leaves are classified by the model's own layer kinds (``LM.layer_kinds``),
-where the JAX pool probes ``init_cache`` shapes (``CacheLayout.probe``): the
-port's cache is a list of per-layer dicts whose kind the model knows. A
-model with no attention layer has no page stores; its blocks are still
-allocated and counted, so admission and preemption follow the reference's
-accounting.
+the slot ids a step hands it (``slots``, padded with the trash slot). An
+encoder–decoder's decoder layer (kind 'cross') holds both: its
+self-attention K/V ``{"k", "v"}`` in page stores and its cross K/V ``{"ck",
+"cv"}`` in state stores, which its decode steps only gather (cross K/V are
+read-only once prefilled). The leaves are classified per layer and per leaf
+by the model's own layer kinds (``layer_kinds()``) and the leaf names
+(``state_leaf``), where the JAX pool probes ``init_cache`` shapes
+(``CacheLayout.probe``): the port's cache is a list of per-layer dicts whose
+kind the model knows. A model with no attention layer has no page stores;
+its blocks are still allocated and counted, so admission and preemption
+follow the reference's accounting.
 
 **Prefix caching** (``prefix_cache=True``): blocks are refcounted and a
 registry maps *full* blocks of committed tokens to their pages, so a new
@@ -65,6 +69,15 @@ from repro_torch.obs import trace
 from repro_torch.obs.metrics import Registry
 
 _ROOT = -1                      # parent id of a prefix chain's first block
+_STATE_LEAVES = {"attn": (), "cross": ("ck", "cv")}  # page-holding kinds' state
+
+
+def state_leaf(kind: str, name: str) -> bool:
+    """Is leaf ``name`` of a layer of ``kind`` per-request state (slot
+    stores) rather than token pages? Every leaf of a recurrent layer is; of
+    an attention layer none is; of an encoder–decoder's decoder layer
+    ('cross') the cross K/V are."""
+    return kind not in _STATE_LEAVES or name in _STATE_LEAVES[kind]
 
 
 class BlockPool:
@@ -118,13 +131,15 @@ class BlockPool:
         # the stores are never rebound: a captured graph holds their addresses
         self.pages = model.init_cache(num_blocks, block_size, dtype=dtype,
                                       slots=max_requests + 1)
-        self._is_state = [k != "attn" for k in model.layer_kinds()]
-        self._page_layers = [layer for layer, st in zip(self.pages,
-                                                        self._is_state)
-                             if not st]
-        self._state_layers = [layer for layer, st in zip(self.pages,
-                                                         self._is_state)
-                              if st]
+        self._is_state = [{name: state_leaf(kind, name) for name in layer}
+                          for layer, kind in zip(self.pages,
+                                                 model.layer_kinds())]
+        # per layer, its page stores and its state stores (empty ones left out)
+        split = [({n: t for n, t in layer.items() if not st[n]},
+                  {n: t for n, t in layer.items() if st[n]})
+                 for layer, st in zip(self.pages, self._is_state)]
+        self._page_layers = [p for p, _ in split if p]
+        self._state_layers = [st for _, st in split if st]
 
     # ------------------------------------------------------------ accounting
     @property
@@ -161,7 +176,8 @@ class BlockPool:
 
     @property
     def has_state(self) -> bool:
-        """Does the model keep per-request state (a recurrent layer)?"""
+        """Does the model keep per-request state (a recurrent layer, or an
+        encoder–decoder's cross K/V)?"""
         return bool(self._state_layers)
 
     def ref_count(self, block: int) -> int:
@@ -390,8 +406,9 @@ class BlockPool:
     def fork(self, parent_id: int, child_id: int) -> None:
         """Share the parent's whole table with ``child_id`` (copy-on-write:
         the first divergent write mid-block copies that block) and copy its
-        recurrent-state slot into the child's (``_copy_state_slot``,
-        ``repro/serve/paged_cache.py:442-459``, ``:657``)."""
+        state slot (recurrent state, cross K/V) into the child's
+        (``_copy_state_slot``, ``repro/serve/paged_cache.py:442-459``,
+        ``:657``)."""
         if child_id in self._tables:
             raise ValueError(f"request {child_id} already allocated")
         if not self._free_slots:
@@ -415,11 +432,11 @@ class BlockPool:
 
     def scatter_prefill(self, req_ids, cache, n_tokens: int) -> None:
         """Write positions [0, n_tokens) of a freshly prefilled contiguous
-        cache (``LM.init_contiguous_cache``; row i for ``req_ids[i]``) into
-        the rows' pages, every page store of every attention layer, with
-        ``index_put_``, and every state leaf of a recurrent layer into the
-        rows' state slots (``repro/serve/paged_cache.py:573-581``; the rest
-        of the last page stays as the claim zeroed it)."""
+        cache (``init_contiguous_cache``; row i for ``req_ids[i]``) into
+        the rows' pages, every page store, with ``index_put_``, and every
+        state leaf (a recurrent layer's state, a decoder layer's cross K/V)
+        into the rows' state slots (``repro/serve/paged_cache.py:573-581``;
+        the rest of the last page stays as the claim zeroed it)."""
         p = torch.arange(n_tokens, device=self.device)
         for i, rid in enumerate(req_ids):
             table = torch.as_tensor(self._tables[rid], device=self.device)
@@ -428,7 +445,7 @@ class BlockPool:
             for stores, layer, is_state in zip(self.pages, cache,
                                                self._is_state):
                 for name, store in stores.items():
-                    if is_state:
+                    if is_state[name]:
                         store[slot].copy_(layer[name][i])
                     else:
                         store.index_put_(idx, layer[name][i, :n_tokens].to(

@@ -195,6 +195,10 @@ class RecalibWorker:
                  draft_ratio: float = 0.0,
                  draft_rank_map: Optional[Dict[str, int]] = None,
                  async_solve: bool = False):
+        if base_model.cfg.family == "encdec":
+            raise NotImplementedError(
+                "live recompression of an encoder-decoder is not ported: its "
+                "traffic capture would need each request's frames")
         if not rank_map:
             raise ValueError("rank_map is empty: nothing to recompress "
                              "(pin it from the initial compression's "

@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.models import STACKED
 
 
 def lr_at(tcfg: TrainConfig, step) -> float:
@@ -48,8 +49,9 @@ def lr_at(tcfg: TrainConfig, step) -> float:
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """ndim of parameter ``name`` in the JAX tree, which stacks every block
-    leaf over ``n_rep``: the port's ndim + 1 under ``blocks.``."""
-    return p.ndim + 1 if name.startswith("blocks.") else p.ndim
+    leaf over ``n_rep`` and an encoder–decoder's layers over their layer
+    axis: the port's ndim + 1 under ``blocks.``, ``enc.`` and ``dec.``."""
+    return p.ndim + 1 if name.split(".", 1)[0] in STACKED else p.ndim
 
 
 def adamw_init(params: Dict[str, torch.Tensor]) -> dict:
@@ -65,7 +67,8 @@ def adamw_update(tcfg: TrainConfig, params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], opt_state: dict):
     """One AdamW step at lr_at(step - 1), decoupled weight decay on tensors
     with ndim >= 2 in the reference's tree (``reference_ndim``: so also the
-    block norm scales, which the reference stacks to (n_rep, d)), all fp32
+    block norm scales, which the reference stacks to (n_rep, d), and an
+    encoder–decoder's layer norm scales, stacked to (n_layers, d)), all fp32
     math. ``params`` are keyed by the model's parameter names. Updates
     ``params`` and the moments in place; returns (params, opt_state, lr)."""
     step = opt_state["step"] + 1

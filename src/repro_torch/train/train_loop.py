@@ -34,8 +34,9 @@ def make_train_state(model, generator: Optional[torch.Generator] = None) -> dict
 
 def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
     """Returns ``train_step(state, batch) -> (state, metrics)`` with batch
-    ``{"tokens": (B, T) ints}`` (a vlm's also ``vision_embeds``, split into
-    the microbatches with the tokens). ``ctx`` must not select the flash kernel,
+    ``{"tokens": (B, T) ints}`` and the model's other inputs (a vlm's
+    ``vision_embeds``, an encoder–decoder's ``frames``), split into the
+    microbatches with the tokens. ``ctx`` must not select the flash kernel,
     which has no backward (its wrapper raises under autograd)."""
     compute_dtype = getattr(torch, tcfg.compute_dtype)
     mb = tcfg.microbatches
@@ -52,12 +53,12 @@ def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
             p.grad = None
         ce = torch.zeros((), dtype=torch.float32, device=tokens.device)
         aux = torch.zeros_like(ce)
-        vis = batch.get("vision_embeds")
-        parts = zip(tokens.chunk(mb, dim=0),
-                    vis.chunk(mb, dim=0) if vis is not None else [None] * mb)
-        for part, vpart in parts:
-            loss, metrics = model_.loss(part, vision_embeds=vpart, ctx=ctx,
-                                        compute_dtype=compute_dtype)
+        extras = {k: v.chunk(mb, dim=0) for k, v in batch.items()
+                  if k != "tokens"}
+        for i, part in enumerate(tokens.chunk(mb, dim=0)):
+            loss, metrics = model_.loss(
+                part, ctx=ctx, compute_dtype=compute_dtype,
+                **{k: v[i] for k, v in extras.items()})
             (loss / mb).backward()
             ce = ce + metrics["ce"].detach() / mb
             aux = aux + metrics["aux"].detach() / mb

@@ -40,6 +40,7 @@ from repro_torch.kernels.ref import (flash_attention_ref, gram_accum_ref,
                                      lowrank_linear_ref)
 from repro_torch.launch.serve import serve_trace, synthetic_trace
 from repro_torch.models import build_model
+from repro_torch.models.common import ParallelCtx
 from repro_torch.models.linear import Linear
 from repro_torch.serve import ContinuousEngine
 from repro_torch.serve.engine import _pack
@@ -1083,3 +1084,96 @@ def test_engine_cuda_xlstm_graphs_match_eager(xlstm_models, name):
     assert (counts["lowrank_linear"] > 0) == (name == "coala")
     assert all(counts[k] == 0 for k in ("paged_attention", "chunked_prefill",
                                         "flash_attention"))
+
+
+@pytest.fixture(scope="module")
+def whisper_models():
+    """whisper SMOKE, random init, dense and COALA-compressed (calibrated on
+    seeded tokens with their frames) on the CPU, and copies on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    cfg = get_smoke_config("whisper_base")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    batches = [{"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 24))),
+                "frames": torch.as_tensor(rng.standard_normal(
+                    (8, cfg.n_audio_frames, cfg.d_model)), dtype=torch.float32)}
+               for _ in range(2)]
+    ccpu, _ = compress_model(cpu, calibrate_model(cpu, batches),
+                             CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    return {name: (m, copy.deepcopy(m).to("cuda"))
+            for name, m in (("dense", cpu), ("coala", ccpu))}
+
+
+def _whisper_trace(cfg):
+    rng = np.random.RandomState(4)
+    return [(rng.randint(0, 256, (int(rng.choice([3, 7, 11])),)).astype(np.int32),
+             int(rng.randint(6, 11)),
+             rng.standard_normal((1, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+            for _ in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_whisper_cuda_matches_cpu(whisper_models, name):
+    """Encoder, prefill (flash for the decoder's self-attention) and two
+    decode steps over a contiguous cache, card against CPU, fp32 at 1e-3 of
+    the logits' scale."""
+    cpu, gpu = whisper_models[name]
+    cfg = cpu.cfg
+    rng = np.random.RandomState(1)
+    tok = rng.randint(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    frames = rng.standard_normal((2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    outs = []
+    for m, ctx in ((cpu, ParallelCtx()), (gpu, ParallelCtx(use_pallas=True))):
+        cache = m.init_contiguous_cache(2, 16)
+        lg = [m.prefill(torch.as_tensor(tok, device=m.device), cache, frames=frames,
+                        ctx=ctx)]
+        step = torch.as_tensor([[5], [7]], dtype=torch.int32, device=m.device)
+        for i in range(2):
+            lg.append(m.decode_step(step, cache, 9 + i))
+        outs.append([x.cpu() for x in lg])
+    for a, b in zip(*outs):
+        _close(b, a, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_engine_cuda_whisper_graphs_match_eager(whisper_models, name):
+    """The encoder–decoder route on the card: a trace whose requests carry
+    frames, which preempts, with a fork, through CUDA graphs (decode with
+    the block tables and the rows' slots in the packed inputs; cross K/V
+    gathered from the slot stores, self K/V through the paged kernel)
+    against the eager engine and the CPU's: identical greedy tokens, 0
+    post-warmup captures, the same launches, flash in every per-request
+    prefill and the paged kernel in every decode step."""
+    cpu, gpu = whisper_models[name]
+    trace = _whisper_trace(cpu.cfg)
+    knobs = dict(block_size=4, num_blocks=11, max_running=3, bucket_sizes=(1, 2, 3))
+    runs = []
+    for model, graphs in ((gpu, True), (gpu, False), (cpu, False)):
+        eng = ContinuousEngine(model, cuda_graphs=graphs, **knobs)
+        if graphs:
+            eng.warmup(max_len=max(len(p) + n for p, n, _ in trace))
+        ops.reset_launch_counts()
+        child = None
+        for i, (prompt, new, frames) in enumerate(trace):
+            eng.submit(prompt, new, extras={"frames": frames})
+            if i == 1:
+                child = eng.fork(0)
+            eng.step()
+        eng.run()
+        if model is gpu:
+            torch.cuda.synchronize()
+        runs.append(({r.req_id: list(r.out_tokens) for r in eng.finished},
+                     eng.metrics(), ops.launch_counts(), child))
+        eng.release_graphs()
+    (toks, m, counts, child), (etoks, em, ecounts, _), (ctoks, _, _, _) = runs
+    assert toks == etoks == ctoks and len(toks) == len(trace) + 1
+    assert toks[child] == toks[0]
+    assert m["post_warmup_compiles"] == 0 and m["preemptions"] == em["preemptions"] >= 1
+    assert counts == ecounts
+    assert counts["flash_attention"] == cpu.cfg.n_layers * (len(trace) + m["preemptions"])
+    assert counts["paged_attention"] == cpu.cfg.n_layers * m["decode_steps"]
+    assert (counts["lowrank_linear"] > 0) == (name == "coala")
+    assert counts["chunked_prefill"] == 0
