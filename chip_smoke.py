@@ -38,7 +38,7 @@ Phases, each printing its own lines:
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
-             llama3_1b at full width, its depth cut to 8 of 16 layers
+             llama3_1b at full width, its depth cut to 4 of 16 layers
              (handed as ``cfg``): random init from a seeded
              torch.Generator, calibration on seeded numpy tokens (through the
              flash kernel), COALA compression (ratio 0.6, λ = 4, μ from
@@ -241,7 +241,31 @@ Phases, each printing its own lines:
              projections at M 8 and an encoder layer's 6 at M 1500,
              paged_attention at G 1, hd 64, flash at B 1, T 200, G 1, hd 64,
              and gram_accum at whisper's record shapes;
-14. profile — only with ``--profile N``: wall and per-kernel device time of
+14. jamba path — jamba_v0_1_52b at full width in bf16, its depth cut to 8
+             of 32 layers (its smallest: Mamba layers 0-3 and 5-7, attention
+             at layer 4, 16-expert MoE on the odd layers; 13.30 G parameters
+             from a seeded torch.Generator), through the library entry
+             points (the launchers build fp32): (a) phase 4's trace through
+             the continuous engine's hybrid route (every request prefilled
+             alone, with flash for layer 4; decode with layer 4's K/V through
+             the paged kernel and the Mamba state in per-request slots) over
+             60 pages (one preemption), through graphs, then with a fork of
+             request 0 at step 3 through graphs and eagerly (identical
+             tokens, 0 post-warmup captures); (b) calibration of 2 x 8 x 256
+             tokens, the FFN and expert streams dropped (a time cut), COALA
+             of the 18 mixer projections (0 non-finite); (c) the COALA model
+             through the trace as in (a), then run_fixed's ServeEngine (4 x
+             64 -> 16) row by row against ``ContinuousEngine.generate``
+             through graphs and eagerly (the first token equal; a bf16
+             parting after it must follow a router flip or a head tie
+             measured within one bf16 rounding of each path's input); (d)
+             the rates and the phase's peak memory, at most 64 GiB.
+             chunked_prefill and gram_accum may not launch on it. Phase 7
+             then also holds lowrank_linear on a Mamba layer's in_proj and
+             out_proj at M 8 and M 200, paged_attention at G 4, hd 128 on the
+             trace's decode rows and flash at B 1, T 200, G 4, hd 128, timed
+             in fp32 and bf16;
+15. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
              of the speculative draft served alone and of speculative
@@ -254,8 +278,8 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 7, 14. Launch counts
-are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12 and 13 (4b,
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 7, 15. Launch counts
+are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12, 13 and 14 (4b,
 4c and 4d included) and
 read just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
@@ -315,13 +339,13 @@ SEED = 0
 ITERS = 20                  # timed launches per kernel and variant
 
 # The serve path's model: llama3_1b at full width, its depth cut from 16 layers
-# to 8 to leave room for phase 12 in the time limit (its compression, the
-# draft's and phase 4d's solve take time per layer). The serve path's traffic: 8 requests, one
+# to 8 to leave room for phase 12, then to 4 for phase 14, in the time limit
+# (its compression, the draft's and phase 4d's solve take time per layer). The serve path's traffic: 8 requests, one
 # every 2 engine steps, prompts of 16-200 tokens, 32 new tokens each. The launcher calibrates on 2 batches of
 # --requests x --prompt-len seeded tokens (2 x 8 x 256). The trace needs 81
 # pages of 16 tokens at its peak; a pool of 72 (one reserved for trash)
 # makes the engine preempt once.
-SERVE_LAYERS = 8
+SERVE_LAYERS = 4
 REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW_TOKENS = 8, 16, 200, 32
 ENGINE_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
 LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6",
@@ -405,7 +429,10 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
                ("qwen2-vl B1 T271 G6 hd128", 1, 271, 12, 2, 128, 0.0, None, False),
                # whisper's per-request prefill (phase 13): the decoder's causal
                # self-attention over the longest prompt, 8 / 8 heads (G 1), hd 64
-               ("whisper B1 T200 G1", 1, 200, 8, 8, 64, 0.0, None, True)]
+               ("whisper B1 T200 G1", 1, 200, 8, 8, 64, 0.0, None, True),
+               # jamba's per-request prefill (phase 14): layer 4's causal
+               # self-attention over the longest prompt, 32 / 8 heads (G 4), hd 128
+               ("jamba B1 T200 G4 hd128", 1, 200, 32, 8, 128, 0.0, None, True)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
@@ -3078,6 +3105,485 @@ def whisper_path(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: jamba at full width in bf16, the hybrid path
+# ---------------------------------------------------------------------------
+
+# jamba_v0_1_52b (src/repro_torch/configs/jamba_v0_1_52b.py) at full width,
+# its depth cut from 32 layers to 8, its smallest (one period: Mamba at layers
+# 0-3 and 5-7, d_inner 8192, d_state 16, dt_rank 256; attention at layer 4,
+# 32 / 8 heads, hd 128; 16 experts of 3 x 4096 x 14336 on the odd layers,
+# gated MLPs of 14336 on the even ones; vocab 65536, untied head):
+# 13,295,177,728 parameters in bf16 (26.6 GB) from a seeded torch.Generator.
+# The launchers build fp32 (53.2 GB, which a graph engine's own copy would
+# double), so the phase drives the library entry points. (a) The dense model
+# serves phase 4's trace through graphs after warmup over 60 pages of 16
+# tokens (one preemption, nine per-request prefills: sized on the CPU with a
+# narrow model of the same vocabulary), then with a fork of request 0 at step
+# 3 through graphs and eagerly. (b) Calibration of 2 x 8 x 256 seeded tokens
+# (fp32 activations, flash for layer 4); then the FFN and expert streams are
+# dropped, a time cut: COALA of the 204 FFN projections (192 of them experts)
+# would take far longer than the script's limit
+# (tools/torch_jamba_compress_probe.py), so COALA (the serve launcher's
+# settings: ratio 0.6, λ 4, μ from Eq. 5) solves the 18 mixer projections
+# (seven in_proj / out_proj pairs, layer 4's wq / wk / wv / wo) and the FFNs
+# stay dense, as the reference leaves a linear or an MoE layer without an R
+# factor. (c) The COALA model serves the trace as (a) did; then the
+# fixed-batch ServeEngine (run_fixed's, 4 x 64 tokens, 16 new) against
+# ContinuousEngine.generate. An MoE's capacity comes from a call's token
+# count (as in the reference), so a 4-row prefill (capacity 40 of 256 tokens)
+# routes otherwise than four prefills alone (10 of 64 each): generate, which
+# prefills each request alone, is held to the fixed-batch engine row by row
+# (its decode at B 4 stays under the capacity floor of 4: no drop), through
+# graphs and eagerly (identical). Each row's first token, from the same
+# prefill in both, must agree. Later tokens may part in bf16, since the two
+# decode paths (a contiguous cache at B 1, the paged kernel at B 4) round
+# apart: hooks on the eager runs read each path's router inputs and head
+# input at every step, and each parting must follow a measured flip — the
+# first router top-2 choice that differs, or a head tie at the parting —
+# whose margin on each path lies within one bf16 rounding of that path's
+# input, with the paths' inputs within 2**-4 (relative) of each other up to
+# it (_explain_partings; the readings are printed, PERF.md section 7). At most
+# two full weight sets are alive at once: dense and its engine's copy (a),
+# dense and COALA (b), COALA and its engine's copy (c); the phase's peak must
+# stay within 64 GiB.
+JAMBA_LAYERS = 8
+JAMBA_PARAMS = 13_295_177_728
+JAMBA_KNOBS = dict(block_size=16, num_blocks=60, max_running=8)
+JAMBA_FORK = (3, 0)                 # (step, request id)
+JAMBA_FIXED_ROWS, JAMBA_FIXED_PROMPT, JAMBA_FIXED_NEW = 4, 64, 16
+JAMBA_RANKS = {"in_proj": 1966, "out_proj": 1638, "wq": 1228, "wk": 491, "wv": 491,
+               "wo": 1228}          # rank_for_ratio at 0.6
+JAMBA_MIXER_LINEARS = 7 * 2 + 4
+JAMBA_STATE_BYTES = 7 * (3 * 8192 + 8192 * 16) * 4
+JAMBA_PEAK_BYTES = 64 << 30
+JAMBA_NO_LAUNCH = ("chunked_prefill", "gram_accum")
+# one Mamba layer's compressed projections, (d_in, d_out); the attention
+# layer's heads (Hq, Hkv, hd)
+JAMBA_PROJECTIONS = {"in_proj": (4096, 16384), "out_proj": (8192, 4096)}
+JAMBA_HEADS = (32, 8, 128)
+
+
+def _jamba_serve(torch, label, m, trace, calls, out):
+    """``m`` serves ``trace`` through graphs after warmup (one preemption,
+    nine per-request prefills, 0 post-warmup captures), then with a fork
+    through graphs and eagerly (identical tokens; the eager run's kernel
+    shapes noted by ``calls``). The child need not follow its parent: the
+    two rows compete for the same experts' capacity in every decode step
+    (with no capacity limit they agree, on the CPU). Each engine is dropped
+    with its weight copy before the next is made."""
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.serve import ContinuousEngine
+    vocab = m.cfg.vocab_size
+    warm_len = max(len(p) + n for _, p, n in trace)
+    eng = ContinuousEngine(m, **JAMBA_KNOBS)
+    w = eng.warmup(max_len=warm_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    met = _with_seconds(eng, serve_trace(eng, trace))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _check_recurrent(f"jamba {label}", eng, met, len(trace))
+    _check_finished(f"jamba {label}", eng, trace, vocab)
+    if not (eng.cuda_graphs and eng.paged_kernel and eng.pool.has_state):
+        raise Failure(f"jamba {label}: expected graphs, the paged kernel and state slots")
+    if met["post_warmup_compiles"] != 0 or met["preemptions"] != 1:
+        raise Failure(f"jamba {label}: {met['post_warmup_compiles']} post-warmup "
+                      f"captures, {met['preemptions']} preemptions (expected 0 and 1)")
+    out["state_bytes_per_request"] = _state_bytes(eng.pool)
+    out[f"serve_{label}"] = dict({k: met[k] for k in SERVE_KEYS}, seconds=secs,
+                                 request_prefills=eng.request_prefills, warmup=w)
+    eng.release_graphs()
+    del eng
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], f"serve_{label}")
+    log(f"  [trace {label}] graphs: {_serve_line(met)}; {secs:.3f} s; "
+        f"{out[f'serve_{label}']['request_prefills']} per-request prefills; warmup "
+        f"{w['warmup_seconds']:.2f} s; peak {out['peak_gb'][f'serve_{label}']:.2f} GB")
+    eng = ContinuousEngine(m, **JAMBA_KNOBS)
+    eng.warmup(max_len=warm_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, child, fmet = serve_forked(eng, trace, JAMBA_FORK)
+    torch.cuda.synchronize()
+    fsecs = time.perf_counter() - t0
+    _check_recurrent(f"jamba fork {label}", eng, fmet, len(trace))
+    follows = toks.get(child) == toks[JAMBA_FORK[1]]
+    if (fmet["post_warmup_compiles"] != 0 or fmet["preemptions"] < 1
+            or len(toks) != len(trace) + 1
+            or any(len(t) != NEW_TOKENS for t in toks.values())):
+        raise Failure(f"jamba fork {label}: {fmet['post_warmup_compiles']} post-warmup "
+                      f"captures, {fmet['preemptions']} preemptions, {len(toks)} requests")
+    out[f"fork_{label}"] = dict({k: fmet[k] for k in SERVE_KEYS}, seconds=fsecs,
+                                request_prefills=eng.request_prefills,
+                                child_follows_parent=follows)
+    eng.release_graphs()
+    del eng
+    torch.cuda.empty_cache()
+    # the eager engine runs the warmup's all-padding passes too, so its trash
+    # slot, which padding rows read (and which reaches the real rows through
+    # the MoE's shared capacity), holds what the graph engine's does
+    eng = ContinuousEngine(m, cuda_graphs=False, **JAMBA_KNOBS)
+    eng.warmup(max_len=warm_len)
+    t0 = time.perf_counter()
+    with calls:
+        etoks, _, emet = serve_forked(eng, trace, JAMBA_FORK)
+    torch.cuda.synchronize()
+    esecs = time.perf_counter() - t0
+    same = etoks == toks
+    out[f"fork_{label}_eager"] = dict({k: emet[k] for k in SERVE_KEYS}, seconds=esecs)
+    del eng
+    _peak_step(torch, out["peak_gb"], f"fork_{label}")
+    log(f"  [fork {label}] graphs: {_serve_line(fmet)}; {fsecs:.3f} s; eager: "
+        f"{_serve_line(emet)}; {esecs:.3f} s; greedy tokens "
+        f"{'identical to' if same else 'DIFFER from'} the graphs'; the child {child} "
+        f"{'follows' if follows else 'parts from'} its parent")
+    if not same:
+        first = {rid: next(i for i, (x, y) in enumerate(zip(t, etoks[rid])) if x != y)
+                 for rid, t in toks.items() if t != etoks.get(rid)}
+        raise Failure(f"jamba {label}: CUDA graphs and the eager engine disagree "
+                      f"(request: first differing position) {first}")
+
+
+class DecodeReads:
+    """Forward hooks on an eager model: every MoE layer's input (the
+    router's) and the final norm's output (the head's input), kept on the
+    card as they come. ``calls[key]`` lists each call's rows, ``key`` an
+    MoE layer's index or "head"; ``rows`` (set by the caller) names a
+    continuous engine's batch rows, whose reads then go to ``by_row[(req,
+    k)][key]``: the rows that produced request ``req``'s generated token
+    ``k`` (k 0 its prefill)."""
+
+    def __init__(self, torch, model, t0):
+        from repro_torch.models.ffn import MoE
+        self.moe = [m for m in model.modules() if isinstance(m, MoE)]
+        self.head_w = model._head_w().detach()
+        self.t0 = t0
+        self.calls = collections.defaultdict(list)
+        self.by_row = collections.defaultdict(dict)
+        self.rows = None
+        self._hooks = [m.register_forward_pre_hook(self._hook(i))
+                       for i, m in enumerate(self.moe)]
+        self._hooks.append(model.final_norm.register_forward_hook(
+            lambda mod, args, out: self._keep("head", out)))
+
+    def _hook(self, i):
+        return lambda mod, args: self._keep(i, args[0])
+
+    def _keep(self, key, x):
+        x = x.detach().reshape(-1, x.shape[-1])
+        if self.rows is None:
+            self.calls[key].append(x.clone())
+            return
+        for j, (req, pos) in enumerate(self.rows):
+            k = 0 if pos is None else pos - self.t0 + 1
+            self.by_row[(req, k)][key] = (x if pos is None else x[j:j + 1]).clone()
+
+    def take(self):
+        out, self.calls = dict(self.calls), collections.defaultdict(list)
+        return out
+
+    def remove(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def _watch_engine(eng, reads, ids):
+    """Name ``eng``'s batch rows in ``reads`` while it prefills a request
+    or decodes a batch, and note the request ids it hands out in ``ids``."""
+    decode, prefill, submit = eng._decode_step, eng._prefill_request, eng.submit
+
+    def decode_step(running):
+        reads.rows = [(r.req_id, r.cache_len) for r in running]
+        try:
+            return decode(running)
+        finally:
+            reads.rows = None
+
+    def prefill_request(req):
+        reads.rows = [(req.req_id, None)]
+        try:
+            return prefill(req)
+        finally:
+            reads.rows = None
+
+    def submit_(*a, **kw):
+        ids.append(submit(*a, **kw))
+        return ids[-1]
+
+    eng._decode_step, eng._prefill_request, eng.submit = (decode_step,
+                                                          prefill_request, submit_)
+
+
+# a bf16 element carries a rounding of at most 2**-8 of its magnitude; a
+# path's router or head input may drift from the other's by at most
+# JAMBA_DRIFT (relative l2) before the first measured flip, else the paths
+# differ by more than rounding
+BF16_U = 2.0 ** -8
+JAMBA_DRIFT = 2.0 ** -4
+
+
+def _pair_bound(torch, x, w_a, w_b):
+    """The most that rounding every element of the bf16 input ``x`` once
+    can move x·w_a − x·w_b: 2**-8 · Σ_k |x_k| |w_a,k − w_b,k|."""
+    return float(BF16_U * (x.float().abs() * (w_a.float() - w_b.float()).abs()).sum())
+
+
+def _drift(torch, xf, xc) -> float:
+    xf, xc = xf.float().reshape(-1), xc.float().reshape(-1)
+    return float(torch.linalg.norm(xf - xc) / torch.clamp(torch.linalg.norm(xf),
+                                                          min=1e-30))
+
+
+def _explain_partings(torch, reads, fixed_calls, cont_ids, rows, ctoks, t0):
+    """Hold the fixed-batch engine's greedy tokens ``rows`` (row by row,
+    B 1, a contiguous cache) against the continuous engine's ``ctoks`` (the
+    paged kernel, B up to 4) with what each path's router and head read.
+    At every decode step k and MoE layer, up to a row's parting (or its end),
+    each path's top-2 choice from its own router input. A parting at k is
+    explained by a measured flip: the first (step, layer) whose top-2 sets
+    differ, at k or before, with each path's margin between the swapped
+    experts within one bf16 rounding of its router input (``_pair_bound``);
+    or, with no router flip by k, a head tie at k: each path's logit margin
+    between the two tokens within one rounding of its head input and of the
+    two bf16 logits. Up to the flip (the tie) the two paths' router inputs
+    (and head inputs) must agree to ``JAMBA_DRIFT``. Returns one reading per
+    row and the rows whose parting is not so explained."""
+    import numpy as np
+    from repro_torch.models.ffn import top_k
+    readings, unexplained = [], []
+    for i, (a, b) in enumerate(zip(rows, ctoks)):
+        fixed, req = fixed_calls[i], cont_ids[i]
+        gen_a, gen_b = a[t0:], b[t0:]
+        parted = not np.array_equal(gen_a, gen_b)
+        p = int(np.argmax(gen_a != gen_b)) if parted else len(gen_a) - 1
+        r = {"row": i, "parting": p if parted else None, "flip": None,
+             "max_drift": 0.0, "prefill_router_max_diff": max(
+                 float((fixed[L][0].float() - reads.by_row[(req, 0)][L].float())
+                       .abs().max()) for L in range(len(reads.moe)))}
+        drift_ok = True
+        for k in range(1, p + 1):
+            for L, moe in enumerate(reads.moe):
+                xf, xc = fixed[L][k], reads.by_row[(req, k)][L]
+                d = _drift(torch, xf, xc)
+                r["max_drift"] = max(r["max_drift"], d)
+                drift_ok = drift_ok and d <= JAMBA_DRIFT
+                w = moe.router.detach().float()
+                sf, sc = (x.float().reshape(-1) @ w for x in (xf, xc))
+                tf = set(top_k(torch.softmax(sf, -1), 2)[1].tolist())
+                tc = set(top_k(torch.softmax(sc, -1), 2)[1].tolist())
+                if tf == tc:
+                    continue
+                ea = min(tf - tc, key=lambda e: float(sf[e]))   # fixed's pick
+                eb = max(tc - tf, key=lambda e: float(sf[e]))   # continuous's
+                r["flip"] = {
+                    "step": k, "moe_layer": L, "fixed_top2": sorted(tf),
+                    "continuous_top2": sorted(tc), "drift": d,
+                    "margin_fixed": float(sf[ea] - sf[eb]),
+                    "bound_fixed": _pair_bound(torch, xf, w[:, ea], w[:, eb]),
+                    "margin_continuous": float(sc[eb] - sc[ea]),
+                    "bound_continuous": _pair_bound(torch, xc, w[:, ea], w[:, eb])}
+                break
+            if r["flip"] is not None:
+                break
+        f = r["flip"]
+        if parted and f is not None:
+            ok = (drift_ok and f["margin_fixed"] <= f["bound_fixed"]
+                  and f["margin_continuous"] <= f["bound_continuous"])
+        elif parted:
+            ta, tb = int(gen_a[p]), int(gen_b[p])
+            hf, hc = fixed["head"][p].reshape(-1), reads.by_row[(req, p)]["head"].reshape(-1)
+            wa, wb = reads.head_w[:, ta], reads.head_w[:, tb]
+            lf, lc = ((h.float() @ wa.float(), h.float() @ wb.float()) for h in (hf, hc))
+            r["head_tie"] = {
+                "tokens": [ta, tb], "drift": _drift(torch, hf, hc),
+                "margin_fixed": float(lf[0] - lf[1]),
+                "bound_fixed": _pair_bound(torch, hf, wa, wb)
+                + BF16_U * float(abs(lf[0]) + abs(lf[1])),
+                "margin_continuous": float(lc[1] - lc[0]),
+                "bound_continuous": _pair_bound(torch, hc, wa, wb)
+                + BF16_U * float(abs(lc[0]) + abs(lc[1]))}
+            t = r["head_tie"]
+            ok = (drift_ok and t["drift"] <= JAMBA_DRIFT
+                  and t["margin_fixed"] <= t["bound_fixed"]
+                  and t["margin_continuous"] <= t["bound_continuous"])
+        else:
+            ok = True
+        r["explained"] = ok
+        readings.append(r)
+        if not ok:
+            unexplained.append(i)
+    return readings, unexplained
+
+
+def jamba_path(torch, ops):
+    """Phase 14 (see ``JAMBA_KNOBS``): (a) the dense bf16 model through the
+    trace (graphs; with a fork, graphs and eager); (b) calibration, the FFN
+    streams dropped, COALA of the 18 mixer projections (0 non-finite); (c)
+    the COALA model through the trace as (a), then the fixed-batch
+    ServeEngine against ``ContinuousEngine.generate``, each parting held to
+    a measured flip (``_explain_partings``); (d) the rates and the
+    phase's peak (<= 64 GiB). Returns (summary, noted kernel shapes)."""
+    import argparse as _argparse
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.compress import compress_model, compression_summary
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.serve import synthetic_trace
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ParallelCtx
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = dataclasses.replace(get_config("jamba_v0_1_52b"), n_layers=JAMBA_LAYERS)
+    out = {"seconds": {}, "peak_gb": {}}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = build_model(cfg, device="cuda", dtype=torch.bfloat16).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    out["seconds"]["init"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in dense.parameters())
+    kinds = dense.layer_kinds()
+    _peak_step(torch, out["peak_gb"], "init")
+    log(f"  [a model] {out['params']:,} parameters in bf16, layers {kinds}; init "
+        f"{out['seconds']['init']:.2f} s; peak {out['peak_gb']['init']:.2f} GB")
+    if out["params"] != JAMBA_PARAMS or kinds != ["mamba"] * 4 + ["attn"] + ["mamba"] * 3:
+        raise Failure(f"jamba: {out['params']} parameters, layers {kinds}")
+    trace = synthetic_trace(REQUESTS, cfg.vocab_size, seed=SEED, min_prompt=MIN_PROMPT,
+                            max_prompt=MAX_PROMPT, min_new=NEW_TOKENS, max_new=NEW_TOKENS)
+    calls = KernelCalls(ops)            # noted on the eager runs only
+    _jamba_serve(torch, "dense", dense, trace, calls, out)
+    log(f"  [a] state {out['state_bytes_per_request']} bytes a request (7 Mamba layers' "
+        f"conv window and SSM state, fp32)")
+    if out["state_bytes_per_request"] != JAMBA_STATE_BYTES:
+        raise Failure(f"jamba: {out['state_bytes_per_request']} state bytes a request, "
+                      f"expected {JAMBA_STATE_BYTES}")
+
+    # (b) calibration, the FFN and expert streams dropped, COALA of the mixers
+    batches = launcher.calibration_batches(cfg, n_batches=2, batch=REQUESTS, seq_len=256,
+                                           seed=SEED, device=dense.device)
+    t0 = time.perf_counter()
+    cal = calibrate_model(dense, batches, ctx=ParallelCtx(use_pallas=True))
+    torch.cuda.synchronize()
+    out["seconds"]["calibrate"] = time.perf_counter() - t0
+    n_streams = len(cal.streams)
+    thin_gb = sum(s.r.numel() * 4 for s in cal.streams.values()) / 1e9
+    dropped = [p for p in cal.streams if "/ffn/" in p]
+    for p in dropped:
+        del cal.streams[p]
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], "calibrate")
+    log(f"  [b calibrate] 2 x {REQUESTS} x 256 tokens in {out['seconds']['calibrate']:.2f} "
+        f"s: {n_streams} streams, {thin_gb:.2f} GB of thin R factors; time cut: "
+        f"{len(dropped)} FFN and expert streams dropped, {len(cal.streams)} mixer streams "
+        f"kept; peak {out['peak_gb']['calibrate']:.2f} GB")
+    t0 = time.perf_counter()
+    with SolveTimes(torch) as solves:
+        coala, reports = compress_model(dense, cal, launcher._ccfg(0.6))
+    torch.cuda.synchronize()
+    out["seconds"]["compress"] = time.perf_counter() - t0
+    bad = _nonfinite_factors(torch, coala)
+    ranks = {r.path.rsplit("/", 1)[1]: r.rank for r in reports}
+    out.update(compression=compression_summary(reports), solve_s=solves.summary(),
+               nonfinite_coala=len(bad), ranks=ranks)
+    del cal, batches
+    torch.cuda.empty_cache()
+    _peak_step(torch, out["peak_gb"], "compress")
+    log(f"  [b coala] {len(reports)} projections in {out['seconds']['compress']:.2f} s, "
+        f"kept {out['compression']['kept_ratio']:.4f} of their parameters, ranks {ranks}, "
+        f"{len(bad)} non-finite; solves {json.dumps(out['solve_s'])}; peak "
+        f"{out['peak_gb']['compress']:.2f} GB")
+    if len(reports) != JAMBA_MIXER_LINEARS or bad or ranks != JAMBA_RANKS:
+        raise Failure(f"jamba coala: {len(reports)} projections, ranks {ranks}, "
+                      f"non-finite {bad}")
+    del dense
+    torch.cuda.empty_cache()
+
+    # (c) the COALA model through the trace, then fixed batch against generate
+    _jamba_serve(torch, "coala", coala, trace, calls, out)
+    t0 = time.perf_counter()
+    fixed = launcher.run_fixed(_argparse.Namespace(
+        compress_ratio=0.0, requests=JAMBA_FIXED_ROWS, prompt_len=JAMBA_FIXED_PROMPT,
+        new_tokens=JAMBA_FIXED_NEW, seed=SEED, temperature=0.0), cfg, coala)
+    prompts = fixed["batch"]["tokens"]
+    reads = DecodeReads(torch, coala, JAMBA_FIXED_PROMPT)
+    rows, fixed_calls = [], []
+    for p in prompts:
+        rows.append(fixed["engine"].generate(p[None], JAMBA_FIXED_NEW))
+        fixed_calls.append(reads.take())
+    rows = np.concatenate(rows)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed"] = time.perf_counter() - t0
+    warm_len = JAMBA_FIXED_PROMPT + JAMBA_FIXED_NEW
+    eager, ids = ContinuousEngine(coala, cuda_graphs=False, **JAMBA_KNOBS), []
+    eager.warmup(max_len=warm_len)
+    _watch_engine(eager, reads, ids)
+    t0 = time.perf_counter()
+    etoks = eager.generate(prompts, JAMBA_FIXED_NEW)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_continuous_eager"] = time.perf_counter() - t0
+    reads.remove()
+    del eager
+    cont = ContinuousEngine(coala, **JAMBA_KNOBS)
+    cont.warmup(max_len=warm_len)
+    t0 = time.perf_counter()
+    ctoks = cont.generate(prompts, JAMBA_FIXED_NEW)
+    torch.cuda.synchronize()
+    out["seconds"]["fixed_continuous"] = time.perf_counter() - t0
+    cont.release_graphs()
+    del cont
+    torch.cuda.empty_cache()
+    readings, unexplained = _explain_partings(torch, reads, fixed_calls, ids, rows, etoks,
+                                              JAMBA_FIXED_PROMPT)
+    del reads, fixed_calls
+    parted = [r for r in readings if r["parting"] is not None]
+    out["fixed"] = {"identical_row_by_row": not parted, "readings": readings,
+                    "graphs_equal_eager": bool(np.array_equal(ctoks, etoks)),
+                    "identical_batched": bool(np.array_equal(ctoks, fixed["tokens"])),
+                    "batched_rows_equal": [bool(np.array_equal(a, b)) for a, b in
+                                           zip(ctoks, fixed["tokens"])]}
+    del fixed
+    _peak_step(torch, out["peak_gb"], "fixed")
+    log(f"  [c fixed] run_fixed's ServeEngine, {JAMBA_FIXED_ROWS} x {JAMBA_FIXED_PROMPT} "
+        f"-> {JAMBA_FIXED_NEW} new, row by row: ContinuousEngine.generate of the same "
+        f"rows {'identical' if not parted else 'parts'} (graphs "
+        f"{out['seconds']['fixed_continuous']:.3f} s, "
+        f"{'equal to' if out['fixed']['graphs_equal_eager'] else 'DIFFERENT from'} "
+        f"eager); {len(parted)} rows part, {len(unexplained)} without a measured flip; "
+        f"the 4-row fixed batch (MoE capacity of its 256 tokens) "
+        f"{'identical' if out['fixed']['identical_batched'] else 'differs'}, rows "
+        f"{out['fixed']['batched_rows_equal']}")
+    for r in readings:
+        log(f"    row {r['row']}: {json.dumps(r)}")
+    if not out["fixed"]["graphs_equal_eager"]:
+        raise Failure("jamba: ContinuousEngine.generate through graphs and eagerly differ")
+    if ctoks.shape != rows.shape or any(r["parting"] == 0 for r in readings):
+        raise Failure("jamba: ServeEngine and ContinuousEngine.generate disagree at the "
+                      f"first token, which the same per-request prefill gives: {parted}")
+    if unexplained:
+        raise Failure(f"jamba: ServeEngine and ContinuousEngine.generate part in rows "
+                      f"{unexplained} without a router flip or a head tie within one bf16 "
+                      f"rounding before the parting: {json.dumps(parted)}")
+    del coala
+    torch.cuda.empty_cache()
+
+    # (d) the rates, the phase's time and peak
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    peak = max(out["peak_gb"].values())
+    for name in ("dense", "coala"):
+        s = out[f"serve_{name}"]
+        log(f"  [d {name}] {s['tokens_per_sec']:.1f} new tok/s, {s['decode_tok_per_s']:.1f} "
+            f"decode tok/s, mean TTFT {s['mean_ttft_s']:.4f} s (graphs)")
+    log(f"  seconds: {json.dumps(out['seconds'])}; peak memory (GB): "
+        f"{json.dumps(out['peak_gb'])}; phase peak {peak:.2f} GB "
+        f"({peak * 1e9 / 2 ** 30:.2f} GiB) of {JAMBA_PEAK_BYTES / 2 ** 30:.0f} GiB")
+    if peak * 1e9 > JAMBA_PEAK_BYTES:
+        raise Failure(f"jamba: phase peak {peak:.2f} GB above 64 GiB")
+    return out, calls.shapes()
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the compression core on phase 5's trained model
 # ---------------------------------------------------------------------------
 
@@ -3379,20 +3885,23 @@ def compression_core_path(torch, ops, coala):
 # ---------------------------------------------------------------------------
 
 def check_lowrank(torch, ops, ref, dev, gen, shapes, flush, proj=None,
-                  model="llama3_1b", extra_rows=()):
+                  model="llama3_1b", extra_rows=(), timed_dtypes=("float32",)):
     """lowrank_linear in fp32 and bf16 on one ``model`` layer's compressed
     projections ``proj`` (name -> (d_in, r, d_out); llama3_1b's seven by default)
-    at the path's decode and largest prefill rows, and at ``extra_rows``;
-    the line's numbers are one layer at decode, fp32."""
+    at the path's decode and largest prefill rows, and at ``extra_rows``,
+    timed in each of ``timed_dtypes``; the line's numbers are one layer at
+    decode, fp32 (``per_dtype`` keeps every timed row)."""
     proj = LOWRANK_SHAPES if proj is None else proj
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "bound_by": "bytes"}
     m_dec, m_max = shapes["lowrank_m_decode"], shapes["lowrank_m_max"]
     rows = list(dict.fromkeys((m_dec, *extra_rows, m_max)))
-    layer = {m: {"m": m, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-             for m in rows}
+    layer = {(dtype, m): {"m": m, "dtype": dtype, "ms": 0.0, "plain_ms": 0.0,
+                          "library_ms": 0.0, "bound_ms": 0.0}
+             for dtype in timed_dtypes for m in rows}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
+        size = torch.finfo(dt).bits // 8
         for m in rows:
             for name, (d_in, r, d_out) in proj.items():
                 x = torch.randn((m, d_in), generator=gen, device=dev).to(dt)
@@ -3401,30 +3910,33 @@ def check_lowrank(torch, ops, ref, dev, gen, shapes, flush, proj=None,
                 got = ops.lowrank_linear(x, bt, at)
                 err = compare(f"lowrank_linear {dtype} M={m} {model} {name} "
                               f"({d_in}x{r}x{d_out})", got, ref(x, bt, at), TOL[dtype])
-                if dtype != "float32":
+                if dtype == "float32":
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+                if dtype not in timed_dtypes:
                     continue
-                res["max_abs_err"] = max(res["max_abs_err"], err)
                 ms = timed(torch, lambda: ops.lowrank_linear(x, bt, at), flush)
                 plain = timed(torch, lambda: ref(x, bt, at), flush)
                 lib = timed(torch, lambda: torch.linalg.multi_dot([x, bt, at]), flush)
-                nbytes = 4 * (m * d_in + d_in * r + r * d_out + m * d_out)
+                nbytes = size * (m * d_in + d_in * r + r * d_out + m * d_out)
                 b_ms, b_by = bound(nbytes, 2 * m * r * (d_in + d_out), dtype)
-                log(f"    M={m} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                log(f"    {dtype} M={m} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                     f"multi_dot {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-                fig = layer[m]
+                fig = layer[(dtype, m)]
                 fig["ms"] += ms
                 fig["plain_ms"] += plain
                 fig["library_ms"] += lib
                 fig["bound_ms"] += b_ms
                 fig["bound_by"] = b_by
-    for m, fig in layer.items():
+    for (dtype, m), fig in layer.items():
         what = "decode" if m == m_dec else "prefill"
-        log(f"  lowrank_linear, one {model} layer at {what} (M={m}, {len(proj)} projections): "
-            f"kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, multi_dot "
-            f"{fig['library_ms']:.4f} ms, bound {fig['bound_ms']:.4f} ms ({fig['bound_by']})")
-    res.update({k: layer[m_dec][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                              "bound_by")})
-    res["prefill"] = [layer[m] for m in rows if m != m_dec]
+        log(f"  lowrank_linear, one {model} layer at {what} ({dtype}, M={m}, {len(proj)} "
+            f"projections): kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, "
+            f"multi_dot {fig['library_ms']:.4f} ms, bound {fig['bound_ms']:.4f} ms "
+            f"({fig['bound_by']})")
+    res.update({k: layer[("float32", m_dec)][k] for k in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by")})
+    res["prefill"] = [layer[("float32", m)] for m in rows if m != m_dec]
+    res["per_dtype"] = list(layer.values())
     return res
 
 
@@ -3689,11 +4201,13 @@ def _window_keys(start: int, n: int, window: int) -> int:
 
 
 def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, *,
-                           label, heads, scale, cap, windows, chunked=True):
+                           label, heads, scale, cap, windows, chunked=True,
+                           timed_dtypes=("float32",)):
     """paged_attention and (``chunked``) chunked_prefill at a family's
     ``heads`` (Hq, Hkv, hd), query ``scale`` and softcap ``cap``, with each of
     ``windows`` (0: no window), at its path's largest decode batch and largest
-    prefill noted in ``shapes``, in fp32 and bf16; timed in fp32 against the plain version,
+    prefill noted in ``shapes``, in fp32 and bf16; timed in each of ``timed_dtypes``
+    (results keyed by the layer, with the dtype after it unless fp32) against the plain version,
     SDPA (the same masks and scale; no softcap: no library call has one) and
     the bound. gemma2 (phase 8): its local layer's window 4096 and its global
     layer, a row past the window among the decode rows and the 4400-token
@@ -3710,8 +4224,10 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
                                    shapes["chunked_pad_rows"], shapes["chunked_l"])
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
+        size = torch.finfo(dt).bits // 8
         for window in windows:
             layer = "local" if window else "global"
+            key = layer if dtype == "float32" else f"{layer} {dtype}"
             kp, vp, tables = _pages(torch, dev, gen, lengths, bs, hkv, hd, dt, pads)
             q = torch.randn((len(lengths), hq, hd), generator=gen, device=dev).to(dt)
             ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -3722,7 +4238,7 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
                           pa_ref(*args, window=window, **kw), TOL_ATTN[dtype])
             if not torch.equal(ops.paged_attention(*args, window=window, **kw), got):
                 raise Failure(f"paged_attention {label}: two identical calls differ")
-            if dtype == "float32":
+            if dtype in timed_dtypes:
                 ms = timed(torch, lambda: ops.paged_attention(*args, window=window, **kw),
                            flush)
                 plain = timed(torch, lambda: pa_ref(*args, window=window, **kw), flush)
@@ -3737,13 +4253,13 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
                     q4, k, v, attn_mask=mask, scale=scale), flush)
                 del k, v
                 toks = sum(_window_keys(n - 1, 1, window) for n in lengths)
-                nbytes = (4 * (sum(1 for n in lengths if n > 0) + len(lengths)) * hq * hd
-                          + 4 * 2 * toks * hkv * hd + 4 * (tables.numel() + len(lengths)))
-                b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, "float32")
-                log(f"    {label} paged {layer} B={len(lengths)} lengths={lengths}: kernel "
+                nbytes = (size * (sum(1 for n in lengths if n > 0) + len(lengths)) * hq * hd
+                          + size * 2 * toks * hkv * hd + 4 * (tables.numel() + len(lengths)))
+                b_ms, b_by = bound(nbytes, 4 * toks * hq * hd, dtype)
+                log(f"    {label} paged {key} B={len(lengths)} lengths={lengths}: kernel "
                     f"{ms:.4f} ms, plain {plain:.4f} ms, {sdpa_name} {lib:.4f} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
-                res["paged"][layer] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                res["paged"][key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                            lengths=lengths)
             if not chunked:
@@ -3759,7 +4275,7 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
             err = compare(f"chunked_prefill {label} {dtype} {layer} B={len(lens)} L={lq} "
                           f"lens={lens}", got, want, TOL_ATTN[dtype])
             del want
-            if dtype == "float32":
+            if dtype in timed_dtypes:
                 ms = timed(torch, lambda: ops.chunked_prefill(*args, window=window, **kw),
                            flush)
                 plain = timed(torch, lambda: cp_ref(*args, window=window, **kw), flush)
@@ -3777,14 +4293,14 @@ def check_family_attention(torch, ops, pa_ref, cp_ref, dev, gen, shapes, flush, 
                 del k, v, q4, mask
                 real_q = sum(lens)
                 toks = sum(_window_keys(s, n, window) for s, n in zip(starts, lens))
-                nbytes = (4 * (real_q + q.shape[0] * lq) * hq * hd + 4 * 2 * toks * hkv * hd
-                          + 4 * (tables.numel() + 2 * len(lens)))
+                nbytes = (size * (real_q + q.shape[0] * lq) * hq * hd
+                          + size * 2 * toks * hkv * hd + 4 * (tables.numel() + 2 * len(lens)))
                 ops_n = 4 * hq * hd * _prefill_pairs(starts, lens, window)
-                b_ms, b_by = bound(nbytes, ops_n, "float32")
-                log(f"    {label} chunked {layer} B={len(lens)} L={lq} lens={lens}: kernel "
+                b_ms, b_by = bound(nbytes, ops_n, dtype)
+                log(f"    {label} chunked {key} B={len(lens)} L={lq} lens={lens}: kernel "
                     f"{ms:.4f} ms, plain {plain:.4f} ms, {sdpa_name} {lib:.4f} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% reached)")
-                res["chunked"][layer] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                res["chunked"][key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                              bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                              lens=lens, L=lq)
             del kp, vp, q, args
@@ -4209,6 +4725,23 @@ def run(args) -> int:
         raise Failure(f"kernels launched on the whisper path: {launched}")
     log(f"  kernel shapes noted on the whisper path: {json.dumps(wh_shapes)}")
 
+    log(f"[14 jamba path] jamba_v0_1_52b at full width in bf16, depth cut to {JAMBA_LAYERS} "
+        "of 32 layers (one period: seven Mamba layers, attention at layer 4, MoE on the "
+        "odd layers): phase 4's trace through the continuous engine (graphs; with a fork, "
+        "graphs and eager), calibration 2 x 8 x 256, COALA of the 18 mixer projections "
+        "(the FFN streams dropped: a time cut), the COALA model through the trace, "
+        "run_fixed's ServeEngine against ContinuousEngine.generate")
+    (jb, jb_shapes), jb_counts, peak = path_window(
+        "jamba", ("lowrank_linear", "paged_attention", "flash_attention"),
+        lambda: jamba_path(torch, ops))
+    jb["peak_memory_gb"] = peak
+    launched = {k: jb_counts[k] for k in JAMBA_NO_LAUNCH if jb_counts[k] != 0}
+    log(f"  chunked_prefill and gram_accum on the jamba path: "
+        f"{ {k: jb_counts[k] for k in JAMBA_NO_LAUNCH} } (must be 0)")
+    if launched:
+        raise Failure(f"kernels launched on the jamba path: {launched}")
+    log(f"  kernel shapes noted on the jamba path: {json.dumps(jb_shapes)}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -4290,6 +4823,21 @@ def run(args) -> int:
             weights=WHISPER_GRAM_LAYER,
             label="one whisper_base encoder + decoder layer's 16 Grams of a record (8 x "
                   "64 tokens, 8 x 1500 frames)")}
+    log("[7 kernels] at jamba_v0_1_52b's shapes (phase 14): one Mamba layer's in_proj and "
+        "out_proj at M 8 and M 200, paged_attention at G 4, hd 128 on the trace's decode "
+        "rows, timed in fp32 and bf16 (flash's case is in the flash line above)")
+    jamba_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                  for name, (d_in, d_out) in JAMBA_PROJECTIONS.items()}
+    jamba_kernels = {
+        "lowrank_linear": check_lowrank(
+            torch, ops, lowrank_linear_ref, dev, gen,
+            {"lowrank_m_decode": 8, "lowrank_m_max": jb_shapes["lowrank_m_max"]}, flush,
+            proj=jamba_proj, model="jamba_v0_1_52b Mamba", extra_rows=(200,),
+            timed_dtypes=("float32", "bfloat16")),
+        "attention": check_family_attention(
+            torch, ops, paged_attention_ref, chunked_prefill_ref, dev, gen, jb_shapes,
+            flush, label="jamba", heads=JAMBA_HEADS, scale=None, cap=0.0, windows=(0,),
+            chunked=False, timed_dtypes=("float32", "bfloat16"))}
     log("[7 kernels] lowrank_linear at phase 10's adaptive ranks (block 0) and under "
         f"autograd at M {GRAD_ROWS}: rank {ADAPTER_RANK} on the seven projections, and "
         "one odd adaptive rank")
@@ -4321,7 +4869,7 @@ def run(args) -> int:
     del flush
     torch.cuda.synchronize()
     if args.profile:
-        log(f"[14 profile] {args.profile} decode steps per model")
+        log(f"[15 profile] {args.profile} decode steps per model")
         profile_decode(torch, res, args.profile)
         profile_host(torch, dev)
         del res
@@ -4336,7 +4884,8 @@ def run(args) -> int:
                 "compress": comp_counts, "gram": gram_counts,
                 "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
-                "qwen2_vl": vlm_counts, "xlstm": xl_counts, "whisper": wh_counts}
+                "qwen2_vl": vlm_counts, "xlstm": xl_counts, "whisper": wh_counts,
+                "jamba": jb_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -4356,7 +4905,7 @@ def run(args) -> int:
                                   "compress": comp, "gram": gram, "gemma2": gemma,
                                   "deepseek": moe, "deepseek_v2_mla": mla,
                                   "compression_core": core, "qwen2_vl": vlm,
-                                  "xlstm": xl, "whisper": wh},
+                                  "xlstm": xl, "whisper": wh, "jamba": jb},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,
@@ -4366,6 +4915,7 @@ def run(args) -> int:
                     "vlm_kernels": vlm_kernels,
                     "xlstm_kernels": xlstm_kernels,
                     "whisper_kernels": whisper_kernels,
+                    "jamba_kernels": jamba_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

@@ -5,9 +5,10 @@ decoders of ``ModelConfig`` (dense GQA, gemma2's local/global alternation,
 softcaps and sandwich norms, olmo's non-parametric norm, minicpm's scaling,
 deepseek-v2's MLA dims, the MoE layer pattern and qwen2-vl's vision prefix
 and M-RoPE sections), whisper's encoder depth and audio frames (family
-``encdec``), xLSTM's ``XLSTMConfig`` (family ``ssm``), ``TrainConfig`` and
-the COALA / baseline settings of ``CompressConfig``. The knobs of the hybrid
-(Mamba) family wait with that family.
+``encdec``), xLSTM's ``XLSTMConfig`` (family ``ssm``), jamba's
+``MambaConfig`` with its attention interleave ``attn_every`` /
+``attn_offset`` (family ``hybrid``), ``TrainConfig`` and the COALA /
+baseline settings of ``CompressConfig``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,14 @@ class MoEConfig:
     min_capacity: int = 4
     router_jitter: float = 0.0
     aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                  # 0 -> ceil(d_model/16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +61,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
 
     moe: MoEConfig = MoEConfig()
+    mamba: MambaConfig = MambaConfig()
     xlstm: XLSTMConfig = XLSTMConfig()
 
     # gemma2-style
@@ -80,6 +90,10 @@ class ModelConfig:
     moe_offset: int = 0
     first_k_dense: int = 0            # first k layers use dense FFN (deepseek)
 
+    # hybrid (jamba): attention layer if i % attn_every == attn_offset, else mamba
+    attn_every: int = 0               # 0 = all-attention
+    attn_offset: int = 0
+
     # enc-dec (whisper)
     n_enc_layers: int = 0
     n_audio_frames: int = 1500        # stub frontend sequence length
@@ -105,17 +119,16 @@ class ModelConfig:
         return self.moe.num_experts > 0
 
     def layer_kind(self, i: int) -> str:
-        """'attn' | 'slstm' | 'mlstm' for decoder layer i: xLSTM (family
-        ``ssm``) puts an sLSTM first in every ``slstm_every`` layers. The
-        hybrid family's Mamba layers are not ported."""
+        """'attn' | 'mamba' | 'slstm' | 'mlstm' for decoder layer i: xLSTM
+        (family ``ssm``) puts an sLSTM first in every ``slstm_every``
+        layers; with ``attn_every`` (jamba) layer i is attention iff
+        i % attn_every == attn_offset, else Mamba."""
         if self.family == "ssm":
             if self.xlstm.slstm_every and i % self.xlstm.slstm_every == 0:
                 return "slstm"
             return "mlstm"
-        if self.family == "hybrid":
-            raise NotImplementedError(
-                "family 'hybrid' (jamba's mamba/attention layers) is not "
-                "ported yet")
+        if self.attn_every:
+            return "attn" if i % self.attn_every == self.attn_offset else "mamba"
         return "attn"
 
     def layer_is_moe(self, i: int) -> bool:

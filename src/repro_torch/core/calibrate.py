@@ -108,6 +108,11 @@ class Calibrator:
     def r_factors(self) -> Dict[str, torch.Tensor]:
         return {p: square_r(s.r) for p, s in self.streams.items()}
 
+    def thin_r_factors(self) -> Dict[str, torch.Tensor]:
+        """Every stream's R as accumulated, (k <= n, n): ``square_r`` of it
+        is ``r_factors()``'s, without holding every square R at once."""
+        return {p: s.r for p, s in self.streams.items()}
+
     def tokens_seen(self) -> Dict[str, int]:
         return {p: s.tokens_seen for p, s in self.streams.items()}
 

@@ -37,6 +37,7 @@ from repro_torch.core import coala as coala_lib
 from repro_torch.core.calibrate import block_modules
 from repro_torch.core.rank_alloc import adaptive_rank_map
 from repro_torch.core.theory import optimal_weighted_error
+from repro_torch.core.tsqr import square_r
 from repro_torch.models.ffn import MoE
 from repro_torch.models.linear import Linear, rank_for_ratio
 
@@ -110,7 +111,9 @@ def _rank(d_in: int, d_out: int, ccfg: CompressConfig) -> int:
 def _compress_experts(moe: MoE, p: str, r_factors, ccfg: CompressConfig,
                       reports: List[LayerReport]) -> None:
     """Per-expert solve of each dense bank of ``moe`` at path ``p``; the
-    stacks become factored banks b_t (E, d_in, r), a_t (E, r, d_out)."""
+    stacks become factored banks b_t (E, d_in, r), a_t (E, r, d_out) in the
+    bank's dtype. A bf16 expert meets the fp32 R and factors as fp32, where
+    the reference's products promote it."""
     for mat, rf_kind in (("w_gate", "in"), ("w_up", "in"), ("w_down", "hid")):
         bank = getattr(moe, mat)
         if bank.is_factored:
@@ -119,23 +122,22 @@ def _compress_experts(moe: MoE, p: str, r_factors, ccfg: CompressConfig,
         bts, ats = [], []
         for e in range(w_stack.shape[0]):
             rf = r_factors.get(f"{p}/expert{e}/{rf_kind}")
-            w = w_stack[e]
-            d_in, d_out = w.shape
+            w_mat = w_stack[e].T.float()                  # (d_out, d_in)
+            d_out, d_in = w_mat.shape
             rank = _rank(d_in, d_out, ccfg)
             if rf is None:
                 # expert never routed to during calibration: keep the
                 # EYM projection (X=I ⇒ μ-regularized limit, Prop. 3)
-                a, b = bl.plain_svd(w.T.float(), rank)
+                a, b = bl.plain_svd(w_mat, rank)
                 rel_err = bound = float("nan")
             else:
-                rf = rf.float()
-                a, b, _ = _solve(w.T.float(), rf, rank, ccfg)
-                den = torch.clamp(torch.linalg.norm(w.T @ rf.T), min=1e-9)
-                rel_err = float(torch.linalg.norm((w.T - a @ b) @ rf.T) / den)
-                bound = float(optimal_weighted_error(w.T.float(), rf.T, rank)
-                              / den)
-            bts.append(b.T.to(w.dtype))
-            ats.append(a.T.to(w.dtype))
+                rf = square_r(rf).float()
+                a, b, _ = _solve(w_mat, rf, rank, ccfg)
+                den = torch.clamp(torch.linalg.norm(w_mat @ rf.T), min=1e-9)
+                rel_err = float(torch.linalg.norm((w_mat - a @ b) @ rf.T) / den)
+                bound = float(optimal_weighted_error(w_mat, rf.T, rank) / den)
+            bts.append(b.T.to(w_stack.dtype))
+            ats.append(a.T.to(w_stack.dtype))
             reports.append(LayerReport(
                 path=f"{p}/{mat}/e{e}", rank=rank, mu=0.0,
                 rel_err_weighted=rel_err, params_before=d_in * d_out,
@@ -147,12 +149,14 @@ def _compress_experts(moe: MoE, p: str, r_factors, ccfg: CompressConfig,
 def adaptive_ranks(model, r_factors, ratio: float) -> Dict[str, int]:
     """``adaptive_rank_map`` over the weights the reference's branch of
     ``compress_model`` collects (``repro/core/compress.py:222-243``): every
-    linear holding ``w`` that has an R factor and is compressible; MoE expert
-    banks stay out (they are not 2-D ``w`` leaves there either)."""
+    linear holding ``w`` that has an R factor (thin or square) and is
+    compressible; MoE expert banks stay out (they are not 2-D ``w`` leaves
+    there either)."""
     weights = {p: lin.w for p, lin in block_modules(model, Linear)
                if lin.has_dense and p in r_factors
                and compressible(tuple(p.split("/")) + ("w",), lin.w.shape)}
-    return adaptive_rank_map(weights, r_factors, ratio)
+    return adaptive_rank_map(weights, {p: square_r(r_factors[p])
+                                       for p in weights}, ratio)
 
 
 @torch.no_grad()
@@ -166,8 +170,11 @@ def compress_model(model, calibrator, ccfg: CompressConfig, *,
     ``ccfg.rank`` for the paths it names (not for expert banks, whose ranks
     always come from ``ccfg``), and ``ccfg.adaptive_rank`` too. A linear
     that holds ``w`` beside an adapter is compressed from its ``w`` and
-    loses the adapter, as in the reference's walk."""
-    r_factors = calibrator.r_factors()
+    loses the adapter, as in the reference's walk. Each R is squared
+    (``square_r``) where its projection is solved and dropped after, so no
+    two square Rs are held at once (jamba's 64 expert ``hid`` streams alone
+    are 57 GB squared at full width)."""
+    r_factors = calibrator.thin_r_factors()
     if rank_map is None and ccfg.adaptive_rank:
         rank_map = adaptive_ranks(model, r_factors, ccfg.ratio)
     new_model = copy.deepcopy(model)
@@ -191,7 +198,7 @@ def compress_model(model, calibrator, ccfg: CompressConfig, *,
             rank = min(rank_map[p], min(d_in, d_out))
         else:
             rank = _rank(d_in, d_out, ccfg)
-        r_f = r_factors[p].float()
+        r_f = square_r(r_factors[p]).float()
         a, b, mu = _solve(w_mat, r_f, rank, ccfg)
         num = torch.linalg.norm((w_mat - a @ b) @ r_f.T)
         den = torch.clamp(torch.linalg.norm(w_mat @ r_f.T), min=1e-9)

@@ -74,10 +74,9 @@ class TokenPipeline:
 
     def __init__(self, dcfg: DataConfig, model_cfg=None, *, device="cuda"):
         if model_cfg is not None and model_cfg.family not in (
-                "dense", "moe", "vlm", "ssm", "encdec"):
+                "dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
             raise NotImplementedError(
-                f"family {model_cfg.family!r} (jamba's hybrid) has no ported "
-                "batch extras")
+                f"family {model_cfg.family!r} is unknown: no batch extras")
         self.dcfg = dcfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)

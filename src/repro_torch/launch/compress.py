@@ -15,6 +15,10 @@ vision positions; ``vision_proj`` stays dense). xlstm_1_3b pretrains through
 its recurrences (checkpointed per chunk under autograd); its targets are
 the reference's compressible projections (mLSTM's up, wq, wk, wv, down and
 sLSTM's ff_up, ff_down), the gates and recurrences stay dense.
+jamba_v0_1_52b pretrains through its Mamba scans (checkpointed per chunk)
+and its MoE; its targets are Mamba's in_proj and out_proj (x_proj, dt_proj
+and the SSM parameters stay dense), the attention and MLP projections, and
+every expert.
 whisper_base's batches carry the pipeline's ``frames`` through pretraining,
 evaluation and calibration; its targets are the 16 projections of every
 encoder and decoder layer (the cross ``wk``/``wv`` calibrated on the encoder

@@ -23,7 +23,10 @@ gemma2_27b), deepseek_moe_16b's MoE, deepseek_v2_lite_16b's MLA over MoE
 qwen2_vl_2b (calibrated with a seeded vision prefix; the synthetic trace is
 text-only, as the reference's) and xlstm_1_3b (recurrent: ``--prefix-cache
 auto`` serves it with the cache off, ``on`` raises ``ValueError``, and each
-request is prefilled alone, its state kept in a per-request slot), and
+request is prefilled alone, its state kept in a per-request slot),
+jamba_v0_1_52b (hybrid: the same route, its attention layer's K/V in pages
+beside the Mamba layers' state in slots; COALA factors the Mamba
+``in_proj``/``out_proj`` and leaves ``x_proj``/``dt_proj`` dense), and
 whisper_base (encoder–decoder: calibrated with seeded frames; the fixed-batch
 mode serves the pipeline's frames; the synthetic trace carries no frames, as
 the reference's, so ``--continuous`` raises the engine's ``ValueError`` at

@@ -44,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import CPU_CTX, ParallelCtx, apply_rope, softcap
+from repro_torch.models.common import (CPU_CTX, ParallelCtx, apply_rope,
+                                       last_write_wins, softcap)
 from repro_torch.models.linear import Linear
 
 NEG_INF = -1e30
@@ -226,8 +227,12 @@ class GQA(torch.nn.Module):
             bs = kp.shape[1]
             p = pos.long()[:, None] + torch.arange(t, device=x.device)
             blk = torch.gather(paged_tables.long(), 1, p // bs)
-            kp.index_put_((blk, p % bs), k.to(kp.dtype))
-            vp.index_put_((blk, p % bs), v.to(vp.dtype))
+            last = last_write_wins((blk * bs + p % bs).reshape(-1),
+                                   kp.shape[0] * bs)
+            kp.index_put_((blk, p % bs), k.to(kp.dtype).flatten(0, 1)[last]
+                          .view(k.shape))
+            vp.index_put_((blk, p % bs), v.to(vp.dtype).flatten(0, 1)[last]
+                          .view(v.shape))
             if t == 1:
                 o = ops.paged_attention(
                     q[:, 0].contiguous(), kp, vp, paged_tables, pos + 1,
@@ -352,8 +357,11 @@ class MLA(torch.nn.Module):
             p = pos.long()[:, None] + torch.arange(t, device=x.device)
             blk = torch.gather(tables, 1, p // bs)
             c, k_rope = c.to(cp.dtype), k_rope.to(rp.dtype)
-            cp.index_put_((blk, p % bs), c)
-            rp.index_put_((blk, p % bs), k_rope)
+            last = last_write_wins((blk * bs + p % bs).reshape(-1),
+                                   cp.shape[0] * bs)
+            cp.index_put_((blk, p % bs), c.flatten(0, 1)[last].view(c.shape))
+            rp.index_put_((blk, p % bs), k_rope.flatten(0, 1)[last]
+                          .view(k_rope.shape))
             n_keys = tables.shape[1] * bs
             cf = cp[tables].reshape(b, n_keys, kl)
             rf = rp[tables].reshape(b, n_keys, dr)

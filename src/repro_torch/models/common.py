@@ -1,7 +1,8 @@
 """Shared model building blocks: parallel context, norms (RMSNorm and olmo's
 non-parametric LayerNorm), RoPE and qwen2-vl's M-RoPE, softcap,
-activations, init and the recurrences' time loop (port of
-``repro/models/common.py:11-36`` and ``:84-221``)."""
+activations, init, the recurrences' time loop (port of
+``repro/models/common.py:11-36`` and ``:84-221``) and the deterministic
+scatter of padding rows."""
 from __future__ import annotations
 
 import dataclasses
@@ -164,6 +165,23 @@ def act_fn(name: str):
     gelu_tanh = lambda x: F.gelu(x, approximate="tanh")   # noqa: E731
     return {"silu": F.silu, "gelu": gelu_tanh, "gelu_tanh": gelu_tanh,
             "relu": F.relu}[name]
+
+
+def last_write_wins(keys: torch.Tensor, n_targets: int) -> torch.Tensor:
+    """For an in-place scatter of N rows to targets ``keys`` (N,) ints in
+    [0, ``n_targets``): the row whose value each row should carry — the
+    last row, in row order, with the same target. Scattering
+    ``src[last_write_wins(keys, n)]`` writes one value to each target, the
+    one a sequential scatter leaves (the CPU's, and the reference's on the
+    CPU); on the card a scatter with duplicate targets keeps whichever write
+    lands last, which may differ between an eager call and a graph replay.
+    Duplicates come from padding rows, which all write the trash page or the
+    trash slot, and which an MoE's capacity selection can leave unequal.
+    O(N + n_targets): a max-reduce of the row indices per target."""
+    keys = keys.long()
+    rows = torch.arange(keys.shape[0], device=keys.device)
+    win = torch.full((n_targets,), -1, dtype=torch.long, device=keys.device)
+    return win.scatter_reduce_(0, keys, rows, reduce="amax")[keys]
 
 
 def chunked_scan(f, init, xs, chunk: int):

@@ -6,9 +6,12 @@ softcaps and sandwich norms), deepseek's MoE (dense-FFN prefix layers,
 then MoE FFNs), deepseek-v2's MLA attention (``kv_lora_rank`` > 0) and
 qwen2-vl (family ``vlm``): a ``vision_proj`` of precomputed patch embeddings
 placed before the token embeddings, M-RoPE over positions broadcast to its
-three streams, and a loss that skips the vision positions; and xLSTM
+three streams, and a loss that skips the vision positions; xLSTM
 (family ``ssm``, ``models/xlstm.py``): blocks of a pre-norm recurrent mixer
-(mLSTM, or an sLSTM every ``slstm_every`` layers) without an FFN.
+(mLSTM, or an sLSTM every ``slstm_every`` layers) without an FFN; and jamba
+(family ``hybrid``): a Mamba mixer (``models/ssm.py``) in every layer but
+one attention layer each ``attn_every``, every block with its FFN (MoE on
+the ``moe_every`` pattern).
 
 ``LM`` is an ``nn.Module`` with the reference's layer layout: ``prefix`` is
 a ``ModuleList`` of the unrolled leading layers (deepseek's first dense-FFN
@@ -26,7 +29,8 @@ bs, qk_rope_dim)}`` for MLA — read through block tables by
 (batch, max_len, ...) cache of ``init_contiguous_cache`` (the JAX
 ``init_cache``), filled by ``prefill`` and read by ``decode_step`` at a
 scalar position without block tables. A recurrent layer's cache is its fp32
-state (``models/xlstm.py``): per-request slot stores (n_slots, ...) in
+state (``models/xlstm.py``, ``models/ssm.py``): per-request slot stores
+(n_slots, ...) in
 ``init_cache``, read and written through the batch's ``slots``, or (batch,
 ...) rows in ``init_contiguous_cache``.
 
@@ -49,6 +53,7 @@ from repro_torch.models.common import (CPU_CTX, ParallelCtx, dense_init,
                                        softcap)
 from repro_torch.models.ffn import MLP, ExpertBank, MoE
 from repro_torch.models.linear import Linear
+from repro_torch.models.ssm import Mamba
 from repro_torch.models.xlstm import MLSTM, SLSTM, empty_state
 
 
@@ -83,7 +88,7 @@ def chunked_ce(h, targets, head_w, *, transform: Optional[Callable] = None,
 
 @dataclasses.dataclass(frozen=True)
 class SubSpec:
-    kind: str          # attn | mlstm | slstm
+    kind: str          # attn | mamba | mlstm | slstm
     is_moe: bool
     is_local: bool
 
@@ -104,6 +109,8 @@ def period_specs(cfg: ModelConfig):
     p = 1
     if cfg.local_window > 0:
         p = max(p, 2)
+    if cfg.attn_every:
+        p = max(p, cfg.attn_every)
     if cfg.uses_moe and cfg.moe_every > 1:
         p = max(p, cfg.moe_every)
     if cfg.family == "ssm" and cfg.xlstm.slstm_every:
@@ -118,15 +125,16 @@ def period_specs(cfg: ModelConfig):
             [spec(base + j) for j in range(p)], rest // p)
 
 
-_RECURRENT = {"mlstm": MLSTM, "slstm": SLSTM}
+_RECURRENT = {"mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
 
 
 class Block(torch.nn.Module):
     """Pre-norm mixer + FFN (gated MLP or MoE), both residual, each branch
     scaled by ``scale_depth / sqrt(n_layers)`` (minicpm) and, with
     ``post_block_norm`` (gemma2), normed before its residual add. The mixer
-    is attention (GQA or MLA) or, for xLSTM, a recurrent mLSTM/sLSTM, whose
-    block has no FFN: its mixer carries its own projections
+    is attention (GQA or MLA) or a recurrent mixer: jamba's Mamba, whose
+    block keeps its FFN, or xLSTM's mLSTM/sLSTM, whose block has none: its
+    mixer carries its own projections
     (``repro/models/transformer.py:129-130``)."""
 
     def __init__(self, cfg: ModelConfig, spec: SubSpec, *, device=None,
@@ -160,7 +168,8 @@ class Block(torch.nn.Module):
         or a block without an FFN. ``slots`` are the rows' state slots (a
         recurrent mixer's; attention ignores them)."""
         if self.kind in _RECURRENT:
-            h = self.mixer(self.norm1(x), cache=cache, slots=slots, ctx=ctx)
+            h = self.mixer(self.norm1(x), cache=cache, slots=slots,
+                           pos=attn_kw.get("pos"), ctx=ctx)
         else:
             h = self.mixer(self.norm1(x), cos_sin, local=self.local,
                            cache=cache, ctx=ctx, **attn_kw)
@@ -190,10 +199,10 @@ class LM(torch.nn.Module):
         if cfg.family == "encdec":
             raise ValueError("family 'encdec' is models.encdec.EncDecLM's "
                              "(build_model picks it)")
-        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (jamba's hybrid; "
-                "dense, moe, vlm, ssm and encdec are)")
+                f"family {cfg.family!r} is unknown (dense, moe, vlm, ssm, "
+                "hybrid and encdec are ported)")
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -230,8 +239,8 @@ class LM(torch.nn.Module):
             yield from rep.values()
 
     def layer_kinds(self) -> List[str]:
-        """Each layer's mixer kind in depth order: 'attn', 'mlstm' or
-        'slstm'. A serving cache's layer holds token pages for 'attn' and
+        """Each layer's mixer kind in depth order: 'attn', 'mamba', 'mlstm'
+        or 'slstm'. A serving cache's layer holds token pages for 'attn' and
         per-request state otherwise."""
         return [blk.kind for blk in self.layers()]
 
@@ -242,7 +251,8 @@ class LM(torch.nn.Module):
         embeddings N(0, 0.02²), projections (MLA's ``w_uk``/``w_uv`` and
         mLSTM's gate vectors ``w_i``/``w_f`` too), routers and expert banks
         N(0, 1/d_in), sLSTM's recurrences ``r_*`` N(0, 1/hd), forget-gate
-        biases 3, mLSTM's ``o_norm_scale`` 1, norm scales 0."""
+        biases 3, mLSTM's ``o_norm_scale`` 1, Mamba's conv, dt bias, A and
+        skip as ``Mamba.init`` draws them, norm scales 0."""
         self.embed.normal_(0.0, 1.0, generator=generator).mul_(0.02)
         for mod in self.modules():
             if isinstance(mod, Linear):
@@ -263,6 +273,8 @@ class LM(torch.nn.Module):
                     r.normal_(0.0, 1.0, generator=generator).mul_(
                         1.0 / math.sqrt(r.shape[-1]))
                 mod.f_bias.fill_(3.0)
+            elif isinstance(mod, Mamba):
+                mod.init(generator)
             elif isinstance(mod, ExpertBank):
                 mod.w.normal_(0.0, 1.0, generator=generator).mul_(
                     1.0 / math.sqrt(mod.w.shape[1]))
@@ -274,8 +286,8 @@ class LM(torch.nn.Module):
         """Per-layer page stores: {"k", "v"} (num_blocks, bs, Hkv, hd), or
         MLA's latents {"c": (num_blocks, bs, kv_lora_rank), "k_rope":
         (num_blocks, bs, qk_rope_dim)}; a recurrent layer's fp32 state
-        stores with ``slots`` rows, empty (``m`` at -1e30; a slot is written
-        by a request's prefill before any step reads it)."""
+        stores with ``slots`` rows, empty (zeros, xLSTM's ``m`` at -1e30; a
+        slot is written by a request's prefill before any step reads it)."""
         return self._cache_stores((num_blocks, block_size), dtype, (slots,))
 
     def init_contiguous_cache(self, batch: int, max_len: int,

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (CPU_CTX, ParallelCtx, act_fn,
-                                       chunked_scan)
+                                       chunked_scan, last_write_wins)
 from repro_torch.models.linear import Linear
 
 _M0 = -1e30                      # the stabilizer state before any token
@@ -55,7 +55,7 @@ def empty_state(shapes, lead: Tuple[int, ...], device) -> dict:
             for k, s in shapes.items()}
 
 
-def _read_state(cache, slots, shapes: dict, batch: int, device):
+def read_state(cache, slots, shapes: dict, batch: int, device):
     """The fp32 state of the batch's rows, leaves in ``shapes``' order: the
     empty state without a cache, the rows of a contiguous cache, or the
     slots' rows of the slot stores."""
@@ -66,16 +66,19 @@ def _read_state(cache, slots, shapes: dict, batch: int, device):
     return tuple(cache[k].index_select(0, slots).float() for k in shapes)
 
 
-def _write_state(cache, slots, shapes: dict, state) -> None:
+def write_state(cache, slots, shapes: dict, state) -> None:
     """The final state into the contiguous cache's rows or the slots' rows
-    of the slot stores, in place, in the stores' dtype."""
+    of the slot stores, in place, in the stores' dtype; padding rows, which
+    share the trash slot, all write the last one's state
+    (``last_write_wins``)."""
     if cache is None:
         return
     for k, s in zip(shapes, state):
         if slots is None:
             cache[k].copy_(s)
         else:
-            cache[k].index_copy_(0, slots, s.to(cache[k].dtype))
+            last = last_write_wins(slots, cache[k].shape[0])
+            cache[k].index_copy_(0, slots, s.to(cache[k].dtype)[last])
 
 
 # ---------------------------------------------------------------------------
@@ -169,9 +172,10 @@ class MLSTM(torch.nn.Module):
         return {"c": (h, hd, hd), "n": (h, hd), "m": (h,)}
 
     def forward(self, x, *, cache: Optional[dict] = None, slots=None,
-                ctx: ParallelCtx = CPU_CTX):
+                pos=None, ctx: ParallelCtx = CPU_CTX):
         """x (B, T, d_model) -> (B, T, d_model); ``cache``/``slots`` as in
-        the module docstring (None: from the empty state, none kept)."""
+        the module docstring (None: from the empty state, none kept).
+        ``pos`` is not read: the recurrence is the same at any position."""
         cfg = self.cfg
         b, t, _ = x.shape
         di, h, hd = _mlstm_dims(cfg)
@@ -183,7 +187,7 @@ class MLSTM(torch.nn.Module):
         log_i = uf @ self.w_i                             # (B, T, H)
         log_f = F.logsigmoid(uf @ self.w_f + self.f_bias)
         shapes = self.state_shapes()                      # c, n, m
-        state = _read_state(cache, slots, shapes, b, x.device)
+        state = read_state(cache, slots, shapes, b, x.device)
         qf, kf, vf = (a.float() for a in (q, k, v))
         chunk = cfg.xlstm.chunk_size
         if ctx.mlstm_chunkwise and t > 1 and t % chunk == 0:
@@ -199,7 +203,7 @@ class MLSTM(torch.nn.Module):
                 step, state, tuple(a.movedim(1, 0) for a in
                                    (qf, kf, vf, log_i, log_f)), chunk)
             y4 = ys.movedim(0, 1)
-        _write_state(cache, slots, shapes, state)
+        write_state(cache, slots, shapes, state)
         y = y4.reshape(b, t, di).to(x.dtype)
         # group-norm-ish output scaling, gate, down-projection
         y = y * self.o_norm_scale.to(y.dtype)
@@ -245,7 +249,7 @@ class SLSTM(torch.nn.Module):
         return {"c": (d,), "n": (d,), "h": (d,), "m": (d,)}
 
     def forward(self, x, *, cache: Optional[dict] = None, slots=None,
-                ctx: ParallelCtx = CPU_CTX):
+                pos=None, ctx: ParallelCtx = CPU_CTX):
         b, t, d = x.shape
         heads = self.cfg.n_heads
         hd = d // heads
@@ -273,11 +277,11 @@ class SLSTM(torch.nn.Module):
             return (c_new, n_new, h_new, m_new), h_new
 
         shapes = self.state_shapes()                      # c, n, h, m
-        state = _read_state(cache, slots, shapes, b, x.device)
+        state = read_state(cache, slots, shapes, b, x.device)
         state, hs = chunked_scan(
             step, state, tuple(pre[g].movedim(1, 0) for g in self.GATES),
             self.cfg.xlstm.chunk_size)
-        _write_state(cache, slots, shapes, state)
+        write_state(cache, slots, shapes, state)
         y = hs.movedim(0, 1).to(x.dtype)                 # (B, T, d)
         # gated feed-forward (proj factor 4/3, GLU)
         a, g = torch.chunk(self.ff_up(y), 2, dim=-1)

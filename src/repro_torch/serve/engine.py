@@ -42,7 +42,8 @@ graph, since its length varies by request: it is no capture, so
 prefilled again over prompt + output with its extras. Speculation serves
 only cacheable requests.
 
-Recurrent models (xLSTM's mLSTM/sLSTM, the reference's non-chunked route,
+Recurrent and hybrid models (xLSTM's mLSTM/sLSTM, jamba's Mamba layers
+beside attention; the reference's non-chunked route,
 ``repro/serve/engine.py:247-313``): a chunked suffix prefill would need the
 state at every block boundary, so every request is non-cacheable and
 prefilled alone through the per-request prefill, whose final state
@@ -55,7 +56,10 @@ in the packed int32 inputs (padding rows, and warmup's captures, on the
 pool's trash slot); the recurrence gathers and scatters its slot rows in
 place, so a replay reads and writes the same state stores every time. A
 preempted request gives up its slot and is prefilled again over prompt +
-output; ``fork`` copies the parent's state slot into the child's.
+output; ``fork`` copies the parent's state slot into the child's. A hybrid
+model's attention layers prefill through the flash kernel on the card and
+decode through the paged kernel over their pages, beside the Mamba state in
+its slots.
 
 Encoder–decoders (whisper's ``EncDecLM``) take the same non-chunked route:
 every request carries its encoder input ``extras={"frames": (1,
@@ -127,7 +131,7 @@ or swap (``_own_weights``), so the graphs read the engine's tensors.
 
 Model families: every decoder of ``repro_torch.configs`` (dense GQA,
 gemma2's local window and softcaps, deepseek's MoE, deepseek-v2's MLA,
-qwen2-vl, xLSTM through the recurrent route above, and whisper's
+qwen2-vl, xLSTM and jamba through the recurrent route above, and whisper's
 encoder–decoder through the same route). An MoE
 layer's capacity comes from the step's padded token count, so a signature
 fixes it and its graph is static; its combine adds without atomics, so a
@@ -163,7 +167,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.models.attention import MLA
 from repro_torch.models.common import ParallelCtx
-from repro_torch.models.ffn import ExpertBank
+from repro_torch.models.ffn import ExpertBank, MoE
 from repro_torch.models.linear import Linear
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import LATENCY_BUCKETS, Registry
@@ -546,7 +550,11 @@ class ContinuousEngine:
         self._graphs: Dict[tuple, StepGraph] = {}
         self._graph_pool = None
         self._stream: Optional[torch.cuda.Stream] = None
+        self._scratch = None                # the capture stream's kernel scratch
         self._captures = {"decode": 0, "prefill": 0, "spec": 0, "dprefill": 0}
+        self._trash_runs: set = set()   # signatures an eager warmup has run
+        # rows of one call meet only in an MoE layer's shared capacity
+        self._rows_meet = any(isinstance(m, MoE) for m in model.modules())
         self._warmed = 0
         self._warmup_seconds = 0.0
         self._register_series()
@@ -972,12 +980,20 @@ class ContinuousEngine:
         return decode, prefill
 
     def warmup(self, *, max_len: Optional[int] = None) -> Dict[str, float]:
-        """Capture every signature of ``warmup_signatures(max_len)`` against
-        the trash page, so no admissible request waits on a capture.
+        """Run every signature of ``warmup_signatures(max_len)`` once against
+        the trash page and the trash slot (a CUDA-graph engine captures it
+        after that pass), so no admissible request waits on a capture.
         ``max_len`` bounds the worst-case per-request cache positions
         (prompt + generated); it defaults to, and is capped at, the pool's
-        capacity. Re-running only captures what is missing. An eager engine
-        has nothing to capture. Returns a summary; the wall time adds up in
+        capacity. Re-running only warms what is missing. The reference runs
+        each signature too (``repro/serve/engine.py:860-880``): its padding
+        rows' writes leave the trash page and slot behind, which later
+        padding rows read. Where the model has an MoE layer, the padding
+        rows' routing takes expert capacity from the real rows of the same
+        call, so an eager engine runs the same passes and holds the same
+        trash state as a graph engine; elsewhere no padding row reaches a
+        real row, and an eager engine has nothing to warm.
+        Returns a summary; the wall time adds up in
         ``metrics()["warmup_seconds"]``."""
         cap = self.pool.usable_blocks * self.block_size
         max_len = cap if max_len is None else min(max_len, cap)
@@ -991,18 +1007,21 @@ class ContinuousEngine:
                 (kind, b, nb) for b, nb in decode_sigs)
             self._prefill_shapes.update(("prefill",) + sig
                                         for sig in prefill_sigs)
+            # a round writes spec_k + 1 positions, so no real table is
+            # smaller (and the trash writes would overrun it)
+            sigs = [(kind, b, nb) for b, nb in decode_sigs
+                    if not (self._spec and nb * self.block_size < self.spec_k + 1)]
+            for b, l, nb in prefill_sigs:
+                sigs.append(("prefill", b, l, nb))
+                if self._spec:
+                    sigs.append(("dprefill", b, l, nb))
+            for sig in sigs:
+                if self.cuda_graphs:
+                    self._graph(sig)
+                elif self._rows_meet and sig not in self._trash_runs:
+                    self._trash_runs.add(sig)
+                    self._forward(sig, self._trash_views(sig)[1])
             if self.cuda_graphs:
-                for b, nb in decode_sigs:
-                    if self._spec and nb * self.block_size < self.spec_k + 1:
-                        # a round writes spec_k + 1 positions, so no real
-                        # table is this small (and the trash writes would
-                        # overrun it)
-                        continue
-                    self._graph((kind, b, nb))
-                for b, l, nb in prefill_sigs:
-                    self._graph(("prefill", b, l, nb))
-                    if self._spec:
-                        self._graph(("dprefill", b, l, nb))
                 torch.cuda.synchronize(self.device)
         self._warmed = sum(self._captures.values())
         self.warmed = True                  # /healthz readiness flips here
@@ -1031,8 +1050,9 @@ class ContinuousEngine:
         self._graphs.clear()
         self._graph_pool = None
         if self._stream is not None:
-            _ll.release_scratch(self.device, self._stream.cuda_stream)
+            self._release_scratch()
             self._stream = None
+            self._scratch = None
 
     # -------------------------------------------------------------- metrics
     def reset_metrics(self) -> None:
@@ -1347,11 +1367,14 @@ class ContinuousEngine:
         if self._stream is None:
             self._own_weights()
             self._stream = torch.cuda.Stream(dev)
+            # the capture stream's pinned kernel scratch goes with the
+            # engine's graphs, also when the engine is dropped unreleased:
+            # a later stream with the same handle would find it taken
+            self._release_scratch = weakref.finalize(
+                self, _ll.release_scratch, dev, self._stream.cuda_stream)
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._reserve_scratch()
-        trash = self.pool.trash_slot if self._state else None
-        ints = torch.as_tensor(_trash_inputs(sig, trash), device=dev)
-        inputs = _views(sig, ints, self._state)
+        ints, inputs = self._trash_views(sig)
         s = self._stream
         s.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(s):
@@ -1373,6 +1396,13 @@ class ContinuousEngine:
         self._graphs[sig] = g
         self._captures[sig[0]] += 1
         return g
+
+    def _trash_views(self, sig):
+        """``sig``'s all-trash packed inputs on the device (every row a
+        padding row: trash tables, the trash slot) and their views."""
+        trash = self.pool.trash_slot if self._state else None
+        ints = torch.as_tensor(_trash_inputs(sig, trash), device=self.device)
+        return ints, _views(sig, ints, self._state)
 
     def _own_weights(self) -> None:
         """Serve the engine's own copies of the target and the draft: a
@@ -1407,8 +1437,11 @@ class ContinuousEngine:
         for b, nb in decode if self.paged_kernel else ():
             work = max(work, _pa.plan(b, cfg.n_heads, cfg.n_kv_heads,
                                       cfg.head_dim, nb).workspace)
-        _ll.reserve_scratch(self.device, self._stream.cuda_stream, work,
-                            counters)
+        # held here too: the graphs hold its address, so it lives as long
+        # as they do, whatever later happens to the stream's entry
+        self._scratch = _ll.reserve_scratch(self.device,
+                                            self._stream.cuda_stream, work,
+                                            counters)
 
     def _prefill_batch(self, group) -> None:
         """One ``prefill_chunk`` over a same-bucket group of (request,

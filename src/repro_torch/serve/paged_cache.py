@@ -18,8 +18,8 @@ tables. GQA reads its pages in place too, through the paged kernels. MLA
 gathers each row's whole padded envelope of latents at every step and layer
 (``pages[tables]``) and lays the chunk's latents over it, as the JAX gather
 path does. Zeroing and copy-on-write treat every page store alike. A
-recurrent layer's (xLSTM's mLSTM and sLSTM) are state stores, one per state
-leaf, of ``max_requests + 1`` slots (``_state_store_shape``,
+recurrent layer's (xLSTM's mLSTM and sLSTM, jamba's Mamba) are state
+stores, one per state leaf, of ``max_requests + 1`` slots (``_state_store_shape``,
 ``repro/serve/paged_cache.py:191-196``): the model gathers the batch's slot
 rows before its recurrence and scatters them back after it, in place, from
 the slot ids a step hands it (``slots``, padded with the trash slot). An
@@ -32,7 +32,8 @@ by the model's own layer kinds (``layer_kinds()``) and the leaf names
 (``CacheLayout.probe``): the port's cache is a list of per-layer dicts whose
 kind the model knows. A model with no attention layer has no page stores;
 its blocks are still allocated and counted, so admission and preemption
-follow the reference's accounting.
+follow the reference's accounting. A hybrid model (jamba) holds pages for
+its attention layers and slots for its Mamba layers.
 
 **Prefix caching** (``prefix_cache=True``): blocks are refcounted and a
 registry maps *full* blocks of committed tokens to their pages, so a new

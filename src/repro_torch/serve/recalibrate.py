@@ -83,6 +83,8 @@ class _Snapshot:
     def r_factors(self) -> Dict[str, torch.Tensor]:
         return self._r
 
+    thin_r_factors = r_factors          # already square: square_r keeps them
+
     def tokens_seen(self) -> Dict[str, int]:
         return self._seen
 

@@ -67,7 +67,8 @@ def adamw_update(tcfg: TrainConfig, params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], opt_state: dict):
     """One AdamW step at lr_at(step - 1), decoupled weight decay on tensors
     with ndim >= 2 in the reference's tree (``reference_ndim``: so also the
-    block norm scales, which the reference stacks to (n_rep, d), and an
+    block norm scales, which the reference stacks to (n_rep, d), Mamba's
+    ``dt_bias`` and ``d_skip``, stacked to (n_rep, d_inner), and an
     encoder–decoder's layer norm scales, stacked to (n_layers, d)), all fp32
     math. ``params`` are keyed by the model's parameter names. Updates
     ``params`` and the moments in place; returns (params, opt_state, lr)."""

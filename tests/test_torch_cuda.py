@@ -1177,3 +1177,89 @@ def test_engine_cuda_whisper_graphs_match_eager(whisper_models, name):
     assert counts["paged_attention"] == cpu.cfg.n_layers * m["decode_steps"]
     assert (counts["lowrank_linear"] > 0) == (name == "coala")
     assert counts["chunked_prefill"] == 0
+
+
+@pytest.fixture(scope="module")
+def jamba_models():
+    """jamba SMOKE (Mamba layers beside attention at layers 2 and 6, MoE on
+    the odd layers), random init, dense and COALA-compressed on the CPU, and
+    copies on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    cfg = get_smoke_config("jamba_v0_1_52b")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 32)))
+               for _ in range(2)]
+    ccpu, _ = compress_model(cpu, calibrate_model(cpu, batches),
+                             CompressConfig(ratio=0.6, lam=4.0, mu=-1.0))
+    return {name: (m, copy.deepcopy(m).to("cuda"))
+            for name, m in (("dense", cpu), ("coala", ccpu))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_jamba_cuda_matches_cpu(jamba_models, name):
+    """Prefill (flash for the attention layers, the Mamba scan) and two
+    decode steps over a contiguous cache, card against CPU, fp32 at 1e-3 of
+    the logits' scale; the Mamba state after them at 1e-3 of its scale."""
+    cpu, gpu = jamba_models[name]
+    tok = np.random.RandomState(1).randint(0, cpu.cfg.vocab_size, (2, 9)).astype(np.int32)
+    outs, states = [], []
+    for m, ctx in ((cpu, ParallelCtx()), (gpu, ParallelCtx(use_pallas=True))):
+        cache = m.init_contiguous_cache(2, 16)
+        lg = [m.prefill(torch.as_tensor(tok, device=m.device), cache, ctx=ctx)]
+        step = torch.as_tensor([[5], [7]], dtype=torch.int32, device=m.device)
+        for i in range(2):
+            lg.append(m.decode_step(step, cache, 9 + i))
+        outs.append([x.cpu() for x in lg])
+        states.append(cache[0]["h"].cpu())
+    for a, b in zip(*outs):
+        _close(b, a, 1e-3)
+    _close(states[1], states[0], 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "coala"])
+def test_engine_cuda_jamba_graphs_match_eager(jamba_models, name):
+    """The hybrid route on the card: a trace that preempts, with a fork,
+    through CUDA graphs (decode with the block tables and the rows' state
+    slots in the packed inputs; the attention layers' K/V through the paged
+    kernel, the Mamba state gathered and scattered in place) against the
+    eager engine and the CPU's: identical greedy tokens, 0 post-warmup
+    captures, the same launches, flash in every per-request prefill and the
+    paged kernel in every decode step, for each attention layer."""
+    cpu, gpu = jamba_models[name]
+    rng = np.random.RandomState(4)
+    trace = [(int(rng.choice([5, 9, 13])), int(rng.randint(8, 13))) for _ in range(6)]
+    trace = [(rng.randint(0, 256, (t0,)).astype(np.int32), new) for t0, new in trace]
+    # batches of 2 and 3 rows pad to 4: padding rows read and write the
+    # trash slot and page, and take MoE capacity; 11 pages preempt twice
+    knobs = dict(block_size=4, num_blocks=11, max_running=4, bucket_sizes=(1, 4))
+    runs = []
+    for model, graphs in ((gpu, True), (gpu, False), (cpu, False)):
+        eng = ContinuousEngine(model, cuda_graphs=graphs, **knobs)
+        # every engine runs the warmup's all-padding passes (captures or
+        # not), so their trash slots, which padding rows read, agree
+        eng.warmup(max_len=max(len(p) + n for p, n in trace))
+        ops.reset_launch_counts()
+        for i, (prompt, new) in enumerate(trace):
+            eng.submit(prompt, new)
+            if i == 1:
+                eng.fork(0)
+            eng.step()
+        eng.run()
+        if model is gpu:
+            torch.cuda.synchronize()
+        runs.append(({r.req_id: list(r.out_tokens) for r in eng.finished},
+                     eng.metrics(), ops.launch_counts()))
+        eng.release_graphs()
+    (toks, m, counts), (etoks, em, ecounts), (ctoks, _, _) = runs
+    assert toks == etoks == ctoks and len(toks) == len(trace) + 1
+    assert m["post_warmup_compiles"] == 0 and m["preemptions"] == em["preemptions"] >= 1
+    assert counts == ecounts
+    n_attn = gpu.layer_kinds().count("attn")
+    assert counts["flash_attention"] == n_attn * (len(trace) + m["preemptions"])
+    assert counts["paged_attention"] == n_attn * m["decode_steps"]
+    assert (counts["lowrank_linear"] > 0) == (name == "coala")
+    assert counts["chunked_prefill"] == 0

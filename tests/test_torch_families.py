@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro.config import CompressConfig as JCompressConfig
+from repro.configs import ARCH_IDS as j_arch_ids
 from repro.configs import get_config as j_config
 from repro.configs import get_smoke_config as j_smoke
 from repro.core.calibrate import calibrate_model as j_calibrate
@@ -70,19 +71,23 @@ def _tokens(cfg, shape, seed=1):
 # registry and configs
 # ---------------------------------------------------------------------------
 
-def test_registry_holds_the_seven_ported_configs():
+def test_registry_holds_the_seven_ported_configs(monkeypatch):
     """The seven configs of the attention-only GQA families and, since MLA,
-    qwen2-vl, xLSTM and whisper were ported, deepseek_v2_lite_16b,
-    qwen2_vl_2b, xlstm_1_3b and whisper_base: eleven (the name dates from
-    seven); jamba alone is left."""
+    qwen2-vl, xLSTM, whisper and jamba were ported, deepseek_v2_lite_16b,
+    qwen2_vl_2b, xlstm_1_3b, whisper_base and jamba_v0_1_52b: twelve, every
+    configuration of the reference (the name dates from seven).
+    ``NOT_PORTED`` is empty; a name in it would raise naming its family."""
     assert sorted(ARCH_IDS) == sorted(FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b",
                                                   "qwen2_vl_2b", "xlstm_1_3b",
-                                                  "whisper_base"])
-    assert "whisper_base" not in NOT_PORTED and len(NOT_PORTED) == 1
-    for name, family in NOT_PORTED.items():
-        for get in (get_config, get_smoke_config):
-            with pytest.raises(NotImplementedError, match=family.split()[0]):
-                get(name)
+                                                  "whisper_base", "jamba_v0_1_52b"])
+    assert sorted(ARCH_IDS) == sorted(j_arch_ids)
+    assert NOT_PORTED == {}
+    monkeypatch.setitem(NOT_PORTED, "mamba_only", "hybrid (mamba)")
+    for get in (get_config, get_smoke_config):
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            get("mamba_only")
+        with pytest.raises(NotImplementedError, match="unknown"):
+            get("no_such_arch")
 
 
 @pytest.mark.parametrize("name", FAMILIES + ["llama3_1b", "deepseek_v2_lite_16b"])
@@ -91,7 +96,7 @@ def test_configs_are_copies_of_the_jax_ones(name):
                          (get_smoke_config(name), j_smoke(name))):
         for f in dataclasses.fields(ours):
             a, b = getattr(ours, f.name), getattr(theirs, f.name)
-            if f.name in ("moe", "xlstm"):
+            if f.name in ("moe", "mamba", "xlstm"):
                 assert dataclasses.asdict(a) == dataclasses.asdict(b)
             else:
                 assert a == b, (name, f.name, a, b)

@@ -67,7 +67,7 @@ def test_config_is_a_copy_of_the_jax_one():
                          (get_smoke_config(NAME), j_smoke(NAME))):
         for f in dataclasses.fields(ours):
             a, b = getattr(ours, f.name), getattr(theirs, f.name)
-            if f.name in ("moe", "xlstm"):
+            if f.name in ("moe", "mamba", "xlstm"):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
     assert get_config(NAME).mrope_sections == (16, 24, 24)

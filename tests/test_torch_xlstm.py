@@ -93,7 +93,7 @@ def test_config_and_layer_pattern_are_the_jax_ones():
                          (get_smoke_config(NAME), j_smoke(NAME))):
         for f in dataclasses.fields(ours):
             a, b = getattr(ours, f.name), getattr(theirs, f.name)
-            if f.name in ("moe", "xlstm"):
+            if f.name in ("moe", "mamba", "xlstm"):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
         assert [ours.layer_kind(i) for i in range(ours.n_layers)] == [
@@ -104,9 +104,13 @@ def test_config_and_layer_pattern_are_the_jax_ones():
         assert [s.kind for s in per] == [s.kind for s in jper]
     assert [s.kind for s in period_specs(get_config(NAME))[1]] == \
         ["slstm"] + ["mlstm"] * 7
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        dataclasses.replace(get_smoke_config(NAME),
-                            family="hybrid").layer_kind(0)
+    # the hybrid family's layer_kind is ported too: Mamba and attention
+    for get, jget in ((get_config, j_config), (get_smoke_config, j_smoke)):
+        hyb, jhyb = get("jamba_v0_1_52b"), jget("jamba_v0_1_52b")
+        assert [hyb.layer_kind(i) for i in range(hyb.n_layers)] == [
+            jhyb.layer_kind(i) for i in range(jhyb.n_layers)]
+        assert {hyb.layer_kind(i) for i in range(hyb.n_layers)} == {"attn",
+                                                                   "mamba"}
 
 
 @pytest.mark.parametrize("factored", [False, True])
