@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py              # full run, ~18 min on one H100
+    python3 chip_smoke.py              # full run, ~18-19 min on one H100
     python3 chip_smoke.py --profile 8  # also profile 8 decode steps per model
 
 Phases, each printing its own lines:
@@ -38,7 +38,7 @@ Phases, each printing its own lines:
 4. serve path — the serving launcher's entry point
              (``repro_torch.launch.serve.main``, i.e. ``python -m
              repro_torch.launch.serve --continuous --warmup on``) on
-             llama3_1b at full width, its depth cut to 4 of 16 layers
+             llama3_1b at full width, its depth cut to 2 of 16 layers
              (handed as ``cfg``): random init from a seeded
              torch.Generator, calibration on seeded numpy tokens (through the
              flash kernel), COALA compression (ratio 0.6, λ = 4, μ from
@@ -79,7 +79,7 @@ Phases, each printing its own lines:
              model bit-equal;
 5. compress path — the compression launcher's entry point
              (``repro_torch.launch.compress.main``) on llama3_1b at full
-             width, its depth cut to 4 of 16 layers (handed as ``cfg``), with
+             width, its depth cut to 2 of 16 layers (handed as ``cfg``), with
              its defaults: pretrain 100 steps, evaluate, calibrate (4 x 8 x 64
              tokens), compress, evaluate, once with COALA and once with
              SVD-LLM (whose Cholesky fails on the rank-deficient Grams; its
@@ -168,7 +168,7 @@ Phases, each printing its own lines:
              by torch.profiler's kernel times, and on the wall clock);
 11. qwen2-vl path — qwen2_vl_2b at full width (d_model 1536, 12 / 2 heads,
              hd 128, d_ff 8960, vocab 151936, M-RoPE (16, 24, 24), 256 vision
-             tokens), its depth cut to 4 of 28 layers, handed as ``cfg``: (a)
+             tokens), its depth cut to 2 of 28 layers, handed as ``cfg``: (a)
              the serving launcher without ``--continuous`` (``run_fixed``: 4
              rows of 64 tokens after their vision prefixes, 16 new tokens,
              fp32), tokens equal to a ``ContinuousEngine.generate`` of the
@@ -265,6 +265,30 @@ Phases, each printing its own lines:
              out_proj at M 8 and M 200, paged_attention at G 4, hd 128 on the
              trace's decode rows and flash at B 1, T 200, G 4, hd 128, timed
              in fp32 and bf16;
+16. train path — the training launcher's entry point
+             (``repro_torch.launch.train.main``) on smollm_135m, its own
+             default arch, at full width and full depth (30 layers, d_model
+             576, 9 / 3 heads, vocab 49152, tied; 134,515,008 parameters from
+             a seeded torch.Generator), bf16 compute over the fp32 master,
+             remat dots: (a) 40 steps of 8 x 128 tokens with an async
+             checkpoint at step 20 and a blocking one at 39 (CE at
+             steps 0 and 59, ms a step, peak memory, each save's seconds);
+             (b) the same run again from a copy of its step-20 checkpoint
+             beside a torn ``.tmp_step_39``: it must resume at step 21 and
+             end within the stated tolerance of (a) (CE and parameters); (c)
+             one forward and backward from (a)'s step-39 state under remat
+             none, dots and full: ms, peak memory, gradients against none's;
+             (d) the compression launcher with ``--ckpt-in`` on (a)'s
+             directory, ``--ckpt-out``, ``--numerics-report`` and
+             ``--trace-out``: COALA 0.6, λ 4 through flash calibration, 0
+             non-finite factors, base CE equal to the step-39 model's (not
+             an untrained model's), the saved factors reloaded into a fresh
+             model giving the compressed CE exactly, the trace holding the
+             ``ckpt.restore`` and ``ckpt.save`` spans. The checkpoints
+             (~1.61 GB each) live under ``build/`` and are removed at the
+             phase's end. Phase 7 then also holds lowrank_linear on
+             smollm_135m's seven projections at the compress launcher's rows
+             and M 8, and flash at B 8, T 64, G 3, hd 64;
 15. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
@@ -278,8 +302,8 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 7, 15. Launch counts
-are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12, 13 and 14 (4b,
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16, 7, 15. Launch counts
+are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12, 13, 14 and 16 (4b,
 4c and 4d included) and
 read just after: eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
@@ -298,6 +322,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -339,13 +364,14 @@ SEED = 0
 ITERS = 20                  # timed launches per kernel and variant
 
 # The serve path's model: llama3_1b at full width, its depth cut from 16 layers
-# to 8 to leave room for phase 12, then to 4 for phase 14, in the time limit
-# (its compression, the draft's and phase 4d's solve take time per layer). The serve path's traffic: 8 requests, one
+# to 8 to leave room for phase 12, to 4 for phase 14 and to 2 for phase 16, in
+# the time limit (its compression, the draft's and phase 4d's solve take time
+# per layer). The serve path's traffic: 8 requests, one
 # every 2 engine steps, prompts of 16-200 tokens, 32 new tokens each. The launcher calibrates on 2 batches of
 # --requests x --prompt-len seeded tokens (2 x 8 x 256). The trace needs 81
 # pages of 16 tokens at its peak; a pool of 72 (one reserved for trash)
 # makes the engine preempt once.
-SERVE_LAYERS = 4
+SERVE_LAYERS = 2
 REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW_TOKENS = 8, 16, 200, 32
 ENGINE_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
 LAUNCHER_ARGS = ["--continuous", "--arch", "llama3_1b", "--compress-ratio", "0.6",
@@ -396,8 +422,9 @@ DTYPE_RUNS = [("coala", "float32", "bfloat16"), ("dense", "bfloat16", "bfloat16"
               ("coala", "bfloat16", "bfloat16")]
 # The compression launcher with its own defaults (ratio 0.6, λ 4, 100
 # pretrain steps, 4 calibration batches of 8 x 64 tokens) on llama3_1b at full
-# width, its depth cut from 16 layers to 4 (the path's time is per layer).
-COMPRESS_LAYERS = 4
+# width, its depth cut from 16 layers to 4, then to 2 for phase 16 (the path's
+# time is per layer).
+COMPRESS_LAYERS = 2
 COMPRESS_ARGS = ["--arch", "llama3_1b", "--ratio", "0.6", "--lam", "4",
                  "--pretrain-steps", "100", "--calib-batches", "4", "--device", "cuda"]
 EXTRA_METHODS = ("svd", "svd_llm_v2", "asvd")
@@ -432,11 +459,14 @@ FLASH_CASES = [("path B8 T64", 8, 64, 32, 8, 64, 0.0, None, True),
                ("whisper B1 T200 G1", 1, 200, 8, 8, 64, 0.0, None, True),
                # jamba's per-request prefill (phase 14): layer 4's causal
                # self-attention over the longest prompt, 32 / 8 heads (G 4), hd 128
-               ("jamba B1 T200 G4 hd128", 1, 200, 32, 8, 128, 0.0, None, True)]
+               ("jamba B1 T200 G4 hd128", 1, 200, 32, 8, 128, 0.0, None, True),
+               # the training path's compress launcher (phase 16): smollm_135m's
+               # evaluation and calibration, B 8 T 64, 9 / 3 heads (G 3), hd 64
+               ("smollm B8 T64 G3", 8, 64, 9, 3, 64, 0.0, None, True)]
 # gram_accum cases (k tokens, n): the calibration records, then ragged
 GRAM_CASES = [(512, 2048, True), (512, 8192, True), (300, 1000, False)]
 GRAM_LAYER = {(512, 2048): 6, (512, 8192): 1}   # one layer's Grams per record
-# Phase 10, the compression core, on phase 5's trained llama3_1b (depth 4) and
+# Phase 10, the compression core, on phase 5's trained llama3_1b (depth 2) and
 # its 2048-token calibrator: adaptive ranks at phase 5's ratio with μ 0 (the
 # reference's coala_adaptive row of Table 2, benchmarks/run.py:200-206);
 # Table 4's adapters at rank 8 on block 0 alone (depth 1: the α 0 and α 2
@@ -455,6 +485,33 @@ THM1_LAYER, THM1_MUS = "blocks/0/sub0/ffn/down", (1e-3, 1e-2, 1e-1)
 SVD_SLACK = 1.1             # 10c: the full fp32 solve against the fp64 optimum
 GRAD_ROWS = 512             # phase 7's backward rows: one fine-tuning step's 8 x 64
 
+# Phase 16, the training path: the train launcher's own default arch,
+# smollm_135m, at full width and full depth (30 layers, d 576, 9 / 3 heads,
+# hd 64, d_ff 1536, vocab 49152, tied), bf16 compute over the fp32 master,
+# remat dots: 40 steps of 8 x 128 tokens (~0.8 TFLOP a step), an async save
+# at 20 and a blocking one at 39 (a checkpoint is 3 x 134,515,008 x 4 B ~
+# 1.61 GB: parameters and two AdamW moments). Cut from 60 steps with saves at
+# 20 and 40 to stay inside the script's time: a step with remat dots takes
+# ~0.6 s on an H100, a forward + backward 3-5x one without remat (the
+# selective checkpoint's dispatch runs every op through Python)
+TRAIN_PARAMS = 134_515_008
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_RESUME = 40, 20, 20
+TRAIN_ARGS = ["--arch", "smollm_135m", "--steps", str(TRAIN_STEPS), "--seq", "128",
+              "--batch", "8", "--remat", "dots", "--ckpt-every", str(TRAIN_EVERY),
+              "--device", "cuda"]
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"     # git-ignored; removed after
+# the resumed run (from step 20) against the uninterrupted one at its end,
+# stated before the first run: the same tokens from the same bits, but the
+# card's reductions may part in the last bits and bf16 rounding can carry a
+# parting on: CE within 2e-2, parameters within 1e-2 in relative L2 norm
+TOL_RESUME_CE, TOL_RESUME_PARAMS = 2e-2, 1e-2
+# one forward + backward under none / dots / full from the same state: the
+# recomputed forward repeats its ops; each gradient within 1e-3 of its
+# largest entry of none's (any atomics in the backward), the loss within 1e-6
+TOL_REMAT_GRAD, TOL_REMAT_LOSS, REMAT_REPEATS = 1e-3, 1e-6, 3
+SMOLLM_PROJECTIONS = {      # smollm_135m's projections: (d_in, d_out)
+    "wq": (576, 576), "wk": (576, 192), "wv": (576, 192), "wo": (576, 576),
+    "gate": (576, 1536), "up": (576, 1536), "down": (1536, 576)}
 
 class Failure(Exception):
     pass
@@ -2191,8 +2248,8 @@ def mla_path(torch, ops):
 
 # qwen2_vl_2b (src/repro_torch/configs/qwen2_vl_2b.py) at full width: d_model
 # 1536, 12 / 2 heads (G 6), hd 128, d_ff 8960, vocab 151936, M-RoPE (16, 24,
-# 24), 256 vision tokens; its depth cut from 28 layers to 4 (0.42 G
-# parameters, 1.7 GB in fp32): each layer's seven COALA solves take seconds,
+# 24), 256 vision tokens; its depth cut from 28 layers to 4, then to 2 for
+# phase 16's time: each layer's seven COALA solves take seconds,
 # and the path is the same at any depth. (a) The fixed-batch launcher on the
 # pipeline's first batch: 4 rows of 64 tokens after 256 vision tokens, 16 new
 # tokens, fp32. (b) The continuous launcher, dense and COALA (λ 4), on phase
@@ -2205,7 +2262,7 @@ def mla_path(torch, ops):
 # not depend on the weights), through graphs with the detokenize worker, a
 # stream callback and the telemetry server attached, then eagerly; (c) the
 # offline lane on the trace's text half.
-VLM_LAYERS = 4
+VLM_LAYERS = 2
 VLM_KNOBS = dict(block_size=16, num_blocks=104, max_running=8)
 VLM_ARGS = ["--continuous", "--arch", "qwen2_vl_2b", "--compress-ratio", "0.6",
             "--requests", str(REQUESTS), "--prompt-len", "256",
@@ -3587,6 +3644,242 @@ def jamba_path(torch, ops):
 # phase 10: the compression core on phase 5's trained model
 # ---------------------------------------------------------------------------
 
+def _train_run(launcher, args) -> tuple:
+    """``launcher.main(args)`` with its printed lines kept and echoed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = launcher.main(args)
+    for line in buf.getvalue().splitlines():
+        log(f"    | {line}")
+    return res, buf.getvalue()
+
+
+def _leaf_files(d: Path, step: int) -> dict:
+    """The ``params/...`` leaves of checkpoint ``step`` in ``d``, by path."""
+    import numpy as np
+    path = d / f"step_{step}"
+    meta = json.loads((path / "manifest.json").read_text())
+    return {p: np.load(path / f"leaf_{i}.npy") for i, p in enumerate(meta["paths"])
+            if p.startswith("params/")}
+
+
+def train_path(torch, ops):
+    """Phase 16: ``repro_torch.launch.train.main`` with ``TRAIN_ARGS`` on
+    smollm_135m at full width and depth, (a) from scratch; (b) again from a
+    copy of its step-20 checkpoint beside a torn ``.tmp_step_39``, which must
+    resume at 21 and end within ``TOL_RESUME_*`` of (a); (c) one forward and
+    backward from (a)'s last state under each remat mode (ms, peak,
+    gradients against none's); (d) ``repro_torch.launch.compress.main`` with
+    ``--ckpt-in`` on (a)'s directory, ``--ckpt-out``, ``--numerics-report`` and
+    ``--trace-out``: COALA at 0.6, λ 4 through flash calibration, 0
+    non-finite factors, base CE equal to the last step's model's (and not an
+    untrained one's), the saved factors reloaded into a fresh model giving
+    the compressed CE exactly. Returns (summary, noted kernel shapes)."""
+    import shutil
+    import statistics
+    import numpy as np
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import compress as compress_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import build_model
+    from repro_torch.models.linear import Linear
+    from repro_torch.train.train_loop import compute_parameters, make_train_state
+
+    dev = torch.device("cuda")
+    cfg = get_config("smollm_135m")
+    d_a, d_b, d_c = TRAIN_DIR / "a", TRAIN_DIR / "b", TRAIN_DIR / "compressed"
+    trace_path = TRAIN_DIR / "trace.json"
+    out = {"params": TRAIN_PARAMS, "seconds": {}, "peak_gb": {}}
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    # what earlier phases still hold (uncollected cycles included) is not
+    # this phase's: collect it, and read the peaks against what stays
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = out["held_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    try:
+        # (a) train from scratch
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a, _ = _train_run(train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(d_a)])
+        out["seconds"]["train"] = time.perf_counter() - t0
+        _peak_step(torch, out["peak_gb"], "train")
+        n = sum(p.numel() for p in a["model"].parameters())
+        if n != TRAIN_PARAMS:
+            raise Failure(f"smollm_135m has {n} parameters, not {TRAIN_PARAMS}")
+        del a["model"]
+        want_saves = [(s, True) for s in range(TRAIN_EVERY, TRAIN_STEPS, TRAIN_EVERY)
+                      if s != TRAIN_STEPS - 1] + [(TRAIN_STEPS - 1, False)]
+        got_saves = [(s["step"], not s["blocking"]) for s in a["saves"]]
+        if got_saves != want_saves or a["ckpt_steps"] != [s for s, _ in want_saves][-3:]:
+            raise Failure(f"train saves {got_saves}, kept {a['ckpt_steps']}")
+        if not all(math.isfinite(c) for c in a["ce"]):
+            raise Failure(f"training CE not finite: {a['ce']}")
+        ms = 1e3 * statistics.median(a["step_seconds"][1:])
+        out["train"] = dict(ce_first=a["ce"][0], ce_last=a["ce"][-1], ms_per_step=ms,
+                            first_step_ms=1e3 * a["step_seconds"][0], saves=a["saves"])
+        log(f"  (a) {TRAIN_STEPS} steps: CE {a['ce'][0]:.4f} at step 0 -> "
+            f"{a['ce'][-1]:.4f} at step {TRAIN_STEPS - 1}; {ms:.1f} ms a step (median; "
+            f"the first {1e3 * a['step_seconds'][0]:.1f} ms); peak "
+            f"{out['peak_gb']['train']:.2f} GB ({held:.2f} GB of it held before the "
+            f"phase); {out['seconds']['train']:.1f} s")
+        for s in a["saves"]:
+            log(f"      save at step {s['step']} ({'blocking' if s['blocking'] else 'async'}):"
+                f" {s['seconds']:.3f} s on the caller, {s['write_seconds']:.3f} s writing")
+
+        # (b) a crash during the save after step 20: its checkpoint and a
+        # torn write of the next one (half a leaf, no manifest)
+        nxt = min(TRAIN_RESUME + TRAIN_EVERY, TRAIN_STEPS - 1)
+        shutil.copytree(d_a / f"step_{TRAIN_RESUME}", d_b / f"step_{TRAIN_RESUME}")
+        torn = d_b / f".tmp_step_{nxt}"
+        torn.mkdir()
+        leaf0 = (d_a / f"step_{nxt}" / "leaf_0.npy").read_bytes()
+        (torn / "leaf_0.npy").write_bytes(leaf0[:len(leaf0) // 2])
+        for s in a["ckpt_steps"][:-1]:
+            shutil.rmtree(d_a / f"step_{s}")
+        t0 = time.perf_counter()
+        b, text = _train_run(train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(d_b)])
+        out["seconds"]["resume"] = time.perf_counter() - t0
+        _peak_step(torch, out["peak_gb"], "resume")
+        del b["model"]
+        if f"[resume] step {TRAIN_RESUME}" not in text or b["start"] != TRAIN_RESUME + 1:
+            raise Failure(f"the rerun did not resume from step {TRAIN_RESUME}: "
+                          f"start {b['start']}")
+        resumed_saves = [TRAIN_RESUME] + [s for s, _ in want_saves if s > TRAIN_RESUME]
+        if b["ckpt_steps"] != resumed_saves[-3:] or torn.exists():
+            raise Failure(f"resumed run kept {b['ckpt_steps']}; torn dir left: "
+                          f"{torn.exists()}")
+        la, lb = _leaf_files(d_a, TRAIN_STEPS - 1), _leaf_files(d_b, TRAIN_STEPS - 1)
+        num = math.sqrt(sum(float(np.sum((la[k].astype(np.float64) - lb[k]) ** 2))
+                            for k in la))
+        den = math.sqrt(sum(float(np.sum(la[k].astype(np.float64) ** 2)) for k in la))
+        max_abs = max(float(np.max(np.abs(la[k] - lb[k]))) for k in la)
+        bits = all(np.array_equal(la[k], lb[k]) for k in la)
+        d_ce = abs(b["ce"][-1] - a["ce"][-1])
+        del la, lb
+        shutil.rmtree(d_b)
+        out["resume"] = dict(start=b["start"], ce_last=b["ce"][-1], ce_diff=d_ce,
+                             params_rel_l2=num / den, params_max_abs=max_abs,
+                             bit_equal=bits)
+        log(f"  (b) resumed at step {b['start']} past a torn .tmp_step_{nxt}: "
+            f"CE {b['ce'][-1]:.6f} at step {TRAIN_STEPS - 1} against {a['ce'][-1]:.6f} "
+            f"(|diff| {d_ce:.3e}, tol {TOL_RESUME_CE}); parameters: relative L2 "
+            f"{num / den:.3e} (tol {TOL_RESUME_PARAMS}), max |diff| {max_abs:.3e}, bit "
+            f"for bit: {bits}; {out['seconds']['resume']:.1f} s")
+        if d_ce > TOL_RESUME_CE or num / den > TOL_RESUME_PARAMS:
+            raise Failure("the resumed run parted from the uninterrupted one")
+
+        # (c) remat: one forward + backward from (a)'s last state per mode
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev)
+        state = make_train_state(model)
+        CheckpointManager(str(d_a)).restore(state)
+        del state
+        tokens = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                          global_batch=8), cfg,
+                               device=dev).get_batch(TRAIN_STEPS)["tokens"]
+        out["remat"], grads = {}, {}
+        for mode in ("none", "dots", "full"):
+            times = []
+            for _ in range(REMAT_REPEATS):
+                for p in model.parameters():
+                    p.grad = None
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                with compute_parameters(model, torch.bfloat16):
+                    loss, _ = model.loss(tokens, compute_dtype=torch.bfloat16,
+                                         remat=mode)
+                    loss.backward()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            STEP_PEAKS.append(peak)
+            grads[mode] = ({k: p.grad for k, p in model.named_parameters()},
+                           float(loss.detach()))
+            out["remat"][mode] = dict(ms=1e3 * statistics.median(times[1:]), peak_gb=peak,
+                                      loss=grads[mode][1])
+        base, base_loss = grads["none"]
+        for mode in ("dots", "full"):
+            g, l_mode = grads[mode]
+            worst = max(float((g[k] - base[k]).abs().max()) /
+                        max(float(base[k].abs().max()), 1e-30) for k in base)
+            exact = all(torch.equal(g[k], base[k]) for k in base)
+            out["remat"][mode].update(grad_rel_err=worst, bit_equal=exact)
+            if worst > TOL_REMAT_GRAD or abs(l_mode - base_loss) > TOL_REMAT_LOSS * abs(base_loss):
+                raise Failure(f"remat {mode}: gradients {worst:.3e} of their max from "
+                              f"none's, loss {l_mode} against {base_loss}")
+        del grads, base
+        for mode, r in out["remat"].items():
+            log(f"  (c) remat {mode}: forward + backward {r['ms']:.1f} ms, peak "
+                f"{r['peak_gb']:.3f} GB ({held:.3f} held before the phase), loss "
+                f"{r['loss']:.6f}"
+                + (f"; gradients within {r['grad_rel_err']:.3e} of none's (bit for bit: "
+                   f"{r['bit_equal']})" if mode != "none" else ""))
+        for p in model.parameters():
+            p.grad = None
+        pipe = compress_launcher.make_pipeline(cfg, dev)
+        trained_ce = compress_launcher.eval_ce(model, pipe)
+        del model
+        untrained = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(1))
+        untrained_ce = compress_launcher.eval_ce(untrained, pipe)
+        del untrained
+        out["seconds"]["remat"] = time.perf_counter() - t0
+
+        # (d) the compress launcher from (a)'s checkpoint
+        t0 = time.perf_counter()
+        with KernelCalls(ops) as calls:
+            res, text = _train_run(compress_launcher, [
+                "--arch", "smollm_135m", "--ckpt-in", str(d_a), "--ckpt-out", str(d_c),
+                "--numerics-report", "--trace-out", str(trace_path), "--device", "cuda"])
+        out["seconds"]["compress"] = time.perf_counter() - t0
+        _peak_step(torch, out["peak_gb"], "compress")
+        s = res["summary"]
+        bad = _nonfinite(res["reports"])
+        if res["ckpt_step"] != TRAIN_STEPS - 1 or res["seconds"]["pretrain"] != 0.0:
+            raise Failure(f"compress --ckpt-in restored step {res['ckpt_step']}")
+        if bad or not math.isfinite(s["compressed_ce"]):
+            raise Failure(f"coala on the trained model: {len(bad)} non-finite: {bad}")
+        if s["base_ce"] != trained_ce or s["base_ce"] == untrained_ce:
+            raise Failure(f"base CE {s['base_ce']}: the step-{TRAIN_STEPS - 1} model's is {trained_ce}, "
+                          f"an untrained one's {untrained_ce}")
+        if "# calibration numerics" not in text or "resid/bound" not in text:
+            raise Failure("--numerics-report printed no report")
+        fresh = build_model(cfg, device=dev)
+        for name, mod in res["compressed"].named_modules():
+            if isinstance(mod, Linear) and mod.is_factored:
+                fresh.get_submodule(name).set_factors(torch.zeros_like(mod.b_t),
+                                                      torch.zeros_like(mod.a_t))
+        CheckpointManager(str(d_c)).restore({"params": fresh})
+        reloaded_ce = compress_launcher.eval_ce(fresh, pipe)
+        launcher_seconds = res["seconds"]
+        del fresh, res
+        if reloaded_ce != s["compressed_ce"]:
+            raise Failure(f"the reloaded factors give CE {reloaded_ce}, the launcher "
+                          f"{s['compressed_ce']}")
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        spans = collections.Counter(e["name"] for e in events if e["ph"] == "X")
+        if not (spans["ckpt.restore"] and spans["ckpt.save"]):
+            raise Failure(f"the trace holds no ckpt spans: {dict(spans)}")
+        out["compress"] = dict(summary=s, nonfinite=0, untrained_ce=untrained_ce,
+                               reloaded_ce=reloaded_ce, seconds=launcher_seconds,
+                               spans=dict(spans))
+        log(f"  (d) compress --ckpt-in step {TRAIN_STEPS - 1}: base CE {s['base_ce']:.4f} "
+            f"(the step-{TRAIN_STEPS - 1} model's {trained_ce:.4f}; untrained {untrained_ce:.4f}), "
+            f"COALA CE {s['compressed_ce']:.4f}, kept {s['kept_ratio']:.4f}, 0 non-finite "
+            f"of {s['layers']}; reloaded from --ckpt-out: CE {reloaded_ce:.4f} (equal); "
+            f"trace spans {dict(spans)}; {out['seconds']['compress']:.1f} s")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    return out, calls.shapes()
+
+
 def adaptive_path(torch, ops, coala):
     """10a: ``compress_model(adaptive_rank=True)`` on phase 5's trained model
     and calibrator (coala, ratio ``ADAPTIVE_RATIO``, μ 0): kept ratio, more
@@ -4742,6 +5035,18 @@ def run(args) -> int:
         raise Failure(f"kernels launched on the jamba path: {launched}")
     log(f"  kernel shapes noted on the jamba path: {json.dumps(jb_shapes)}")
 
+    log("[16 train path] python -m repro_torch.launch.train " + " ".join(TRAIN_ARGS)
+        + f" on smollm_135m at full width and depth ({TRAIN_PARAMS:,} parameters, bf16 "
+        "compute over the fp32 master); the same resumed from its step-"
+        f"{TRAIN_RESUME} checkpoint beside a torn write; one step under each remat mode; "
+        "python -m repro_torch.launch.compress --arch smollm_135m --ckpt-in ... --ckpt-out "
+        "... --numerics-report --trace-out ...")
+    (tr, tr_shapes), tr_counts, peak = path_window(
+        "train", ("lowrank_linear", "flash_attention"), lambda: train_path(torch, ops))
+    tr["peak_memory_gb"] = peak
+    log(f"  phases (s): {tr['seconds']}")
+    log(f"  kernel shapes noted on the train path: {json.dumps(tr_shapes)}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
     log("[7 kernels] against plain versions on the card, at the paths' shapes")
@@ -4838,6 +5143,15 @@ def run(args) -> int:
             torch, ops, paged_attention_ref, chunked_prefill_ref, dev, gen, jb_shapes,
             flush, label="jamba", heads=JAMBA_HEADS, scale=None, cap=0.0, windows=(0,),
             chunked=False, timed_dtypes=("float32", "bfloat16"))}
+    log("[7 kernels] at smollm_135m's shapes (phase 16): its seven projections at the "
+        "compress launcher's rows and M 8 (flash's case is in the flash line above)")
+    smollm_proj = {name: (d_in, rank_for_ratio(d_in, d_out, 0.6), d_out)
+                   for name, (d_in, d_out) in SMOLLM_PROJECTIONS.items()}
+    m_train = tr_shapes["lowrank_m_max"]
+    train_kernels = {"lowrank_linear": check_lowrank(
+        torch, ops, lowrank_linear_ref, dev, gen,
+        {"lowrank_m_decode": m_train, "lowrank_m_max": m_train}, flush,
+        proj=smollm_proj, model="smollm_135m", extra_rows=(8,))}
     log("[7 kernels] lowrank_linear at phase 10's adaptive ranks (block 0) and under "
         f"autograd at M {GRAD_ROWS}: rank {ADAPTER_RANK} on the seven projections, and "
         "one odd adaptive rank")
@@ -4885,7 +5199,7 @@ def run(args) -> int:
                 "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
                 "qwen2_vl": vlm_counts, "xlstm": xl_counts, "whisper": wh_counts,
-                "jamba": jb_counts}
+                "jamba": jb_counts, "train": tr_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -4905,7 +5219,8 @@ def run(args) -> int:
                                   "compress": comp, "gram": gram, "gemma2": gemma,
                                   "deepseek": moe, "deepseek_v2_mla": mla,
                                   "compression_core": core, "qwen2_vl": vlm,
-                                  "xlstm": xl, "whisper": wh, "jamba": jb},
+                                  "xlstm": xl, "whisper": wh, "jamba": jb,
+                                  "train": tr},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,
@@ -4916,6 +5231,7 @@ def run(args) -> int:
                     "xlstm_kernels": xlstm_kernels,
                     "whisper_kernels": whisper_kernels,
                     "jamba_kernels": jamba_kernels,
+                    "train_kernels": train_kernels,
                     "paged_mixed": results["paged_attention"]["mixed"],
                     "chunked_mixed": results["chunked_prefill"]["mixed"],
                     "chunked_verify": results["chunked_prefill"]["verify"],

@@ -147,10 +147,11 @@ class ModelConfig:
 class TrainConfig:
     """AdamW + schedule settings (copy of ``repro/config.py:167-184``).
 
-    ``remat`` and ``grad_compress_pods`` are kept so that configs carry over,
-    but the port reads neither: it trains eagerly without activation
-    rematerialization and on one device, so there is no cross-pod reduce to
-    compress."""
+    ``remat`` (none | dots | full) rematerializes each layer period in the
+    backward, as the reference's ``jax.checkpoint`` of its scanned body
+    (``models/common.py::rematerialize``). ``grad_compress_pods`` is kept so
+    that configs carry over: on one device there is no cross-pod reduction
+    to compress, and the reference's launcher adds none there either."""
     lr: float = 3e-4
     weight_decay: float = 0.1
     b1: float = 0.9
@@ -162,8 +163,8 @@ class TrainConfig:
     total_steps: int = 1000
     decay_frac: float = 0.1           # WSD decay fraction
     microbatches: int = 1             # grad accumulation
-    remat: str = "dots"               # none | dots | full (not acted on)
-    grad_compress_pods: bool = False  # not acted on (single device)
+    remat: str = "dots"               # none | dots | full
+    grad_compress_pods: bool = False  # int8+EF cross-pod grads (a mesh's)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     seed: int = 0

@@ -16,10 +16,19 @@ leaves under ``….w_gate.w`` (dense) or ``….w_gate.b_t`` / ``….w_gate.a_t``
 (factored), so the conversion is mechanical and bit-exact both ways. The
 ``enc`` and ``dec`` stacks unstack into ``enc.<i>.…`` / ``dec.<i>.…`` as
 ``blocks`` does.
+
+A train state ``{"model", "opt"}`` converts to the reference's ``{"params",
+"opt": {"m", "v", "step"}}`` flattened as ``jax.tree_util.
+tree_flatten_with_path`` flattens it (``state_to_flat``): the ``/``-joined
+paths in the reference's leaf order (dict keys sorted, list and tuple
+positions in order), AdamW's moments stacked as the parameters are, and
+``step`` an int32 0-d array. The checkpoints of both packages are written in
+that form. A bf16 leaf is held as its 2-byte bits in numpy's void dtype
+``V2``, which is what ``np.load`` gives for the reference's bf16 leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -150,3 +159,116 @@ def _put(tree: dict, parts, leaf) -> None:
     for k in parts[:-1]:
         node = node.setdefault(k, {})
     node[parts[-1]] = leaf
+
+
+# ---------------------------------------------------------------------------
+# flattened trees: checkpoints and train states
+# ---------------------------------------------------------------------------
+
+BF16_BITS = np.dtype("V2")      # numpy's form of a bf16 leaf: its raw bits
+
+
+def to_numpy(t: torch.Tensor, *, copy: bool = False) -> np.ndarray:
+    """``t`` on the host as numpy, a bf16 tensor as its ``V2`` bits;
+    ``copy`` gives storage of its own even where ``t`` is on the CPU already
+    (``.cpu()`` of a CPU tensor is the tensor itself)."""
+    t = t.detach().to("cpu", copy=copy)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray) -> torch.Tensor:
+    """Inverse of ``to_numpy``, on the CPU: a ``V2`` array is bf16 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == BF16_BITS:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _param_path(name: str, banks) -> Tuple[tuple, Optional[int]]:
+    """The reference's path of parameter ``name`` (a tuple of dict keys and
+    list / tuple positions) and its index on the stacked axis (None where
+    the reference does not stack it)."""
+    owner, _, leaf = name.rpartition(".")
+    parts = name.split(".")
+    if owner in banks:              # an expert bank: bare array or (b_t, a_t)
+        parts = parts[:-1] + ([] if leaf == "w" else [("b_t", "a_t").index(leaf)])
+    if parts[0] in STACKED:
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
+    if parts[0] == "prefix":
+        return ("prefix", int(parts[1])) + tuple(parts[2:]), None
+    return tuple(parts), None
+
+
+def _slots(model, tensors: Dict[str, torch.Tensor], root: tuple
+           ) -> Dict[tuple, List[Tuple[Optional[int], torch.Tensor]]]:
+    """{reference path under ``root``: [(stack index, tensor)]} of
+    ``tensors``, keyed as ``model``'s parameters."""
+    banks = {n for n, m in model.named_modules() if isinstance(m, ExpertBank)}
+    out: Dict[tuple, list] = {}
+    for name, t in tensors.items():
+        path, rep = _param_path(name, banks)
+        out.setdefault(root + path, []).append((rep, t))
+    return out
+
+
+def _state_slots(state) -> Dict[tuple, list]:
+    """The leaves of a port state in the reference's tree: ``{"model",
+    "opt"}`` (a train state) is ``{"params", "opt": {"m", "v", "step"}}``,
+    and ``{"params": model}`` is ``{"params"}``. ``step`` is a slot of its
+    own, ``[(None, opt)]``."""
+    model = state["model"] if "model" in state else state["params"]
+    slots = _slots(model, dict(model.named_parameters()), ("params",))
+    if "opt" in state:
+        opt = state["opt"]
+        for k in ("m", "v"):
+            slots.update(_slots(model, opt[k], ("opt", k)))
+        slots[("opt", "step")] = [(None, opt)]
+    return dict(sorted(slots.items()))
+
+
+def _path_str(path: tuple) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def state_paths(state) -> List[str]:
+    """The reference's flattened paths of ``state`` (see ``_state_slots``),
+    in its leaf order."""
+    return [_path_str(p) for p in _state_slots(state)]
+
+
+def state_to_flat(state, *, copy: bool = False) -> Dict[str, np.ndarray]:
+    """{path: numpy leaf} of a port state in the reference's leaf order: a
+    stacked leaf stacked on its device first, then brought to the host
+    (``to_numpy``; ``copy`` as there); ``step`` an int32 0-d array."""
+    out = {}
+    for path, items in _state_slots(state).items():
+        key = _path_str(path)
+        if path == ("opt", "step"):
+            out[key] = np.asarray(items[0][1]["step"], np.int32)
+        elif items[0][0] is None:                 # one leaf, not stacked
+            out[key] = to_numpy(items[0][1], copy=copy)
+        else:
+            items.sort(key=lambda it: it[0])
+            out[key] = to_numpy(torch.stack([t.detach() for _, t in items]))
+    return out
+
+
+@torch.no_grad()
+def load_flat(state, flat: Dict[str, np.ndarray]) -> None:
+    """Copy ``flat`` ({path: numpy leaf}, as ``state_to_flat`` gives) into
+    ``state``'s parameters and moments in place (``copy_``, so references
+    held to them stay valid); ``step`` becomes an int."""
+    for path, items in _state_slots(state).items():
+        key = _path_str(path)
+        if path == ("opt", "step"):
+            items[0][1]["step"] = int(flat[key])
+            continue
+        src = from_numpy(flat[key])
+        for rep, t in items:
+            part = src if rep is None else src[rep]
+            if tuple(part.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: leaf has {tuple(part.shape)}, "
+                                 f"the state {tuple(t.shape)}")
+            t.copy_(part.to(device=t.device, dtype=t.dtype))

@@ -26,6 +26,7 @@ from repro_torch.models import STACKED
 from repro_torch.models.common import CPU_CTX, ParallelCtx
 from repro_torch.models.ffn import MoE
 from repro_torch.models.linear import Linear
+from repro_torch.obs import trace
 
 
 def block_modules(model, kind):
@@ -92,13 +93,15 @@ class Calibrator:
         ``TrafficCalibrator`` slices the positions it has not seen)."""
         n = x.shape[-1]
         flat = x.float().reshape(-1, n)
-        if path not in self.streams:
-            self.streams[path] = RStreamer(n)
-        for i in range(0, flat.shape[0], MAX_TOKENS_PER_RECORD):
-            self.streams[path].update(flat[i:i + MAX_TOKENS_PER_RECORD])
-        if self.collect_gram:
-            g = ops.gram_accum(flat.contiguous())
-            self.grams[path] = g if path not in self.grams else self.grams[path] + g
+        with trace.span("calib.record", path=path, tokens=flat.shape[0]):
+            if path not in self.streams:
+                self.streams[path] = RStreamer(n)
+            for i in range(0, flat.shape[0], MAX_TOKENS_PER_RECORD):
+                self.streams[path].update(flat[i:i + MAX_TOKENS_PER_RECORD])
+            if self.collect_gram:
+                g = ops.gram_accum(flat.contiguous())
+                self.grams[path] = (g if path not in self.grams
+                                    else self.grams[path] + g)
 
     def reset(self) -> None:
         """Drop every accumulated stream and Gram, keeping the instance."""

@@ -28,9 +28,16 @@ Runs on the GPU by default and raises without one unless ``--device cpu``.
 Pretraining runs the dense attention path (the flash kernel has no
 backward); evaluation and calibration run with ``ParallelCtx(use_pallas=
 True)``, so on the card they go through the CUDA flash kernel, and the
-compressed model's projections through the lowrank_linear kernel. The mesh
-(sharded calibration), checkpoints, the numerics report and the trace
-export wait for later slices.
+compressed model's projections through the lowrank_linear kernel.
+
+``--ckpt-in DIR`` restores the newest train state ``{"params", "opt"}`` of
+DIR (``launch/train.py``'s, or the reference's: the format is shared) in
+place of pretraining; ``--ckpt-out DIR`` saves ``{"params"}`` of the
+compressed model as step 0; ``--numerics-report`` prints the calibration's
+and the compression's per-layer health (``obs/numerics.py``);
+``--trace-out PATH`` writes the span trace of the run (calibration,
+compression and the ``ckpt.*`` spans). The mesh (sharded calibration) waits
+for the distributed slice.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.config import CompressConfig, TrainConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.calibrate import calibrate_model
@@ -49,6 +57,7 @@ from repro_torch.core.compress import compress_model, compression_summary
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.models import build_model
 from repro_torch.models.common import CPU_CTX, ParallelCtx
+from repro_torch.obs import numerics, trace as obs_trace
 from repro_torch.train.train_loop import make_train_state, make_train_step
 
 CALIB_BATCH = 8          # rows per calibration batch (the TokenPipeline below)
@@ -90,7 +99,9 @@ def main(argv=None, cfg=None):
     model, the ``calibrator``, the ``calib_batches`` ((B, T) tokens, or a
     vlm's ``{"tokens", "vision_embeds"}`` and an encoder–decoder's
     ``{"tokens", "frames"}`` batches) and the ``seconds`` of
-    each phase (pretrain, eval, calibrate, compress). ``cfg``, a
+    each phase (pretrain, eval, calibrate, compress, and ``ckpt_out`` with
+    ``--ckpt-out``); with ``--ckpt-in`` also ``ckpt_step``, the step it
+    restored. ``cfg``, a
     ModelConfig, replaces the one ``--arch``/``--smoke`` name (a
     full-width configuration cut in depth, say)."""
     ap = argparse.ArgumentParser()
@@ -104,10 +115,22 @@ def main(argv=None, cfg=None):
     ap.add_argument("--calib-batches", type=int, default=4)
     ap.add_argument("--pretrain-steps", type=int, default=100,
                     help="train a base model first (no public weights offline)")
+    ap.add_argument("--ckpt-in", default="", help="restore base model instead")
+    ap.add_argument("--ckpt-out", default="")
+    ap.add_argument("--numerics-report", action="store_true",
+                    help="print per-layer numerical health after "
+                         "calibration: cond(R) with warn/fail grading, "
+                         "insufficient-data flags, and achieved residual "
+                         "vs. the attainable bound (obs/numerics.py)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "calibration/compression spans to this path")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.trace_out:
+        obs_trace.enable()
 
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -115,17 +138,26 @@ def main(argv=None, cfg=None):
     model = build_model(cfg, device=device)
     pipe = make_pipeline(cfg, device)
 
+    # remat none where the reference keeps TrainConfig's dots: the modes
+    # give the same bits, the batch's activations are small, and on the card
+    # a dots step costs 3-5x (its selective checkpoint dispatches in Python)
     tcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=args.pretrain_steps,
-                       schedule="cosine", compute_dtype="float32")
+                       schedule="cosine", compute_dtype="float32", remat="none")
     _sync(device)
     t0 = time.perf_counter()
     state = make_train_state(model, torch.Generator(device=device).manual_seed(0))
-    step = make_train_step(model, tcfg, CPU_CTX)
-    for i in range(args.pretrain_steps):
-        state, _ = step(state, pipe.get_batch(i))
-    del state, step                      # frees the AdamW moments (~10 GB)
+    if args.ckpt_in:
+        _, meta = CheckpointManager(args.ckpt_in).restore(state)
+        ckpt_step = meta["step"]
+        print(f"restored step {ckpt_step} from {args.ckpt_in}")
+    else:
+        step = make_train_step(model, tcfg, CPU_CTX)
+        for i in range(args.pretrain_steps):
+            state, _ = step(state, pipe.get_batch(i))
+        del step
+    del state                            # frees the AdamW moments (~10 GB)
     _sync(device)
-    seconds["pretrain"] = time.perf_counter() - t0
+    seconds["pretrain"] = 0.0 if args.ckpt_in else time.perf_counter() - t0
 
     t0 = time.perf_counter()
     base_ce = eval_ce(model, pipe)
@@ -140,6 +172,9 @@ def main(argv=None, cfg=None):
     cal = calibrate_model(model, calib_batches, ctx=KERNEL_CTX)
     _sync(device)
     seconds["calibrate"] = time.perf_counter() - t0
+    if args.numerics_report:
+        print("# calibration numerics")
+        print(numerics.format_report(numerics.check_calibration(cal)))
 
     ccfg = CompressConfig(method=args.method, ratio=args.ratio, lam=args.lam,
                           mu=args.mu, use_rsvd=args.rsvd)
@@ -147,6 +182,9 @@ def main(argv=None, cfg=None):
     cmodel, reports = compress_model(model, cal, ccfg)
     _sync(device)
     seconds["compress"] = time.perf_counter() - t0
+    if args.numerics_report:
+        print("# projection residual vs attainable bound")
+        print(numerics.format_report(numerics.check_compression(reports)))
 
     t0 = time.perf_counter()
     s = compression_summary(reports)
@@ -154,9 +192,21 @@ def main(argv=None, cfg=None):
              compressed_ce=eval_ce(cmodel, pipe))
     seconds["eval"] += time.perf_counter() - t0
     print(json.dumps(s, indent=1))
-    return {"summary": s, "reports": reports, "model": model,
-            "compressed": cmodel, "calibrator": cal,
-            "calib_batches": calib_batches, "seconds": seconds}
+    if args.ckpt_out:
+        t0 = time.perf_counter()
+        CheckpointManager(args.ckpt_out).save(0, {"params": cmodel})
+        seconds["ckpt_out"] = time.perf_counter() - t0
+        print("saved to", args.ckpt_out)
+    if args.trace_out:
+        n = obs_trace.save(args.trace_out)
+        obs_trace.disable()
+        print(f"wrote {n} trace events to {args.trace_out}")
+    out = {"summary": s, "reports": reports, "model": model,
+           "compressed": cmodel, "calibrator": cal,
+           "calib_batches": calib_batches, "seconds": seconds}
+    if args.ckpt_in:
+        out["ckpt_step"] = ckpt_step
+    return out
 
 
 if __name__ == "__main__":

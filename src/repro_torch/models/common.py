@@ -1,8 +1,8 @@
 """Shared model building blocks: parallel context, norms (RMSNorm and olmo's
 non-parametric LayerNorm), RoPE and qwen2-vl's M-RoPE, softcap,
 activations, init, the recurrences' time loop (port of
-``repro/models/common.py:11-36`` and ``:84-221``) and the deterministic
-scatter of padding rows."""
+``repro/models/common.py:11-36`` and ``:84-221``), the deterministic
+scatter of padding rows and the layer rematerialization of training."""
 from __future__ import annotations
 
 import dataclasses
@@ -182,6 +182,41 @@ def last_write_wins(keys: torch.Tensor, n_targets: int) -> torch.Tensor:
     rows = torch.arange(keys.shape[0], device=keys.device)
     win = torch.full((n_targets,), -1, dtype=torch.long, device=keys.device)
     return win.scatter_reduce_(0, keys, rows, reduce="amax")[keys]
+
+
+REMAT_MODES = ("none", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of products
+    without a batch dimension (every projection, ``x @ w``, is an ``mm`` or
+    ``addmm`` here), recompute the rest, the batched attention products
+    (``bmm``) included."""
+    policy = torch.utils.checkpoint.CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return policy.MUST_SAVE
+    return policy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _save_dots)
+
+
+def rematerialize(fn, remat: str, *args):
+    """``fn(*args)`` under the reference's ``jax.checkpoint`` of a scanned
+    layer body (``repro/models/transformer.py:332-337``): ``none`` keeps
+    every activation for the backward; ``full`` (``nothing_saveable``) keeps
+    only ``args`` and recomputes the rest in the backward; ``dots`` keeps the
+    outputs of the unbatched products as well. Without autograd it is a
+    plain call. A recurrent mixer's own per-chunk checkpoint nests inside."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {"context_fn": _dots_context} if remat == "dots" else {}
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kw)
 
 
 def chunked_scan(f, init, xs, chunk: int):

@@ -33,6 +33,7 @@ in the loss, calibration and prefill, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Tuple
 
@@ -42,7 +43,8 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import (GQA, CrossAttention,
                                           cross_cache_from_encoder)
-from repro_torch.models.common import CPU_CTX, ParallelCtx, RMSNorm, dense_init
+from repro_torch.models.common import (CPU_CTX, ParallelCtx, RMSNorm,
+                                       dense_init, rematerialize)
 from repro_torch.models.ffn import MLP
 from repro_torch.models.linear import Linear
 from repro_torch.models.transformer import chunked_ce
@@ -211,14 +213,18 @@ class EncDecLM(torch.nn.Module):
         return torch.as_tensor(frames, device=self.device).to(dtype)
 
     def _decoder(self, x, *, enc_out=None, cache=None, pos=None,
-                 paged_tables=None, slots=None, ctx: ParallelCtx = CPU_CTX):
-        """Final-normed decoder states of the embedded tokens ``x``."""
+                 paged_tables=None, slots=None, ctx: ParallelCtx = CPU_CTX,
+                 remat: str = "none"):
+        """Final-normed decoder states of the embedded tokens ``x``.
+        ``remat`` (``common.rematerialize``) applies to each decoder layer,
+        the reference's scanned body; the encoder is not rematerialized, as
+        in the reference."""
         if slots is not None:
             slots = slots.long()
         for i, layer in enumerate(self.dec):
-            x = layer(x, enc_out=enc_out,
-                      cache=None if cache is None else cache[i], pos=pos,
-                      paged_tables=paged_tables, slots=slots, ctx=ctx)
+            x = rematerialize(functools.partial(
+                layer, enc_out=enc_out, cache=None if cache is None else cache[i],
+                pos=pos, paged_tables=paged_tables, slots=slots, ctx=ctx), remat, x)
         return self.dec_final_norm(x)
 
     def _logits(self, h):
@@ -226,15 +232,17 @@ class EncDecLM(torch.nn.Module):
 
     # ---------------- public: train loss ------------------------------------
     def loss(self, tokens, *, frames, ctx: ParallelCtx = CPU_CTX,
-             loss_chunk: int = 512, compute_dtype=torch.bfloat16
+             remat: str = "none", loss_chunk: int = 512,
+             compute_dtype=torch.bfloat16
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token CE of ``tokens`` (B, T) given ``frames`` (B, S,
         d_model), activations in ``compute_dtype``; returns ``(ce, {"ce",
-        "aux"})`` with aux 0. Differentiable unless ``ctx`` selects the flash
-        kernel, which has no backward."""
+        "aux"})`` with aux 0. ``remat`` rematerializes each decoder layer in
+        the backward (``_decoder``). Differentiable unless ``ctx`` selects
+        the flash kernel, which has no backward."""
         enc_out = self.encode(self._frames(frames, compute_dtype), ctx=ctx)
         x = self._embed_dec(tokens, 0).to(compute_dtype)
-        h = self._decoder(x, enc_out=enc_out, ctx=ctx)
+        h = self._decoder(x, enc_out=enc_out, ctx=ctx, remat=remat)
         ce = chunked_ce(h[:, :-1], tokens[:, 1:], self.embed.T,
                         chunk=loss_chunk)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,

@@ -40,6 +40,7 @@ entry points run under ``torch.no_grad``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -49,8 +50,8 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import (CPU_CTX, ParallelCtx, dense_init,
-                                       make_norm, mrope_cos_sin, rope_cos_sin,
-                                       softcap)
+                                       make_norm, mrope_cos_sin, rematerialize,
+                                       rope_cos_sin, softcap)
 from repro_torch.models.ffn import MLP, ExpertBank, MoE
 from repro_torch.models.linear import Linear
 from repro_torch.models.ssm import Mamba
@@ -357,22 +358,37 @@ class LM(torch.nn.Module):
     # ---------------- backbone ----------------------------------------------
     def _backbone(self, x, *, ctx: ParallelCtx = CPU_CTX, compute_dtype=None,
                   cache=None, pos=None, paged_tables=None, lens=None,
-                  slots=None):
+                  slots=None, remat: str = "none"):
         """Final-normed hidden states and the summed MoE aux loss of the
         embedded sequence ``x`` (B, T, d_model; see ``_embed``). ``slots``
-        (B,) are the rows' state slots in ``cache``'s slot stores."""
+        (B,) are the rows' state slots in ``cache``'s slot stores. ``remat``
+        (none | dots | full, ``common.rematerialize``) applies to each period
+        rep, the reference's scanned body; the unrolled prefix layers are
+        not rematerialized, as in the reference."""
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         cos_sin = self._cos_sin(x.shape[0], x.shape[1], pos)
         if slots is not None:
             slots = slots.long()
+
+        def run(blocks, x, aux_total, first):
+            for j, blk in enumerate(blocks):
+                x, aux = blk(x, cos_sin,
+                             cache=None if cache is None else cache[first + j],
+                             pos=pos, paged_tables=paged_tables, lens=lens,
+                             ctx=ctx, slots=slots)
+                if aux is not None:
+                    aux_total = aux_total + aux
+            return x, aux_total
+
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i, blk in enumerate(self.layers()):
-            x, aux = blk(x, cos_sin, cache=None if cache is None else cache[i],
-                         pos=pos, paged_tables=paged_tables, lens=lens, ctx=ctx,
-                         slots=slots)
-            if aux is not None:
-                aux_total = aux_total + aux
+        x, aux_total = run(self.prefix, x, aux_total, 0)
+        first = len(self.prefix)
+        for rep in self.blocks:
+            subs = list(rep.values())
+            x, aux_total = rematerialize(
+                functools.partial(run, subs, first=first), remat, x, aux_total)
+            first += len(subs)
         return self.final_norm(x), aux_total
 
     def _head_w(self):
@@ -390,18 +406,20 @@ class LM(torch.nn.Module):
 
     # ---------------- public: train loss ------------------------------------
     def loss(self, tokens, *, vision_embeds=None, ctx: ParallelCtx = CPU_CTX,
-             loss_chunk: int = 512, compute_dtype=torch.bfloat16
+             remat: str = "none", loss_chunk: int = 512,
+             compute_dtype=torch.bfloat16
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token CE of ``tokens`` (B, T) with activations in
         ``compute_dtype``; returns ``(ce + aux, {"ce", "aux"})`` (aux is the
         MoE layers' weighted load-balance loss, 0 for dense models). A vlm
         takes ``vision_embeds`` (B, n_vision_tokens, d_model) and, as the
         reference does, leaves the first ``n_vision_tokens`` positions out
-        of the CE. Differentiable unless ``ctx`` selects the flash kernel,
-        which has no backward: evaluate that under ``no_grad``."""
+        of the CE. ``remat`` rematerializes each period rep in the backward
+        (``_backbone``). Differentiable unless ``ctx`` selects the flash
+        kernel, which has no backward: evaluate that under ``no_grad``."""
         cfg = self.cfg
         h, aux = self._backbone(self._embed(tokens, vision_embeds), ctx=ctx,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, remat=remat)
         n_vis = cfg.n_vision_tokens if cfg.family == "vlm" else 0
         ce = chunked_ce(h[:, n_vis:][:, :-1], tokens[:, 1:], self._head_w(),
                         transform=self._logit_transform, chunk=loss_chunk)

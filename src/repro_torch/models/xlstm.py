@@ -184,8 +184,10 @@ class MLSTM(torch.nn.Module):
         k = self.wk(u).reshape(b, t, h, hd) / math.sqrt(hd)
         v = self.wv(u).reshape(b, t, h, hd)
         uf = u.float()
-        log_i = uf @ self.w_i                             # (B, T, H)
-        log_f = F.logsigmoid(uf @ self.w_f + self.f_bias)
+        # the gate vectors in fp32 (bf16 under a bf16 training step's cast),
+        # as the reference's fp32 @ w_i promotes them
+        log_i = uf @ self.w_i.float()                     # (B, T, H)
+        log_f = F.logsigmoid(uf @ self.w_f.float() + self.f_bias)
         shapes = self.state_shapes()                      # c, n, m
         state = read_state(cache, slots, shapes, b, x.device)
         qf, kf, vf = (a.float() for a in (q, k, v))

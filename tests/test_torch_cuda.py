@@ -1263,3 +1263,99 @@ def test_engine_cuda_jamba_graphs_match_eager(jamba_models, name):
     assert counts["paged_attention"] == n_attn * m["decode_steps"]
     assert (counts["lowrank_linear"] > 0) == (name == "coala")
     assert counts["chunked_prefill"] == 0
+
+
+# ---------------------------------------------------------------------------
+# training and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_checkpoint_cuda_roundtrip(cuda, tmp_path):
+    """A train state of llama3_1b SMOKE on the card after one bf16 step, and
+    a bf16 model, saved (async) and restored into fresh states on the card:
+    every parameter and moment bit for bit, the step count too."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    cfg = get_smoke_config("llama3_1b")
+    model = build_model(cfg, device=cuda)
+    state = make_train_state(model, torch.Generator(device=cuda).manual_seed(0))
+    step = make_train_step(model, TrainConfig(compute_dtype="bfloat16", remat="dots"))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 32))).to(cuda)
+    state, _ = step(state, {"tokens": tokens})
+    mgr = CheckpointManager(str(tmp_path / "state"))
+    mgr.save(1, state, blocking=False)
+    mgr.wait()
+    fresh = make_train_state(build_model(cfg, device=cuda))
+    mgr.restore(fresh)
+    assert fresh["opt"]["step"] == 1
+    for (k, p), q in zip(model.named_parameters(), fresh["model"].parameters()):
+        assert q.device.type == "cuda" and torch.equal(p, q), k
+    for key in ("m", "v"):
+        for k, t in state["opt"][key].items():
+            assert torch.equal(t, fresh["opt"][key][k]), (key, k)
+    half = build_model(cfg, device=cuda, dtype=torch.bfloat16)
+    half.init(torch.Generator(device=cuda).manual_seed(1))
+    CheckpointManager(str(tmp_path / "bf16")).save(0, {"params": half})
+    back = build_model(cfg, device=cuda, dtype=torch.bfloat16)
+    CheckpointManager(str(tmp_path / "bf16")).restore({"params": back})
+    for p, q in zip(half.parameters(), back.parameters()):
+        assert q.dtype == p.dtype and torch.equal(p, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_1b", "jamba_v0_1_52b"])
+def test_remat_modes_agree_on_the_card(cuda, arch):
+    """LM.loss and its gradients under remat none / dots / full on the card,
+    bf16 compute through the train step's cast: the same loss, each gradient
+    within 1e-3 of its largest entry of none's (any atomics in the
+    backward). The card's fp32 gradients (remat none) against the CPU's
+    plain ones: within 1e-3 of each leaf's largest entry (fp32 sums in
+    another order)."""
+    from repro_torch.train.train_loop import compute_parameters
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 32)))
+
+    def grads(remat, dev, dtype):
+        for p in model.parameters():
+            p.grad = None
+        with compute_parameters(model, dtype):
+            loss, _ = model.loss(tokens.to(dev), compute_dtype=dtype,
+                                 remat=remat)
+            loss.backward()
+        return float(loss.detach()), {
+            k: p.grad.to("cpu", torch.float32, copy=True)
+            for k, p in model.named_parameters()}
+
+    cpu_loss, cpu = grads("none", "cpu", torch.float32)
+    model.to(cuda)
+    card_loss, card = grads("none", cuda, torch.float32)
+    assert card_loss == pytest.approx(cpu_loss, rel=1e-5)
+    for k, g in card.items():
+        assert (g - cpu[k]).abs().max().item() <= 1e-3 * cpu[k].abs().max().item(), k
+    base_loss, base = grads("none", cuda, torch.bfloat16)
+    for remat in ("dots", "full"):
+        got_loss, got = grads(remat, cuda, torch.bfloat16)
+        assert got_loss == pytest.approx(base_loss, rel=1e-6)
+        for k, g in got.items():
+            scale = base[k].abs().max().item()
+            assert (g - base[k]).abs().max().item() <= 1e-3 * scale, (remat, k)
+
+
+@pytest.mark.cuda
+def test_train_launcher_cuda_smoke(cuda, tmp_path, capsys):
+    """``python -m repro_torch.launch.train --smoke`` on the card: 3 steps
+    with a checkpoint every step, then a rerun to 4 steps resuming at 3."""
+    from repro_torch.launch import train as launch_train
+    args = ["--smoke", "--ckpt-every", "1", "--ckpt-dir", str(tmp_path),
+            "--remat", "dots"]
+    res = launch_train.main(args + ["--steps", "3"])
+    assert res["start"] == 0 and res["ckpt_steps"] == [1, 2]
+    assert all(np.isfinite(res["ce"])) and len(res["step_seconds"]) == 3
+    assert next(res["model"].parameters()).device.type == "cuda"
+    again = launch_train.main(args + ["--steps", "4"])
+    assert "[resume] step 2" in capsys.readouterr().out
+    assert again["start"] == 3 and again["ckpt_steps"] == [1, 2, 3]

@@ -222,14 +222,13 @@ def test_train_steps_decay_block_norm_scales_like_jax(jax_lm):
 
 def test_bf16_train_step_with_norm_scales_matches_jax(jax_lm):
     """One bf16-compute step from non-zero norm scales against the JAX
-    step. The reference's ``cast_for_compute`` rounds its stacked (n_rep, d)
-    block norm scales (and MoE routers) to bf16 before the forward; the
-    port's forward reads them in fp32. This step cannot tell the two apart:
-    the leaves differ from JAX's by up to 2.2e-3 (the embedding) with the
-    rounding and without it alike, because bf16 activations already round
-    at other places in the two frameworks (ROADMAP Queue 3). Loss at rtol
-    1e-2; every updated leaf within 5e-3 of JAX's (the update is at most
-    lr 1e-2 · g / (|g| + 1e-3), and bf16 gradients differ by a few per
+    step. Both packages round the stacked (n_rep, d) block norm scales (and
+    MoE routers) to bf16 before the forward (``cast_for_compute``; its
+    leaves are held bit for bit in tests/test_torch_train_remat.py). The
+    leaves still differ from JAX's by up to 2.2e-3 (the embedding), because
+    bf16 activations round at other places in the two frameworks. Loss at
+    rtol 1e-2; every updated leaf within 5e-3 of JAX's (the update is at
+    most lr 1e-2 · g / (|g| + 1e-3), and bf16 gradients differ by a few per
     cent)."""
     kw = dict(lr=1e-2, warmup_steps=2, total_steps=10, schedule="cosine",
               compute_dtype="bfloat16", eps=1e-3, weight_decay=0.1)
