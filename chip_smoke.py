@@ -202,7 +202,7 @@ Phases, each printing its own lines:
              through graphs and eagerly (identical tokens, the child on its
              parent's tokens); (b) the launcher without ``--continuous``
              (``run_fixed``: 4 rows of 64 tokens, 16 new) against
-             ``ContinuousEngine.generate``; (c) the compression launcher (4
+             ``ContinuousEngine.generate``; (c) the compression launcher (2
              pretraining steps through the recurrences under autograd — 10
              diverge at its lr — and coala with 0 non-finite layers),
              svd_llm on its trained model and calibrator (non-finite layers
@@ -215,11 +215,11 @@ Phases, each printing its own lines:
              xLSTM SMOKE, dense and COALA: contiguous-cache logits card vs
              CPU and a preempting trace with a fork through the card's graphs
              vs the CPU's eager engine (identical tokens);
-13. whisper path — whisper_base at full width and full depth (6 encoder +
-             6 decoder layers, d_model 512, 8 heads, hd 64, 1500 audio
-             frames; random seeded weights): (a) calibration of 2 x 8 x 256
-             seeded tokens with their frames, COALA (ratio 0.6, λ 4) of the
-             96 projections, then per model phase 4's trace, each request
+13. whisper path — whisper_base at full width, depth cut to 2 encoder +
+             2 decoder layers of 6 + 6 (d_model 512, 8 heads, hd 64,
+             1500 audio frames; random seeded weights): (a) calibration of 2
+             x 8 x 256 seeded tokens with their frames, COALA (ratio 0.6, λ 4)
+             of the 32 projections, then per model phase 4's trace, each request
              with its own seeded frames, through the continuous engine's
              encoder–decoder route (every request prefilled alone: encoder,
              then decoder with flash for its causal self-attention; decode
@@ -270,25 +270,39 @@ Phases, each printing its own lines:
              default arch, at full width and full depth (30 layers, d_model
              576, 9 / 3 heads, vocab 49152, tied; 134,515,008 parameters from
              a seeded torch.Generator), bf16 compute over the fp32 master,
-             remat dots: (a) 40 steps of 8 x 128 tokens with an async
-             checkpoint at step 20 and a blocking one at 39 (CE at
-             steps 0 and 59, ms a step, peak memory, each save's seconds);
+             remat dots: (a) 30 steps of 8 x 128 tokens with an async
+             checkpoint at step 20 and a blocking one at 29 (CE at
+             steps 0 and 29, ms a step, peak memory, each save's seconds);
              (b) the same run again from a copy of its step-20 checkpoint
-             beside a torn ``.tmp_step_39``: it must resume at step 21 and
+             beside a torn ``.tmp_step_29``: it must resume at step 21 and
              end within the stated tolerance of (a) (CE and parameters); (c)
-             one forward and backward from (a)'s step-39 state under remat
+             one forward and backward from (a)'s step-29 state under remat
              none, dots and full: ms, peak memory, gradients against none's;
              (d) the compression launcher with ``--ckpt-in`` on (a)'s
              directory, ``--ckpt-out``, ``--numerics-report`` and
              ``--trace-out``: COALA 0.6, λ 4 through flash calibration, 0
-             non-finite factors, base CE equal to the step-39 model's (not
+             non-finite factors, base CE equal to the step-29 model's (not
              an untrained model's), the saved factors reloaded into a fresh
              model giving the compressed CE exactly, the trace holding the
              ``ckpt.restore`` and ``ckpt.save`` spans. The checkpoints
-             (~1.61 GB each) live under ``build/`` and are removed at the
-             phase's end. Phase 7 then also holds lowrank_linear on
+             (~1.61 GB each) live under ``build/`` and are removed after
+             phase 17. Phase 7 then also holds lowrank_linear on
              smollm_135m's seven projections at the compress launcher's rows
              and M 8, and flash at B 8, T 64, G 3, hd 64;
+17. sharded calibration — the compression launcher with ``--ckpt-in`` on
+             phase 16's checkpoint (before it is removed) and ``--mesh
+             data=4``: four gloo ranks on the one card (the caller rank 0,
+             three spawned processes handed the trained weights through host
+             shared memory), each capturing 2 of every calibration batch's 8
+             rows through the flash kernel, the per-rank R factors reduced by
+             the butterfly TSQR; against 16(d)'s single-device run of the
+             same checkpoint: every path's RᵀR within 1e-4 (relative,
+             Frobenius), the same token counts, every rank's R the same
+             bits, 0 non-finite factors of 210 and the compressed CE within
+             1e-3; it prints the calibration seconds sharded and single,
+             each rank's butterfly seconds, bytes sent, flash launches and
+             peak memory, lowrank_linear's launches in the evaluation, and
+             the largest per-layer relative difference of W' = A·B;
 15. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
@@ -302,10 +316,11 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16, 7, 15. Launch counts
-are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12, 13, 14 and 16 (4b,
-4c and 4d included) and
-read just after: eager launches plus the kernels of every
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16, 17, 7, 15. Launch
+counts are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16
+and 17 (4b, 4c and 4d included) and
+read just after (phase 17's ranks 1-3 count in their own processes and report
+their flash launches to the launcher): eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
 and lowrank_linear's backward on phase 10's (its launches counted apart too).
 The shapes of the kernel calls are noted on the way for phase 7 (on the
@@ -488,14 +503,15 @@ GRAD_ROWS = 512             # phase 7's backward rows: one fine-tuning step's 8 
 # Phase 16, the training path: the train launcher's own default arch,
 # smollm_135m, at full width and full depth (30 layers, d 576, 9 / 3 heads,
 # hd 64, d_ff 1536, vocab 49152, tied), bf16 compute over the fp32 master,
-# remat dots: 40 steps of 8 x 128 tokens (~0.8 TFLOP a step), an async save
-# at 20 and a blocking one at 39 (a checkpoint is 3 x 134,515,008 x 4 B ~
+# remat dots: 30 steps of 8 x 128 tokens (~0.8 TFLOP a step), an async save
+# at 20 and a blocking one at 29 (a checkpoint is 3 x 134,515,008 x 4 B ~
 # 1.61 GB: parameters and two AdamW moments). Cut from 60 steps with saves at
-# 20 and 40 to stay inside the script's time: a step with remat dots takes
-# ~0.6 s on an H100, a forward + backward 3-5x one without remat (the
-# selective checkpoint's dispatch runs every op through Python)
+# 20 and 40, then (for phase 17) from 40, to stay inside the script's
+# time: a step with remat dots takes ~0.6 s on an H100, a forward + backward
+# 3-5x one without remat (the selective checkpoint's dispatch runs every op
+# through Python)
 TRAIN_PARAMS = 134_515_008
-TRAIN_STEPS, TRAIN_EVERY, TRAIN_RESUME = 40, 20, 20
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_RESUME = 30, 20, 20
 TRAIN_ARGS = ["--arch", "smollm_135m", "--steps", str(TRAIN_STEPS), "--seq", "128",
               "--batch", "8", "--remat", "dots", "--ckpt-every", str(TRAIN_EVERY),
               "--device", "cuda"]
@@ -509,6 +525,17 @@ TOL_RESUME_CE, TOL_RESUME_PARAMS = 2e-2, 1e-2
 # recomputed forward repeats its ops; each gradient within 1e-3 of its
 # largest entry of none's (any atomics in the backward), the loss within 1e-6
 TOL_REMAT_GRAD, TOL_REMAT_LOSS, REMAT_REPEATS = 1e-3, 1e-6, 3
+# Phase 17, sharded calibration: the compress launcher on phase 16's
+# checkpoint with --mesh data=4, four gloo ranks on the one card (each
+# captures 2 of every calibration batch's 8 rows through the flash kernel,
+# then the butterfly TSQR over host copies), beside 16(d)'s single-device
+# run of the same checkpoint. Stated before the first run: RᵀR within 1e-4
+# of 16(d)'s relative to its Frobenius norm (fp32 QRs of [R; R] stacks in
+# another order), every rank's R the same bits, the compressed CE within
+# 1e-3 of 16(d)'s
+SHARDS = 4
+TOL_SHARD_GRAM = 1e-4
+TOL_SHARD_CE = 1e-3
 SMOLLM_PROJECTIONS = {      # smollm_135m's projections: (d_in, d_out)
     "wq": (576, 576), "wk": (576, 192), "wv": (576, 192), "wo": (576, 576),
     "gate": (576, 1536), "up": (576, 1536), "down": (1536, 576)}
@@ -2575,7 +2602,7 @@ def vlm_path(torch, ops):
 # same trace with a fork of request 0 at step 3 (the pool, sized on the CPU
 # with a narrow model of the same vocabulary, preempts once) through graphs and
 # eagerly. (b) The fixed-batch launcher: 4 rows of 64 tokens, 16 new. (c) The
-# compression launcher with 4 pretraining steps and coala; svd_llm through
+# compression launcher with 2 pretraining steps and coala; svd_llm through
 # ``compress_model`` on its trained model and calibrator; then the Grams of
 # its calibration batches (gram_accum) against RᵀR.
 XLSTM_LAYERS = 8
@@ -2593,12 +2620,13 @@ XLSTM_FIXED_ARGS = ["--arch", "xlstm_1_3b", "--requests", str(XLSTM_FIXED_ROWS),
                     "--prompt-len", str(XLSTM_FIXED_PROMPT),
                     "--new-tokens", str(XLSTM_FIXED_NEW), "--seed", str(SEED),
                     "--device", "cuda"]
-# 4 pretraining steps, not 10: at the launcher's lr 3e-3 (5 warmup steps) the
-# full-width xLSTM's gradient norm grows 86 -> 830 over steps 0-3, then to
-# 1.3e5, 1.1e7, 6.2e7, 5.3e8 and NaN at step 9, leaving NaN weights (measured
-# on an H100; PERF.md)
+# 2 pretraining steps (4 until phase 17 needed the script's time: a step
+# through the recurrences takes ~7 s), not 10: at the launcher's lr 3e-3 (5
+# warmup steps) the full-width xLSTM's gradient norm grows 86 -> 830 over
+# steps 0-3, then to 1.3e5, 1.1e7, 6.2e7, 5.3e8 and NaN at step 9, leaving NaN
+# weights (measured on an H100; PERF.md)
 XLSTM_COMPRESS_ARGS = ["--arch", "xlstm_1_3b", "--ratio", "0.6", "--lam", "4",
-                       "--pretrain-steps", "4", "--calib-batches", "4",
+                       "--pretrain-steps", "2", "--calib-batches", "4",
                        "--device", "cuda"]
 XLSTM_NO_LAUNCH = ("paged_attention", "chunked_prefill", "flash_attention")
 # the compressed projections: one mLSTM layer's five and the sLSTM's FFN pair,
@@ -2822,12 +2850,13 @@ def xlstm_path(torch, ops):
 # phase 13: whisper at full width and depth, the encoder–decoder path
 # ---------------------------------------------------------------------------
 
-# whisper_base (src/repro_torch/configs/whisper_base.py) at full width and full
-# depth: 6 encoder + 6 decoder layers, d_model 512, 8 / 8 heads (G 1), hd 64,
+# whisper_base (src/repro_torch/configs/whisper_base.py) at full width, its
+# depth cut from 6 encoder + 6 decoder layers to 2 + 2 (the script's time; the
+# path's compressions are per layer): d_model 512, 8 / 8 heads (G 1), hd 64,
 # gelu MLPs of 2048 without a gate, vocab 51865 (tied), 1500 audio frames, 32768
-# decoder positions: 87.4 M parameters, 350 MB in fp32. (a) Calibration of 2 x 8
+# decoder positions. (a) Calibration of 2 x 8
 # x 256 seeded tokens with their frames (the launcher's calibration_batches)
-# through flash, COALA (ratio 0.6, λ 4) of the 96 projections (the launcher's
+# through flash, COALA (ratio 0.6, λ 4) of the 32 projections (the launcher's
 # _compressed_params); then per model phase 4's trace, each request with its
 # own (1, 1500, 512) N(0, 1) frames from a seeded numpy generator, over 72
 # pages of 16 tokens (one preemption, and one with a fork of request 0 at step
@@ -2849,7 +2878,8 @@ WHISPER_FIXED_ARGS = ["--arch", "whisper_base", "--requests", str(WHISPER_FIXED_
 WHISPER_COMPRESS_ARGS = ["--arch", "whisper_base", "--ratio", "0.6", "--lam", "4",
                          "--pretrain-steps", "10", "--calib-batches", "2",
                          "--device", "cuda"]
-WHISPER_LINEARS = 96                # 6 x 6 encoder + 6 x 10 decoder projections
+WHISPER_LAYERS = 2                  # encoder and decoder layers each (of 6)
+WHISPER_LINEARS = 32                # 2 x 6 encoder + 2 x 10 decoder projections
 WHISPER_NO_LAUNCH = ("chunked_prefill",)
 WHISPER_CHUNKED = dict(dense_attn_max_seq=1024, attn_chunk_q=512, attn_chunk_kv=384)
 # the compressed projections, (d_in, d_out): a decoder layer's eight that a
@@ -2924,7 +2954,8 @@ def whisper_path(torch, ops):
     from repro_torch.models.common import ParallelCtx
     from repro_torch.serve import ContinuousEngine
 
-    cfg = get_config("whisper_base")
+    cfg = dataclasses.replace(get_config("whisper_base"), n_layers=WHISPER_LAYERS,
+                              n_enc_layers=WHISPER_LAYERS)
     out = {"seconds": {}, "peak_gb": {}}
 
     # (a) calibration and COALA, then the trace per model
@@ -3017,7 +3048,7 @@ def whisper_path(torch, ops):
 
     # (b) the fixed-batch launcher, then the continuous engine on its inputs
     t0 = time.perf_counter()
-    fixed = launcher.main(WHISPER_FIXED_ARGS)
+    fixed = launcher.main(WHISPER_FIXED_ARGS, cfg=cfg)
     torch.cuda.synchronize()
     out["seconds"]["fixed_launcher"] = time.perf_counter() - t0
     cont = ContinuousEngine(fixed["model"], **WHISPER_KNOBS)
@@ -3044,7 +3075,7 @@ def whisper_path(torch, ops):
     # (c) the compression launcher with coala; svd_llm on its trained model and
     # calibrator; the Grams
     t0 = time.perf_counter()
-    comp = compress_launcher.main(WHISPER_COMPRESS_ARGS + ["--method", "coala"])
+    comp = compress_launcher.main(WHISPER_COMPRESS_ARGS + ["--method", "coala"], cfg=cfg)
     torch.cuda.synchronize()
     out["seconds"]["compress_coala"] = dict(comp["seconds"],
                                             total=time.perf_counter() - t0)
@@ -3668,7 +3699,7 @@ def _leaf_files(d: Path, step: int) -> dict:
 def train_path(torch, ops):
     """Phase 16: ``repro_torch.launch.train.main`` with ``TRAIN_ARGS`` on
     smollm_135m at full width and depth, (a) from scratch; (b) again from a
-    copy of its step-20 checkpoint beside a torn ``.tmp_step_39``, which must
+    copy of its step-20 checkpoint beside a torn ``.tmp_step_29``, which must
     resume at 21 and end within ``TOL_RESUME_*`` of (a); (c) one forward and
     backward from (a)'s last state under each remat mode (ms, peak,
     gradients against none's); (d) ``repro_torch.launch.compress.main`` with
@@ -3676,7 +3707,9 @@ def train_path(torch, ops):
     ``--trace-out``: COALA at 0.6, λ 4 through flash calibration, 0
     non-finite factors, base CE equal to the last step's model's (and not an
     untrained one's), the saved factors reloaded into a fresh model giving
-    the compressed CE exactly. Returns (summary, noted kernel shapes)."""
+    the compressed CE exactly. Leaves (a)'s directory for phase 17 (the
+    caller removes ``TRAIN_DIR``). Returns (summary, noted kernel shapes,
+    (d)'s launcher result)."""
     import shutil
     import statistics
     import numpy as np
@@ -3701,183 +3734,276 @@ def train_path(torch, ops):
     gc.collect()
     torch.cuda.empty_cache()
     held = out["held_before_gb"] = torch.cuda.memory_allocated() / 1e9
-    try:
-        # (a) train from scratch
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        a, _ = _train_run(train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(d_a)])
-        out["seconds"]["train"] = time.perf_counter() - t0
-        _peak_step(torch, out["peak_gb"], "train")
-        n = sum(p.numel() for p in a["model"].parameters())
-        if n != TRAIN_PARAMS:
-            raise Failure(f"smollm_135m has {n} parameters, not {TRAIN_PARAMS}")
-        del a["model"]
-        want_saves = [(s, True) for s in range(TRAIN_EVERY, TRAIN_STEPS, TRAIN_EVERY)
-                      if s != TRAIN_STEPS - 1] + [(TRAIN_STEPS - 1, False)]
-        got_saves = [(s["step"], not s["blocking"]) for s in a["saves"]]
-        if got_saves != want_saves or a["ckpt_steps"] != [s for s, _ in want_saves][-3:]:
-            raise Failure(f"train saves {got_saves}, kept {a['ckpt_steps']}")
-        if not all(math.isfinite(c) for c in a["ce"]):
-            raise Failure(f"training CE not finite: {a['ce']}")
-        ms = 1e3 * statistics.median(a["step_seconds"][1:])
-        out["train"] = dict(ce_first=a["ce"][0], ce_last=a["ce"][-1], ms_per_step=ms,
-                            first_step_ms=1e3 * a["step_seconds"][0], saves=a["saves"])
-        log(f"  (a) {TRAIN_STEPS} steps: CE {a['ce'][0]:.4f} at step 0 -> "
-            f"{a['ce'][-1]:.4f} at step {TRAIN_STEPS - 1}; {ms:.1f} ms a step (median; "
-            f"the first {1e3 * a['step_seconds'][0]:.1f} ms); peak "
-            f"{out['peak_gb']['train']:.2f} GB ({held:.2f} GB of it held before the "
-            f"phase); {out['seconds']['train']:.1f} s")
-        for s in a["saves"]:
-            log(f"      save at step {s['step']} ({'blocking' if s['blocking'] else 'async'}):"
-                f" {s['seconds']:.3f} s on the caller, {s['write_seconds']:.3f} s writing")
+    # (a) train from scratch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a, _ = _train_run(train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(d_a)])
+    out["seconds"]["train"] = time.perf_counter() - t0
+    _peak_step(torch, out["peak_gb"], "train")
+    n = sum(p.numel() for p in a["model"].parameters())
+    if n != TRAIN_PARAMS:
+        raise Failure(f"smollm_135m has {n} parameters, not {TRAIN_PARAMS}")
+    del a["model"]
+    want_saves = [(s, True) for s in range(TRAIN_EVERY, TRAIN_STEPS, TRAIN_EVERY)
+                  if s != TRAIN_STEPS - 1] + [(TRAIN_STEPS - 1, False)]
+    got_saves = [(s["step"], not s["blocking"]) for s in a["saves"]]
+    if got_saves != want_saves or a["ckpt_steps"] != [s for s, _ in want_saves][-3:]:
+        raise Failure(f"train saves {got_saves}, kept {a['ckpt_steps']}")
+    if not all(math.isfinite(c) for c in a["ce"]):
+        raise Failure(f"training CE not finite: {a['ce']}")
+    ms = 1e3 * statistics.median(a["step_seconds"][1:])
+    out["train"] = dict(ce_first=a["ce"][0], ce_last=a["ce"][-1], ms_per_step=ms,
+                        first_step_ms=1e3 * a["step_seconds"][0], saves=a["saves"])
+    log(f"  (a) {TRAIN_STEPS} steps: CE {a['ce'][0]:.4f} at step 0 -> "
+        f"{a['ce'][-1]:.4f} at step {TRAIN_STEPS - 1}; {ms:.1f} ms a step (median; "
+        f"the first {1e3 * a['step_seconds'][0]:.1f} ms); peak "
+        f"{out['peak_gb']['train']:.2f} GB ({held:.2f} GB of it held before the "
+        f"phase); {out['seconds']['train']:.1f} s")
+    for s in a["saves"]:
+        log(f"      save at step {s['step']} ({'blocking' if s['blocking'] else 'async'}):"
+            f" {s['seconds']:.3f} s on the caller, {s['write_seconds']:.3f} s writing")
 
-        # (b) a crash during the save after step 20: its checkpoint and a
-        # torn write of the next one (half a leaf, no manifest)
-        nxt = min(TRAIN_RESUME + TRAIN_EVERY, TRAIN_STEPS - 1)
-        shutil.copytree(d_a / f"step_{TRAIN_RESUME}", d_b / f"step_{TRAIN_RESUME}")
-        torn = d_b / f".tmp_step_{nxt}"
-        torn.mkdir()
-        leaf0 = (d_a / f"step_{nxt}" / "leaf_0.npy").read_bytes()
-        (torn / "leaf_0.npy").write_bytes(leaf0[:len(leaf0) // 2])
-        for s in a["ckpt_steps"][:-1]:
-            shutil.rmtree(d_a / f"step_{s}")
-        t0 = time.perf_counter()
-        b, text = _train_run(train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(d_b)])
-        out["seconds"]["resume"] = time.perf_counter() - t0
-        _peak_step(torch, out["peak_gb"], "resume")
-        del b["model"]
-        if f"[resume] step {TRAIN_RESUME}" not in text or b["start"] != TRAIN_RESUME + 1:
-            raise Failure(f"the rerun did not resume from step {TRAIN_RESUME}: "
-                          f"start {b['start']}")
-        resumed_saves = [TRAIN_RESUME] + [s for s, _ in want_saves if s > TRAIN_RESUME]
-        if b["ckpt_steps"] != resumed_saves[-3:] or torn.exists():
-            raise Failure(f"resumed run kept {b['ckpt_steps']}; torn dir left: "
-                          f"{torn.exists()}")
-        la, lb = _leaf_files(d_a, TRAIN_STEPS - 1), _leaf_files(d_b, TRAIN_STEPS - 1)
-        num = math.sqrt(sum(float(np.sum((la[k].astype(np.float64) - lb[k]) ** 2))
-                            for k in la))
-        den = math.sqrt(sum(float(np.sum(la[k].astype(np.float64) ** 2)) for k in la))
-        max_abs = max(float(np.max(np.abs(la[k] - lb[k]))) for k in la)
-        bits = all(np.array_equal(la[k], lb[k]) for k in la)
-        d_ce = abs(b["ce"][-1] - a["ce"][-1])
-        del la, lb
-        shutil.rmtree(d_b)
-        out["resume"] = dict(start=b["start"], ce_last=b["ce"][-1], ce_diff=d_ce,
-                             params_rel_l2=num / den, params_max_abs=max_abs,
-                             bit_equal=bits)
-        log(f"  (b) resumed at step {b['start']} past a torn .tmp_step_{nxt}: "
-            f"CE {b['ce'][-1]:.6f} at step {TRAIN_STEPS - 1} against {a['ce'][-1]:.6f} "
-            f"(|diff| {d_ce:.3e}, tol {TOL_RESUME_CE}); parameters: relative L2 "
-            f"{num / den:.3e} (tol {TOL_RESUME_PARAMS}), max |diff| {max_abs:.3e}, bit "
-            f"for bit: {bits}; {out['seconds']['resume']:.1f} s")
-        if d_ce > TOL_RESUME_CE or num / den > TOL_RESUME_PARAMS:
-            raise Failure("the resumed run parted from the uninterrupted one")
+    # (b) a crash during the save after step 20: its checkpoint and a
+    # torn write of the next one (half a leaf, no manifest)
+    nxt = min(TRAIN_RESUME + TRAIN_EVERY, TRAIN_STEPS - 1)
+    shutil.copytree(d_a / f"step_{TRAIN_RESUME}", d_b / f"step_{TRAIN_RESUME}")
+    torn = d_b / f".tmp_step_{nxt}"
+    torn.mkdir()
+    leaf0 = (d_a / f"step_{nxt}" / "leaf_0.npy").read_bytes()
+    (torn / "leaf_0.npy").write_bytes(leaf0[:len(leaf0) // 2])
+    for s in a["ckpt_steps"][:-1]:
+        shutil.rmtree(d_a / f"step_{s}")
+    t0 = time.perf_counter()
+    b, text = _train_run(train_launcher, TRAIN_ARGS + ["--ckpt-dir", str(d_b)])
+    out["seconds"]["resume"] = time.perf_counter() - t0
+    _peak_step(torch, out["peak_gb"], "resume")
+    del b["model"]
+    if f"[resume] step {TRAIN_RESUME}" not in text or b["start"] != TRAIN_RESUME + 1:
+        raise Failure(f"the rerun did not resume from step {TRAIN_RESUME}: "
+                      f"start {b['start']}")
+    resumed_saves = [TRAIN_RESUME] + [s for s, _ in want_saves if s > TRAIN_RESUME]
+    if b["ckpt_steps"] != resumed_saves[-3:] or torn.exists():
+        raise Failure(f"resumed run kept {b['ckpt_steps']}; torn dir left: "
+                      f"{torn.exists()}")
+    la, lb = _leaf_files(d_a, TRAIN_STEPS - 1), _leaf_files(d_b, TRAIN_STEPS - 1)
+    num = math.sqrt(sum(float(np.sum((la[k].astype(np.float64) - lb[k]) ** 2))
+                        for k in la))
+    den = math.sqrt(sum(float(np.sum(la[k].astype(np.float64) ** 2)) for k in la))
+    max_abs = max(float(np.max(np.abs(la[k] - lb[k]))) for k in la)
+    bits = all(np.array_equal(la[k], lb[k]) for k in la)
+    d_ce = abs(b["ce"][-1] - a["ce"][-1])
+    del la, lb
+    shutil.rmtree(d_b)
+    out["resume"] = dict(start=b["start"], ce_last=b["ce"][-1], ce_diff=d_ce,
+                         params_rel_l2=num / den, params_max_abs=max_abs,
+                         bit_equal=bits)
+    log(f"  (b) resumed at step {b['start']} past a torn .tmp_step_{nxt}: "
+        f"CE {b['ce'][-1]:.6f} at step {TRAIN_STEPS - 1} against {a['ce'][-1]:.6f} "
+        f"(|diff| {d_ce:.3e}, tol {TOL_RESUME_CE}); parameters: relative L2 "
+        f"{num / den:.3e} (tol {TOL_RESUME_PARAMS}), max |diff| {max_abs:.3e}, bit "
+        f"for bit: {bits}; {out['seconds']['resume']:.1f} s")
+    if d_ce > TOL_RESUME_CE or num / den > TOL_RESUME_PARAMS:
+        raise Failure("the resumed run parted from the uninterrupted one")
 
-        # (c) remat: one forward + backward from (a)'s last state per mode
-        t0 = time.perf_counter()
-        model = build_model(cfg, device=dev)
-        state = make_train_state(model)
-        CheckpointManager(str(d_a)).restore(state)
-        del state
-        tokens = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
-                                          global_batch=8), cfg,
-                               device=dev).get_batch(TRAIN_STEPS)["tokens"]
-        out["remat"], grads = {}, {}
-        for mode in ("none", "dots", "full"):
-            times = []
-            for _ in range(REMAT_REPEATS):
-                for p in model.parameters():
-                    p.grad = None
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                t1 = time.perf_counter()
-                with compute_parameters(model, torch.bfloat16):
-                    loss, _ = model.loss(tokens, compute_dtype=torch.bfloat16,
-                                         remat=mode)
-                    loss.backward()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t1)
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            STEP_PEAKS.append(peak)
-            grads[mode] = ({k: p.grad for k, p in model.named_parameters()},
-                           float(loss.detach()))
-            out["remat"][mode] = dict(ms=1e3 * statistics.median(times[1:]), peak_gb=peak,
-                                      loss=grads[mode][1])
-        base, base_loss = grads["none"]
-        for mode in ("dots", "full"):
-            g, l_mode = grads[mode]
-            worst = max(float((g[k] - base[k]).abs().max()) /
-                        max(float(base[k].abs().max()), 1e-30) for k in base)
-            exact = all(torch.equal(g[k], base[k]) for k in base)
-            out["remat"][mode].update(grad_rel_err=worst, bit_equal=exact)
-            if worst > TOL_REMAT_GRAD or abs(l_mode - base_loss) > TOL_REMAT_LOSS * abs(base_loss):
-                raise Failure(f"remat {mode}: gradients {worst:.3e} of their max from "
-                              f"none's, loss {l_mode} against {base_loss}")
-        del grads, base
-        for mode, r in out["remat"].items():
-            log(f"  (c) remat {mode}: forward + backward {r['ms']:.1f} ms, peak "
-                f"{r['peak_gb']:.3f} GB ({held:.3f} held before the phase), loss "
-                f"{r['loss']:.6f}"
-                + (f"; gradients within {r['grad_rel_err']:.3e} of none's (bit for bit: "
-                   f"{r['bit_equal']})" if mode != "none" else ""))
-        for p in model.parameters():
-            p.grad = None
-        pipe = compress_launcher.make_pipeline(cfg, dev)
-        trained_ce = compress_launcher.eval_ce(model, pipe)
-        del model
-        untrained = build_model(cfg, device=dev).init(
-            torch.Generator(device=dev).manual_seed(1))
-        untrained_ce = compress_launcher.eval_ce(untrained, pipe)
-        del untrained
-        out["seconds"]["remat"] = time.perf_counter() - t0
+    # (c) remat: one forward + backward from (a)'s last state per mode
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    state = make_train_state(model)
+    CheckpointManager(str(d_a)).restore(state)
+    del state
+    tokens = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                      global_batch=8), cfg,
+                           device=dev).get_batch(TRAIN_STEPS)["tokens"]
+    out["remat"], grads = {}, {}
+    for mode in ("none", "dots", "full"):
+        times = []
+        for _ in range(REMAT_REPEATS):
+            for p in model.parameters():
+                p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            with compute_parameters(model, torch.bfloat16):
+                loss, _ = model.loss(tokens, compute_dtype=torch.bfloat16,
+                                     remat=mode)
+                loss.backward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        STEP_PEAKS.append(peak)
+        grads[mode] = ({k: p.grad for k, p in model.named_parameters()},
+                       float(loss.detach()))
+        out["remat"][mode] = dict(ms=1e3 * statistics.median(times[1:]), peak_gb=peak,
+                                  loss=grads[mode][1])
+    base, base_loss = grads["none"]
+    for mode in ("dots", "full"):
+        g, l_mode = grads[mode]
+        worst = max(float((g[k] - base[k]).abs().max()) /
+                    max(float(base[k].abs().max()), 1e-30) for k in base)
+        exact = all(torch.equal(g[k], base[k]) for k in base)
+        out["remat"][mode].update(grad_rel_err=worst, bit_equal=exact)
+        if worst > TOL_REMAT_GRAD or abs(l_mode - base_loss) > TOL_REMAT_LOSS * abs(base_loss):
+            raise Failure(f"remat {mode}: gradients {worst:.3e} of their max from "
+                          f"none's, loss {l_mode} against {base_loss}")
+    del grads, base
+    for mode, r in out["remat"].items():
+        log(f"  (c) remat {mode}: forward + backward {r['ms']:.1f} ms, peak "
+            f"{r['peak_gb']:.3f} GB ({held:.3f} held before the phase), loss "
+            f"{r['loss']:.6f}"
+            + (f"; gradients within {r['grad_rel_err']:.3e} of none's (bit for bit: "
+               f"{r['bit_equal']})" if mode != "none" else ""))
+    for p in model.parameters():
+        p.grad = None
+    pipe = compress_launcher.make_pipeline(cfg, dev)
+    trained_ce = compress_launcher.eval_ce(model, pipe)
+    del model
+    untrained = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    untrained_ce = compress_launcher.eval_ce(untrained, pipe)
+    del untrained
+    out["seconds"]["remat"] = time.perf_counter() - t0
 
-        # (d) the compress launcher from (a)'s checkpoint
-        t0 = time.perf_counter()
-        with KernelCalls(ops) as calls:
-            res, text = _train_run(compress_launcher, [
-                "--arch", "smollm_135m", "--ckpt-in", str(d_a), "--ckpt-out", str(d_c),
-                "--numerics-report", "--trace-out", str(trace_path), "--device", "cuda"])
-        out["seconds"]["compress"] = time.perf_counter() - t0
-        _peak_step(torch, out["peak_gb"], "compress")
-        s = res["summary"]
-        bad = _nonfinite(res["reports"])
-        if res["ckpt_step"] != TRAIN_STEPS - 1 or res["seconds"]["pretrain"] != 0.0:
-            raise Failure(f"compress --ckpt-in restored step {res['ckpt_step']}")
-        if bad or not math.isfinite(s["compressed_ce"]):
-            raise Failure(f"coala on the trained model: {len(bad)} non-finite: {bad}")
-        if s["base_ce"] != trained_ce or s["base_ce"] == untrained_ce:
-            raise Failure(f"base CE {s['base_ce']}: the step-{TRAIN_STEPS - 1} model's is {trained_ce}, "
-                          f"an untrained one's {untrained_ce}")
-        if "# calibration numerics" not in text or "resid/bound" not in text:
-            raise Failure("--numerics-report printed no report")
-        fresh = build_model(cfg, device=dev)
+    # (d) the compress launcher from (a)'s checkpoint
+    t0 = time.perf_counter()
+    with KernelCalls(ops) as calls:
+        res, text = _train_run(compress_launcher, [
+            "--arch", "smollm_135m", "--ckpt-in", str(d_a), "--ckpt-out", str(d_c),
+            "--numerics-report", "--trace-out", str(trace_path), "--device", "cuda"])
+    out["seconds"]["compress"] = time.perf_counter() - t0
+    _peak_step(torch, out["peak_gb"], "compress")
+    s = res["summary"]
+    bad = _nonfinite(res["reports"])
+    if res["ckpt_step"] != TRAIN_STEPS - 1 or res["seconds"]["pretrain"] != 0.0:
+        raise Failure(f"compress --ckpt-in restored step {res['ckpt_step']}")
+    if bad or not math.isfinite(s["compressed_ce"]):
+        raise Failure(f"coala on the trained model: {len(bad)} non-finite: {bad}")
+    if s["base_ce"] != trained_ce or s["base_ce"] == untrained_ce:
+        raise Failure(f"base CE {s['base_ce']}: the step-{TRAIN_STEPS - 1} model's is {trained_ce}, "
+                      f"an untrained one's {untrained_ce}")
+    if "# calibration numerics" not in text or "resid/bound" not in text:
+        raise Failure("--numerics-report printed no report")
+    fresh = build_model(cfg, device=dev)
+    for name, mod in res["compressed"].named_modules():
+        if isinstance(mod, Linear) and mod.is_factored:
+            fresh.get_submodule(name).set_factors(torch.zeros_like(mod.b_t),
+                                                  torch.zeros_like(mod.a_t))
+    CheckpointManager(str(d_c)).restore({"params": fresh})
+    reloaded_ce = compress_launcher.eval_ce(fresh, pipe)
+    launcher_seconds = res["seconds"]
+    del fresh
+    if reloaded_ce != s["compressed_ce"]:
+        raise Failure(f"the reloaded factors give CE {reloaded_ce}, the launcher "
+                      f"{s['compressed_ce']}")
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans = collections.Counter(e["name"] for e in events if e["ph"] == "X")
+    if not (spans["ckpt.restore"] and spans["ckpt.save"]):
+        raise Failure(f"the trace holds no ckpt spans: {dict(spans)}")
+    out["compress"] = dict(summary=s, nonfinite=0, untrained_ce=untrained_ce,
+                           reloaded_ce=reloaded_ce, seconds=launcher_seconds,
+                           spans=dict(spans))
+    log(f"  (d) compress --ckpt-in step {TRAIN_STEPS - 1}: base CE {s['base_ce']:.4f} "
+        f"(the step-{TRAIN_STEPS - 1} model's {trained_ce:.4f}; untrained {untrained_ce:.4f}), "
+        f"COALA CE {s['compressed_ce']:.4f}, kept {s['kept_ratio']:.4f}, 0 non-finite "
+        f"of {s['layers']}; reloaded from --ckpt-out: CE {reloaded_ce:.4f} (equal); "
+        f"trace spans {dict(spans)}; {out['seconds']['compress']:.1f} s")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    return out, calls.shapes(), res
+
+
+def sharded_path(torch, ops, single):
+    """Phase 17: ``repro_torch.launch.compress.main`` with ``--ckpt-in`` on
+    phase 16's directory and ``--mesh data=SHARDS``, the ranks on the one
+    card, against 16(d)'s single-device run ``single`` of the same
+    checkpoint: (a) every path's RᵀR within ``TOL_SHARD_GRAM`` of 16(d)'s
+    and the same token counts; (b) every rank's R the same bits (their
+    digests); (c) 0 non-finite factors and the compressed CE within
+    ``TOL_SHARD_CE`` of 16(d)'s (the largest per-layer relative difference
+    of W' = A·B printed, not gated). Returns (summary, the flash launches
+    of ranks 1 .. SHARDS-1, which this process does not count)."""
+    from repro_torch.core.tsqr import square_r
+    from repro_torch.dist.calibrate import ShardedCalibration
+    from repro_torch.launch import compress as compress_launcher
+    from repro_torch.models.linear import Linear
+
+    out = {"shards": SHARDS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res, text = _train_run(compress_launcher, [
+        "--arch", "smollm_135m", "--ckpt-in", str(TRAIN_DIR / "a"),
+        "--mesh", f"data={SHARDS}", "--device", "cuda"])
+    out["seconds"] = dict(res["seconds"], launcher=time.perf_counter() - t0)
+    if f"# sharded calibration: data={SHARDS} (butterfly TSQR reduce)" not in text:
+        raise Failure("the launcher printed no sharded-calibration line")
+    cal, ranks = res["calibrator"], res["ranks"]
+    if not isinstance(cal, ShardedCalibration) or [r["rank"] for r in ranks] != list(
+            range(SHARDS)):
+        raise Failure(f"not a {SHARDS}-rank calibration: {type(cal)}, {ranks}")
+
+    # (a) against 16(d)'s factors
+    ref_cal = single["calibrator"]
+    if cal.tokens_seen() != ref_cal.tokens_seen():
+        raise Failure("token counts differ from 16(d)'s")
+    ref = ref_cal.thin_r_factors()
+    worst = (0.0, "")
+    for path, r in cal.factors.items():
+        r1 = square_r(ref[path]).double()
+        g1 = r1.T @ r1
+        rel = float(torch.linalg.norm(r.double().T @ r.double() - g1) / torch.linalg.norm(g1))
+        worst = max(worst, (rel, path))
+    out["gram_rel_err"] = {"max": worst[0], "path": worst[1], "paths": len(cal.factors)}
+    # (b) the same bits on every rank
+    digests = {r["r_digest"] for r in ranks}
+    out["ranks_bit_equal"] = len(digests) == 1
+    # (c) the compressed model
+    s, s1 = res["summary"], single["summary"]
+    bad = _nonfinite(res["reports"])
+    d_ce = abs(s["compressed_ce"] - s1["compressed_ce"])
+    ref_mods = dict(single["compressed"].named_modules())
+    w_worst = (0.0, "")
+    with torch.no_grad():
         for name, mod in res["compressed"].named_modules():
             if isinstance(mod, Linear) and mod.is_factored:
-                fresh.get_submodule(name).set_factors(torch.zeros_like(mod.b_t),
-                                                      torch.zeros_like(mod.a_t))
-        CheckpointManager(str(d_c)).restore({"params": fresh})
-        reloaded_ce = compress_launcher.eval_ce(fresh, pipe)
-        launcher_seconds = res["seconds"]
-        del fresh, res
-        if reloaded_ce != s["compressed_ce"]:
-            raise Failure(f"the reloaded factors give CE {reloaded_ce}, the launcher "
-                          f"{s['compressed_ce']}")
-        events = json.loads(trace_path.read_text())["traceEvents"]
-        spans = collections.Counter(e["name"] for e in events if e["ph"] == "X")
-        if not (spans["ckpt.restore"] and spans["ckpt.save"]):
-            raise Failure(f"the trace holds no ckpt spans: {dict(spans)}")
-        out["compress"] = dict(summary=s, nonfinite=0, untrained_ce=untrained_ce,
-                               reloaded_ce=reloaded_ce, seconds=launcher_seconds,
-                               spans=dict(spans))
-        log(f"  (d) compress --ckpt-in step {TRAIN_STEPS - 1}: base CE {s['base_ce']:.4f} "
-            f"(the step-{TRAIN_STEPS - 1} model's {trained_ce:.4f}; untrained {untrained_ce:.4f}), "
-            f"COALA CE {s['compressed_ce']:.4f}, kept {s['kept_ratio']:.4f}, 0 non-finite "
-            f"of {s['layers']}; reloaded from --ckpt-out: CE {reloaded_ce:.4f} (equal); "
-            f"trace spans {dict(spans)}; {out['seconds']['compress']:.1f} s")
-    finally:
-        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    out["seconds"]["phase"] = time.perf_counter() - t_phase
-    return out, calls.shapes()
+                ref_mod = ref_mods[name]
+                w1 = ref_mod.b_t.double() @ ref_mod.a_t.double()
+                w = mod.b_t.double() @ mod.a_t.double()
+                w_worst = max(w_worst, (float(torch.linalg.norm(w - w1) /
+                                              torch.linalg.norm(w1)), name))
+    out.update(summary=s, nonfinite=len(bad), layers=s["layers"],
+               ce_diff=d_ce, w_rel_diff={"max": w_worst[0], "layer": w_worst[1]},
+               single_calibrate_s=single["seconds"]["calibrate"],
+               ranks=[{k: r[k] for k in ("rank", "start_s", "load_s", "seconds", "capture",
+                                          "reduce", "bytes_sent", "flash_launches",
+                                          "peak_gb")}
+                      for r in ranks])
+    log(f"  calibration: sharded {res['seconds']['calibrate']:.2f} s (launcher, "
+        f"{SHARDS} ranks, spawn and weights included) against single "
+        f"{single['seconds']['calibrate']:.2f} s (16(d)); compress "
+        f"{res['seconds']['compress']:.2f} s; launcher {out['seconds']['launcher']:.1f} s")
+    for r in ranks:
+        log(f"    rank {r['rank']}: started {r['start_s']:.3f} s after the spawn, model "
+            f"loaded in {r['load_s']:.3f} s; {r['seconds']:.3f} s (capture {r['capture']:.3f} s, "
+            f"butterfly {r['reduce']:.3f} s, {r['bytes_sent']:,} bytes sent), flash "
+            f"launches {r['flash_launches']}, peak {r['peak_gb']} GB")
+    log(f"  (a) RᵀR against 16(d)'s: largest relative difference {worst[0]:.3e} "
+        f"({worst[1]}; tol {TOL_SHARD_GRAM}) over {len(cal.factors)} paths; token "
+        f"counts equal")
+    log(f"  (b) every rank's R the same bits: {out['ranks_bit_equal']}")
+    log(f"  (c) {len(bad)} non-finite of {s['layers']}; COALA CE {s['compressed_ce']:.6f} "
+        f"against 16(d)'s {s1['compressed_ce']:.6f} (|diff| {d_ce:.3e}, tol "
+        f"{TOL_SHARD_CE}); base CE {s['base_ce']:.6f} (16(d): {s1['base_ce']:.6f}); "
+        f"largest per-layer relative difference of W' = A·B {w_worst[0]:.3e} "
+        f"({w_worst[1]}; not gated)")
+    if worst[0] > TOL_SHARD_GRAM:
+        raise Failure(f"sharded RᵀR {worst[0]:.3e} from 16(d)'s at {worst[1]}")
+    if not out["ranks_bit_equal"]:
+        raise Failure(f"the ranks' R factors differ: {len(digests)} digests")
+    if bad or d_ce > TOL_SHARD_CE:
+        raise Failure(f"sharded COALA: {len(bad)} non-finite, CE {d_ce:.3e} from 16(d)'s")
+    if min(r["flash_launches"] for r in ranks) <= 0:
+        raise Failure(f"a rank launched no flash kernel: {out['ranks']}")
+    del res
+    return out, sum(r["flash_launches"] for r in ranks[1:])
 
 
 def adaptive_path(torch, ops, coala):
@@ -5001,7 +5127,8 @@ def run(args) -> int:
         raise Failure(f"attention kernels launched on the xlstm path: {launched}")
     log(f"  kernel shapes noted on the xlstm path: {json.dumps(xl_shapes)}")
 
-    log("[13 whisper path] whisper_base at full width and full depth (6 + 6 layers): "
+    log(f"[13 whisper path] whisper_base at full width, depth cut to {WHISPER_LAYERS} + "
+        f"{WHISPER_LAYERS} of 6 + 6 layers: "
         "calibration 2 x 8 x 256 with frames, COALA 0.6, then phase 4's trace with "
         "frames through the continuous engine (graphs; with a fork, graphs and eager); "
         "python -m repro_torch.launch.serve " + " ".join(WHISPER_FIXED_ARGS)
@@ -5041,11 +5168,29 @@ def run(args) -> int:
         f"{TRAIN_RESUME} checkpoint beside a torn write; one step under each remat mode; "
         "python -m repro_torch.launch.compress --arch smollm_135m --ckpt-in ... --ckpt-out "
         "... --numerics-report --trace-out ...")
-    (tr, tr_shapes), tr_counts, peak = path_window(
-        "train", ("lowrank_linear", "flash_attention"), lambda: train_path(torch, ops))
-    tr["peak_memory_gb"] = peak
-    log(f"  phases (s): {tr['seconds']}")
-    log(f"  kernel shapes noted on the train path: {json.dumps(tr_shapes)}")
+    try:
+        (tr, tr_shapes, single), tr_counts, peak = path_window(
+            "train", ("lowrank_linear", "flash_attention"), lambda: train_path(torch, ops))
+        tr["peak_memory_gb"] = peak
+        log(f"  phases (s): {tr['seconds']}")
+        log(f"  kernel shapes noted on the train path: {json.dumps(tr_shapes)}")
+
+        log(f"[17 sharded calibration] python -m repro_torch.launch.compress --arch "
+            f"smollm_135m --ckpt-in <phase 16's checkpoint> --mesh data={SHARDS}: "
+            f"{SHARDS} gloo ranks on the one card, against 16(d)'s single-device run")
+        (sh, other_flash), sh_counts, peak = path_window(
+            "sharded", ("lowrank_linear", "flash_attention"),
+            lambda: sharded_path(torch, ops, single))
+        del single
+        sh["peak_memory_gb_rank0"] = peak
+        sh_counts = dict(sh_counts)
+        sh["launches_rank0"] = dict(sh_counts)
+        sh_counts["flash_attention"] += other_flash     # ranks 1 .. SHARDS-1
+        log(f"  launches with ranks 1-{SHARDS - 1}'s flash: {sh_counts}; lowrank_linear "
+            f"in the evaluation (rank 0): {sh_counts['lowrank_linear']}")
+    finally:
+        import shutil
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
@@ -5199,7 +5344,7 @@ def run(args) -> int:
                 "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
                 "qwen2_vl": vlm_counts, "xlstm": xl_counts, "whisper": wh_counts,
-                "jamba": jb_counts, "train": tr_counts}
+                "jamba": jb_counts, "train": tr_counts, "sharded": sh_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -5220,7 +5365,7 @@ def run(args) -> int:
                                   "deepseek": moe, "deepseek_v2_mla": mla,
                                   "compression_core": core, "qwen2_vl": vlm,
                                   "xlstm": xl, "whisper": wh, "jamba": jb,
-                                  "train": tr},
+                                  "train": tr, "sharded": sh},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,

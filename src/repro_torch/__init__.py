@@ -23,12 +23,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` needs a visible GPU and
-    raises without one (no silent move to the CPU)."""
+    raises without one (no silent move to the CPU). ``"meta"`` builds
+    shapes without storage (the sharding plans of a full-width model)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (or --device cpu) to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

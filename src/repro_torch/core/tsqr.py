@@ -7,14 +7,17 @@ R with the ``[R; chunk] -> QR`` recurrence (``tsqr_sequential``), so X is
 never formed; ``tsqr_tree`` combines chunk Rs pairwise (the paper's
 multi-GPU tree). R is returned with a non-negative diagonal so it is unique
 and comparable. ``gram_chunked`` is the Gram path the paper compares
-against. The distributed butterfly (``distributed_tsqr_r``) waits with
-``dist``.
+against. ``distributed_tsqr_r`` is the tree across ranks: a butterfly
+(XOR pairing) over a ``torch.distributed`` group, after which every rank
+holds the same full R.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 
 def _fix_sign(r: torch.Tensor) -> torch.Tensor:
@@ -105,6 +108,37 @@ def augment_r_with_mu(r: torch.Tensor, mu: float) -> torch.Tensor:
     eye = torch.sqrt(torch.tensor(mu, dtype=r.dtype)).item() * torch.eye(
         n, dtype=r.dtype, device=r.device)
     return stack_qr(square_r(r), eye)
+
+
+def distributed_tsqr_r(xt_local: torch.Tensor, group=None) -> torch.Tensor:
+    """Butterfly TSQR over the ranks of ``group`` (the default group when
+    None); every rank of the group calls it. ``xt_local``: this rank's
+    (k_local, n) rows of Xᵀ. Returns the full (n, n) R, the same on every
+    rank.
+
+    log2(size) rounds: each pairs rank ``me`` with ``me ^ (1 << s)``, the
+    two swap their R (contiguous fp32 host copies through
+    ``batch_isend_irecv``, so a gloo group carries it whatever the device)
+    and both factor [R_lower; R_upper], the lower rank's on top, on their
+    own device, so both sides compute the same R."""
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    r = square_r(qr_r(xt_local))   # (n, n) so every round swaps one shape
+    rounds = int(math.log2(size))
+    if 2 ** rounds != size:
+        raise ValueError(f"axis size {size} must be a power of two for butterfly TSQR")
+    for s in range(rounds):
+        partner = me ^ (1 << s)
+        peer = partner if group is None else dist.get_global_rank(group, partner)
+        mine = r.detach().to("cpu", torch.float32).contiguous()
+        other = torch.empty_like(mine)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, mine, peer, group),
+                dist.P2POp(dist.irecv, other, peer, group)]):
+            req.wait()
+        other = other.to(device=r.device, dtype=r.dtype)
+        r = qr_r(torch.cat([r, other] if me < partner else [other, r], dim=0))
+    return r
 
 
 def gram_chunked(chunks: Iterable[torch.Tensor]) -> torch.Tensor:

@@ -5,12 +5,16 @@ use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per
 source, all started together), linked into one shared library under
 ``build/`` at the repository root, and loaded with ``ctypes``. The library's
 file name carries a hash of the sources, their shared header and the
-flags, so a changed source or header rebuilds. Nothing here runs at import time: this module is imported on
-machines without ``nvcc`` or a GPU.
+flags, so a changed source or header rebuilds. A build holds an exclusive
+``flock`` on ``build/.build.lock`` and renames the linked library into place,
+so processes that load at once (the ranks of a sharded calibration) make
+one build and never read a half-written file. Nothing here runs at import
+time: this module is imported on machines without ``nvcc`` or a GPU.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -73,11 +77,22 @@ def library_path() -> Path:
 def build(verbose: bool = False) -> Path:
     """Compile (if the sources changed) and return the shared library path.
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report of
-    registers, shared memory and spills per kernel."""
+    registers, shared memory and spills per kernel. Processes that call it
+    at once take turns on the build lock: the first builds, the others find
+    its library."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # released when the file closes
+        if not so.exists():
+            _compile(so, verbose)
+    return so
+
+
+def _compile(so: Path, verbose: bool) -> None:
+    """nvcc every source into a temporary directory, link, rename to ``so``."""
     cc = nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -103,7 +118,6 @@ def build(verbose: bool = False) -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_so, so)
-    return so
 
 
 def lib() -> ctypes.CDLL:

@@ -36,12 +36,22 @@ place of pretraining; ``--ckpt-out DIR`` saves ``{"params"}`` of the
 compressed model as step 0; ``--numerics-report`` prints the calibration's
 and the compression's per-layer health (``obs/numerics.py``);
 ``--trace-out PATH`` writes the span trace of the run (calibration,
-compression and the ``ckpt.*`` spans). The mesh (sharded calibration) waits
-for the distributed slice.
+compression and the ``ckpt.*`` spans).
+
+``--mesh data=N`` shards calibration rows over N ranks of a gloo group
+(``dist/group.py``; N a power of two dividing the calibration batch of 8):
+the caller is rank 0 and keeps pretraining (or ``--ckpt-in``), evaluation
+and compression; ranks 1 .. N-1 are spawned processes on the same device
+that receive the trained weights through host shared memory, capture their
+shard of every batch through the flash kernel and reduce the per-rank R
+factors with the butterfly TSQR (``dist/calibrate.py``). X is never formed
+either way. The reference's ``_peek_mesh`` has no counterpart: JAX fixes its
+fake-device count at import, a process group is made when it is needed.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
@@ -55,6 +65,10 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.calibrate import calibrate_model
 from repro_torch.core.compress import compress_model, compression_summary
 from repro_torch.data import DataConfig, TokenPipeline
+from repro_torch.dist import group
+from repro_torch.dist.calibrate import calibrate_sharded
+from repro_torch.kernels import _build, ops
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from repro_torch.models.common import CPU_CTX, ParallelCtx
 from repro_torch.obs import numerics, trace as obs_trace
@@ -93,6 +107,102 @@ def eval_ce(model, pipe: TokenPipeline, *, ctx: ParallelCtx = KERNEL_CTX,
             for b in (pipe.get_batch(1000 + i) for i in range(n_batches))]))
 
 
+def _parse_mesh(ap, value: str) -> int:
+    """The shard count of ``--mesh data=N``; refuses anything else with the
+    reference's messages (before any pretraining)."""
+    out = {}
+    for part in value.split(","):
+        if "=" in part:
+            name, _, size = part.partition("=")
+            try:
+                out[name.strip()] = int(size)
+            except ValueError:
+                pass
+    if not out or set(out) != {"data"}:
+        ap.error(f"--mesh {value!r} not understood; expected "
+                 f"'data=N' (calibration shards over the data axis)")
+    n_shards = out["data"]
+    if n_shards < 1 or n_shards & (n_shards - 1):
+        ap.error(f"--mesh data={n_shards}: shard count must be a power "
+                 f"of two (butterfly TSQR pairing)")
+    if CALIB_BATCH % n_shards:
+        ap.error(f"--mesh data={n_shards}: must divide the calibration "
+                 f"batch of {CALIB_BATCH} rows")
+    return n_shards
+
+
+def _to(batch, device):
+    if isinstance(batch, dict):
+        return {k: v.to(device) for k, v in batch.items()}
+    return batch.to(device)
+
+
+def _calibrate_rank(model, batches, n_shards: int):
+    """One rank's part of ``--mesh data=N``: its shard of ``batches``
+    through ``calibrate_sharded`` on a (N,) ``data`` mesh. Returns the
+    calibration and this rank's numbers: calibration seconds (and the
+    capture / reduce split), flash launches, peak device memory (GB, through
+    the calibration; None on the CPU), bytes its butterfly sent, and a
+    digest of its R factors (every rank must hold the same bits)."""
+    device = model.device
+    flash0 = ops.launch_counts()["flash_attention"]
+    _sync(device)
+    t0 = time.perf_counter()
+    mesh = make_mesh((n_shards,), ("data",), device=device)
+    cal = calibrate_sharded(model, [_to(b, device) for b in batches], mesh,
+                            axis="data", ctx=KERNEL_CTX)
+    _sync(device)
+    digest = hashlib.sha256()
+    for path, r in cal.factors.items():
+        digest.update(path.encode())
+        digest.update(r.detach().cpu().contiguous().numpy().tobytes())
+    stats = {"rank": torch.distributed.get_rank(),
+             "seconds": time.perf_counter() - t0, **cal.seconds,
+             "bytes_sent": cal.bytes_sent,
+             "flash_launches": ops.launch_counts()["flash_attention"] - flash0,
+             "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                         if device.type == "cuda" else None),
+             "r_digest": digest.hexdigest()}
+    return cal, stats
+
+
+def _calibrate_spawned(cfg, weights, batches, n_shards: int, device: str,
+                       t_spawn: float):
+    """Entry point of ranks 1 .. N-1: the caller's model rebuilt on
+    ``device`` from its weights, then ``_calibrate_rank``; returns the
+    rank's numbers, with ``start_s`` (from the caller's spawn, ``t_spawn``
+    on the wall clock, to here: the process's start, its imports and its
+    arguments) and ``load_s`` (the model built and loaded)."""
+    t0 = time.time()
+    model = build_model(cfg, device=device)
+    model.load_state_dict(weights)
+    del weights
+    t1 = time.time()
+    stats = _calibrate_rank(model, batches, n_shards)[1]
+    return dict(stats, start_s=t0 - t_spawn, load_s=t1 - t0)
+
+
+def calibrate_on_mesh(model, cfg, batches, n_shards: int):
+    """``--mesh data=N``: ``calibrate_sharded`` on N ranks, the caller rank
+    0 with ``model`` and the others spawned on the model's device. Returns
+    rank 0's ``ShardedCalibration`` and every rank's numbers, rank order."""
+    device = model.device
+    if device.type == "cuda":
+        _build.build()             # built once here, found by every rank
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    host_batches = [_to(b, "cpu") for b in batches]
+    cal = {}
+
+    def rank0():
+        cal["out"], stats = _calibrate_rank(model, batches, n_shards)
+        return dict(stats, start_s=0.0, load_s=0.0)
+
+    stats = group.run(n_shards, _calibrate_spawned,
+                      (cfg, weights, host_batches, n_shards, str(device), time.time()),
+                      device=str(device), rank0=rank0)
+    return cal["out"], stats
+
+
 def main(argv=None, cfg=None):
     """Command-line entry point. Prints the JSON summary and returns a dict
     with ``summary``, ``reports``, the trained ``model``, the ``compressed``
@@ -125,9 +235,14 @@ def main(argv=None, cfg=None):
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome/Perfetto trace_event JSON of the "
                          "calibration/compression spans to this path")
+    ap.add_argument("--mesh", default="",
+                    help="shard calibration rows, e.g. 'data=4': N ranks of "
+                         "a gloo group on the same device, N a power of two "
+                         "dividing the calibration batch")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    n_shards = _parse_mesh(ap, args.mesh) if args.mesh else 1
     device = resolve_device(args.device)
     if args.trace_out:
         obs_trace.enable()
@@ -169,7 +284,12 @@ def main(argv=None, cfg=None):
                                for i in range(args.calib_batches))]
     _sync(device)
     t0 = time.perf_counter()
-    cal = calibrate_model(model, calib_batches, ctx=KERNEL_CTX)
+    ranks = None
+    if n_shards > 1:
+        cal, ranks = calibrate_on_mesh(model, cfg, calib_batches, n_shards)
+        print(f"# sharded calibration: data={n_shards} (butterfly TSQR reduce)")
+    else:
+        cal = calibrate_model(model, calib_batches, ctx=KERNEL_CTX)
     _sync(device)
     seconds["calibrate"] = time.perf_counter() - t0
     if args.numerics_report:
@@ -206,6 +326,8 @@ def main(argv=None, cfg=None):
            "calib_batches": calib_batches, "seconds": seconds}
     if args.ckpt_in:
         out["ckpt_step"] = ckpt_step
+    if ranks is not None:
+        out["ranks"] = ranks
     return out
 
 
