@@ -116,8 +116,9 @@ Phases, each printing its own lines:
              width, its depth cut to 2 of 28 layers (the dense-FFN layer and
              one MoE layer of 64 routed experts top-6 and 2 shared), handed
              as ``cfg``, 10 pretrain steps, 4 x 8 x 64 calibration tokens,
-             coala and svd_llm compressing every routed expert from its own
-             tokens: non-finite factors (coala must have none), CE before
+             coala compressing every routed expert from its own tokens,
+             then svd_llm on its trained model and calibrator (not a second
+             launcher run, for the script's time): non-finite factors (coala must have none), CE before
              and after, routed tokens per expert, plain-SVD fallbacks; then
              the COALA model serves phase 4's trace through graphs and
              eagerly, identical greedy tokens, 0 post-warmup captures;
@@ -204,9 +205,10 @@ Phases, each printing its own lines:
              (``run_fixed``: 4 rows of 64 tokens, 16 new) against
              ``ContinuousEngine.generate``; (c) the compression launcher (2
              pretraining steps through the recurrences under autograd — 10
-             diverge at its lr — and coala with 0 non-finite layers),
-             svd_llm on its trained model and calibrator (non-finite layers
-             recorded), then its Grams through gram_accum (N 2048, 2730,
+             diverge at its lr — and coala through the randomized SVD,
+             ``--rsvd``, with 0 non-finite layers),
+             svd_llm on its trained model and calibrator for the sLSTM and
+             the first mLSTM (non-finite layers recorded), then its Grams through gram_accum (N 2048, 2730,
              4096) against RᵀR. No attention kernel may launch on it. Phase 7 then
              also holds lowrank_linear on one mLSTM layer's five projections
              and the sLSTM's FFN pair (ff_down's K 2730, the kernel's
@@ -303,6 +305,22 @@ Phases, each printing its own lines:
              each rank's butterfly seconds, bytes sent, flash launches and
              peak memory, lowrank_linear's launches in the evaluation, and
              the largest per-layer relative difference of W' = A·B;
+18. training on the pod and data axes — the training launcher's entry
+             point on phase 16's config with remat none and ``--grad-compress``:
+             (a) ``--mesh 2,2,1``, four gloo ranks on the one card (the caller
+             rank 0, three spawned processes, 2 of each step's 8 rows a rank:
+             the fp32 gradient mean over the data axis, then the int8
+             error-feedback mean across the two pods), 6 steps with saves at 3
+             (async) and 5 (blocking), the error feedback's invariant bounded
+             every step from every rank's local identities; (b) ``--mesh
+             2,1,1`` resumed from a copy of (a)'s step-3 checkpoint (the
+             elastic restore: each rank keeps its pod's residuals, bit for
+             bit its pod's row of the stored ones). Every rank's parameters
+             the same bits after every step, step 0's CE within 1e-3 of phase
+             16's, (b)'s CE at steps 4-5 within 2e-3 of (a)'s and its
+             parameters within 2 x 2·lr, 0 non-finite; it prints each rank's ms a step, bytes sent a step
+             and peak memory. No kernel runs on this path (training takes the
+             dense path: flash has no backward); its window reads 0 launches;
 15. profile — only with ``--profile N``: wall and per-kernel device time of
              N decode steps per model (torch.profiler), through CUDA graphs
              and eagerly, through graphs in bf16 (activations and cache),
@@ -316,9 +334,9 @@ the serving spans nesting per thread, each engine's ``metrics()`` keys the
 JAX golden set, and every request's lifecycle in the recorder. Phase 4d
 runs after 4c, so that no earlier phase sees a swapped model.
 
-Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16, 17, 7, 15. Launch
-counts are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16
-and 17 (4b, 4c and 4d included) and
+Phases run in the order 1-6, 10, 8, 9, 9b, 11, 12, 13, 14, 16, 17, 18, 7, 15.
+Launch counts are zeroed just before each of the paths 4-6, 10, 8, 9, 9b, 11, 12,
+13, 14, 16, 17 and 18 (4b, 4c and 4d included) and
 read just after (phase 17's ranks 1-3 count in their own processes and report
 their flash launches to the launcher): eager launches plus the kernels of every
 CUDA-graph replay; each kernel must have launched on the paths that run it,
@@ -536,6 +554,29 @@ TOL_REMAT_GRAD, TOL_REMAT_LOSS, REMAT_REPEATS = 1e-3, 1e-6, 3
 SHARDS = 4
 TOL_SHARD_GRAM = 1e-4
 TOL_SHARD_CE = 1e-3
+# Phase 18, training over the pod and data axes: the train launcher on phase
+# 16's config (smollm_135m at full width and depth, bf16 over the fp32
+# master, 8 x 128 a step) with remat none, (a) at --mesh 2,2,1
+# --grad-compress, four gloo ranks on the one card (2 rows each), 6 steps,
+# saves at 3 (async) and 5 (blocking); (b) resumed at --mesh 2,1,1 from (a)'s
+# step 3 to step 5 (the elastic restore: the data axis halves, the pod count
+# stays). Stated before the first run: every rank's parameters the same bits
+# after each step; step 0's CE within 1e-3 of phase 16's (the same parameters
+# and tokens, split four ways, in bf16); ĝ + mean_p(e_p) within 16 fp32 units
+# in the last place of the largest |g + e| of mean_p(g + e_prev), bounded
+# each step by max_r ef_own + max_r ef_sum / 2 over the ranks' local
+# identities (``quantized_mean``: no bytes sent for them); each rank of (b)
+# restores, bit for bit, its pod's row of the residuals stored at step 3 (read
+# whole here, without the reshard); (b)'s CE at steps 4-5 within
+# 2e-3 of (a)'s and its parameters within 2 steps x 2·lr absolute of (a)'s
+# (AdamW moves an element by at most lr a step, and near-zero gradients can
+# flip its sign); 0 non-finite
+MESH_STEPS, MESH_EVERY, MESH_LR = 6, 3, 3e-3
+MESH_ARGS = ["--arch", "smollm_135m", "--steps", str(MESH_STEPS), "--seq", "128",
+             "--batch", "8", "--remat", "none", "--ckpt-every", str(MESH_EVERY),
+             "--lr", str(MESH_LR), "--grad-compress", "--device", "cuda"]
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"       # git-ignored; removed after
+TOL_MESH_CE0, TOL_MESH_CE, TOL_MESH_EF = 1e-3, 2e-3, 16 * 2.0 ** -24
 SMOLLM_PROJECTIONS = {      # smollm_135m's projections: (d_in, d_out)
     "wq": (576, 576), "wk": (576, 192), "wv": (576, 192), "wo": (576, 576),
     "gate": (576, 1536), "up": (576, 1536), "down": (1536, 576)}
@@ -2075,6 +2116,8 @@ def gemma2_path(torch, ops):
 # path with 10 pretrain steps and 4 x 8 x 64 calibration tokens, so a routed
 # expert sees ~190 tokens against d_model 2048: per-expert COALA on
 # rank-deficient R factors. Then the COALA model serves phase 4's trace.
+# svd_llm compresses the coala run's trained model and calibrator (a second
+# launcher run would pretrain and calibrate again: the script's time)
 DEEPSEEK_LAYERS = 2
 DEEPSEEK_ARGS = ["--arch", "deepseek_moe_16b", "--ratio", "0.6", "--lam", "4",
                  "--pretrain-steps", "10", "--calib-batches", "4", "--device", "cuda"]
@@ -2095,6 +2138,28 @@ def _nonfinite_factors(torch, model):
               & torch.isfinite(mod.a_t.reshape(lead, -1)).all(dim=1)).tolist()
         bad += [path if lead == 1 else f"{path}/e{e}" for e in range(lead) if not ok[e]]
     return bad
+
+
+def _compress_again(torch, res, launcher, method):
+    """``method`` through ``compress_model`` on a compress launcher run's
+    trained model and calibrator (as the launcher would compress them: the
+    launcher's ratio, λ and μ), evaluated as it evaluates; a result shaped as
+    the launcher's. A second launcher run would pretrain the same model from
+    the same seed and calibrate on the same batches."""
+    from repro_torch.config import CompressConfig
+    from repro_torch.core.compress import compress_model, compression_summary
+
+    t0 = time.perf_counter()
+    cmodel, reports = compress_model(res["model"], res["calibrator"], CompressConfig(
+        method=method, ratio=0.6, lam=4.0, mu=-1.0))
+    torch.cuda.synchronize()
+    seconds = {"compress": time.perf_counter() - t0}
+    summary = dict(compression_summary(reports), method=method,
+                   base_ce=res["summary"]["base_ce"],
+                   compressed_ce=launcher.eval_ce(cmodel, launcher.make_pipeline(
+                       res["model"].cfg, res["model"].device)))
+    return {"summary": summary, "reports": reports, "model": res["model"],
+            "compressed": cmodel, "calibrator": res["calibrator"], "seconds": seconds}
 
 
 def deepseek_path(torch, ops):
@@ -2118,11 +2183,15 @@ def deepseek_path(torch, ops):
         raise Failure("deepseek depth cut: expected 1 dense-FFN layer, then MoE layers")
     out = {"layers": DEEPSEEK_LAYERS, "seconds": {}, "summaries": {}, "nonfinite": {},
            "nan_reports": {}, "peak_gb": {}, "solve_s": {}}
-    keep = None
+    keep = coala = None
     for method in ("coala", "svd_llm"):
         t0 = time.perf_counter()
         with SolveTimes(torch) as solves:
-            res = launcher.main(DEEPSEEK_ARGS + ["--method", method], cfg=cfg)
+            if method == "coala":
+                res = coala = launcher.main(DEEPSEEK_ARGS + ["--method", method], cfg=cfg)
+            else:
+                res = _compress_again(torch, coala, launcher, "svd_llm")
+                coala = None
         torch.cuda.synchronize()
         out["seconds"][method] = dict(res["seconds"], total=time.perf_counter() - t0)
         out["solve_s"][method] = solves.summary()
@@ -2603,7 +2672,8 @@ def vlm_path(torch, ops):
 # with a narrow model of the same vocabulary, preempts once) through graphs and
 # eagerly. (b) The fixed-batch launcher: 4 rows of 64 tokens, 16 new. (c) The
 # compression launcher with 2 pretraining steps and coala; svd_llm through
-# ``compress_model`` on its trained model and calibrator; then the Grams of
+# ``compress_model`` on its trained model and calibrator (the sLSTM's and the
+# first mLSTM's projections, ``XLSTM_SVD_PREFIXES``); then the Grams of
 # its calibration batches (gram_accum) against RᵀR.
 XLSTM_LAYERS = 8
 XLSTM_KNOBS = dict(block_size=16, num_blocks=72, max_running=8)
@@ -2625,9 +2695,14 @@ XLSTM_FIXED_ARGS = ["--arch", "xlstm_1_3b", "--requests", str(XLSTM_FIXED_ROWS),
 # warmup steps) the full-width xLSTM's gradient norm grows 86 -> 830 over
 # steps 0-3, then to 1.3e5, 1.1e7, 6.2e7, 5.3e8 and NaN at step 9, leaving NaN
 # weights (measured on an H100; PERF.md)
+# (c) solves COALA with the randomized SVD (``--rsvd``, for the script's time:
+# (a)'s launcher solves the same 37 projections with the full SVD)
 XLSTM_COMPRESS_ARGS = ["--arch", "xlstm_1_3b", "--ratio", "0.6", "--lam", "4",
-                       "--pretrain-steps", "2", "--calib-batches", "4",
+                       "--pretrain-steps", "2", "--calib-batches", "4", "--rsvd",
                        "--device", "cuda"]
+# svd_llm on the sLSTM and the first mLSTM only, their 7 of the 37
+# compressed projections (for the script's time)
+XLSTM_SVD_PREFIXES = ("blocks/0/sub0/", "blocks/0/sub1/")
 XLSTM_NO_LAUNCH = ("paged_attention", "chunked_prefill", "flash_attention")
 # the compressed projections: one mLSTM layer's five and the sLSTM's FFN pair,
 # (d_in, d_out); ff_down's d_in 2730 is not a multiple of 4
@@ -2669,7 +2744,7 @@ def xlstm_path(torch, ops):
     import numpy as np
     from repro_torch.config import CompressConfig
     from repro_torch.configs import get_config
-    from repro_torch.core.calibrate import calibrate_model
+    from repro_torch.core.calibrate import Calibrator, calibrate_model
     from repro_torch.core.compress import compress_model, compression_summary
     from repro_torch.launch import compress as compress_launcher
     from repro_torch.launch import serve as launcher
@@ -2800,7 +2875,10 @@ def xlstm_path(torch, ops):
     out["seconds"]["compress_coala"] = dict(coala["seconds"],
                                             total=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    svd_model, svd_reports = compress_model(coala["model"], coala["calibrator"],
+    svd_cal = Calibrator()
+    svd_cal.streams = {p: st for p, st in coala["calibrator"].streams.items()
+                       if p.startswith(XLSTM_SVD_PREFIXES)}
+    svd_model, svd_reports = compress_model(coala["model"], svd_cal,
                                             CompressConfig(method="svd_llm", ratio=0.6))
     torch.cuda.synchronize()
     svd_s = time.perf_counter() - t0
@@ -4006,6 +4084,147 @@ def sharded_path(torch, ops, single):
     return out, sum(r["flash_launches"] for r in ranks[1:])
 
 
+def _mesh_ranks(label, res, n_ranks, n_steps) -> list:
+    """Checks of one mesh run's ranks: the same parameter fingerprints at
+    every step and the same final digest on every rank, finite CE and the
+    error-feedback invariant at every step. Returns the per-rank lines."""
+    ranks = res["ranks"]
+    if [r["rank"] for r in ranks] != list(range(n_ranks)):
+        raise Failure(f"{label}: ranks {[r['rank'] for r in ranks]}")
+    prints = {tuple(r["fingerprints"]) for r in ranks}
+    digests = {r["digest"] for r in ranks}
+    if len(prints) != 1 or len(ranks[0]["fingerprints"]) != n_steps or len(digests) != 1:
+        raise Failure(f"{label}: the ranks' parameters differ ({len(prints)} fingerprint "
+                      f"sequences, {len(digests)} digests)")
+    for r in ranks:
+        if len(r["ce"]) != n_steps or not all(math.isfinite(c) for c in r["ce"]):
+            raise Failure(f"{label}: rank {r['rank']} CE {r['ce']}")
+        if len(r["error_feedback"]) != n_steps:
+            raise Failure(f"{label}: rank {r['rank']} reported the error feedback's "
+                          f"identities at {len(r['error_feedback'])} of {n_steps} steps")
+    # the pod invariant's bound each step: every pod's own residual identity
+    # plus the pod sum's, over the largest |g + e| of any pod
+    n_pods = 1 + max(r["pod"] for r in ranks)
+    worst = max((max(r["error_feedback"][t][0] for r in ranks)
+                 + max(r["error_feedback"][t][1] for r in ranks) / n_pods)
+                / max(max(r["error_feedback"][t][2] for r in ranks), 1e-30)
+                for t in range(n_steps))
+    if worst > TOL_MESH_EF:
+        raise Failure(f"{label}: error feedback's invariant off by {worst:.3e} of the "
+                      f"largest |g + e| (tol {TOL_MESH_EF:.3e})")
+    lines = []
+    for r in ranks:
+        secs = sorted(r["step_seconds"])
+        red = sorted(r["reduce_seconds"])
+        lines.append(dict(rank=r["rank"], pod=r["pod"], data=r["data"],
+                          ms_per_step=1e3 * secs[len(secs) // 2],
+                          first_step_ms=1e3 * r["step_seconds"][0],
+                          reduce_ms=1e3 * red[len(red) // 2],
+                          bytes_sent=r["bytes_sent"][-1], peak_gb=r["peak_gb"]))
+        log(f"    {label} rank {r['rank']} (pod {r['pod']}, data {r['data']}): "
+            f"{lines[-1]['ms_per_step']:.1f} ms a step (median; the first "
+            f"{lines[-1]['first_step_ms']:.1f}; reducing the gradients "
+            f"{lines[-1]['reduce_ms']:.1f}), {r['bytes_sent'][-1]:,} bytes sent a "
+            f"step, peak {r['peak_gb']:.2f} GB")
+    log(f"  {label}: every rank the same bits at each of {n_steps} steps; error "
+        f"feedback's invariant within {worst:.3e} of the largest |g + e|")
+    return lines, worst
+
+
+def _stored_err_rows(torch, d: Path, step: int, digest) -> list:
+    """``digest`` (the launcher's sha256) of each pod's row of the residuals
+    stored at ``step`` in ``d``, read whole into the host without the
+    reshard, as a rank digests the rows it restored."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.train.grad_compress import init_error_state
+    from repro_torch.train.train_loop import make_train_state
+
+    model = train.build_model(train.get_config("smollm_135m"), device="cpu")
+    state = make_train_state(model, None, TrainConfig(grad_compress_pods=True))
+    state["err"] = init_error_state(dict(model.named_parameters()), 2)
+    with torch.no_grad():
+        CheckpointManager(str(d)).restore(state, step=step)
+    return [digest((k, e[p:p + 1]) for k, e in state["err"].items()) for p in range(2)]
+
+
+def mesh_train_path(torch, ops, ce0_single):
+    """Phase 18: ``repro_torch.launch.train.main`` with ``MESH_ARGS`` (a) at
+    ``--mesh 2,2,1``: four ranks on the one card, 6 steps, saves at 3 and 5;
+    (b) resumed at ``--mesh 2,1,1`` from a copy of (a)'s step 3. Checks: the
+    same bits on every rank after every step, step 0's CE against phase
+    16's ``ce0_single``, the error feedback's invariant, (b) against (a) at
+    steps 4-5 (CE and parameters), 0 non-finite. Returns the summary."""
+    import shutil
+    from repro_torch.launch import train
+
+    out = {"params": TRAIN_PARAMS, "seconds": {}}
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        a, _ = _train_run(train, MESH_ARGS + [
+            "--mesh", "2,2,1", "--ckpt-dir", str(MESH_DIR / "a")])
+        out["seconds"]["a"] = time.perf_counter() - t0
+        if [(s["step"], s["blocking"]) for s in a["saves"]] != [(3, False), (5, True)] \
+                or a["ckpt_steps"] != [3, 5]:
+            raise Failure(f"mesh (a) saves {a['saves']}, kept {a['ckpt_steps']}")
+        out["a_ranks"], ef_a = _mesh_ranks("(a) 2,2,1", a, 4, MESH_STEPS)
+        d_ce0 = abs(a["ce"][0] - ce0_single)
+        out["a"] = dict(ce=a["ce"], ce0_diff=d_ce0, ef_worst=ef_a, saves=a["saves"])
+        log(f"  (a) --mesh 2,2,1: CE {a['ce'][0]:.6f} at step 0 against phase 16's "
+            f"{ce0_single:.6f} (|diff| {d_ce0:.3e}, tol {TOL_MESH_CE0}) -> "
+            f"{a['ce'][-1]:.6f} at step {MESH_STEPS - 1}; saves "
+            + ", ".join(f"{s['step']} ({'blocking' if s['blocking'] else 'async'}: "
+                        f"{s['seconds']:.3f} s on the caller, {s['write_seconds']:.3f} s "
+                        "writing)" for s in a["saves"])
+            + f"; {out['seconds']['a']:.1f} s")
+        if d_ce0 > TOL_MESH_CE0:
+            raise Failure("mesh (a): step 0's CE parted from phase 16's")
+
+        shutil.rmtree(MESH_DIR / "a" / f"step_{MESH_STEPS - 1}")
+        (MESH_DIR / "b").mkdir()
+        (MESH_DIR / "a" / f"step_{MESH_EVERY}").rename(MESH_DIR / "b" / f"step_{MESH_EVERY}")
+        t0 = time.perf_counter()
+        b, text = _train_run(train, MESH_ARGS + [
+            "--mesh", "2,1,1", "--ckpt-dir", str(MESH_DIR / "b")])
+        out["seconds"]["b"] = time.perf_counter() - t0
+        if f"[resume] step {MESH_EVERY}" not in text or b["start"] != MESH_EVERY + 1:
+            raise Failure(f"mesh (b) did not resume from step {MESH_EVERY}: {b['start']}")
+        out["b_ranks"], _ = _mesh_ranks("(b) 2,1,1", b, 2, MESH_STEPS - MESH_EVERY - 1)
+        rows = _stored_err_rows(torch, MESH_DIR / "b", MESH_EVERY, train._digest)
+        restored = [r["restored_err"] for r in b["ranks"]]
+        out["b"] = {"restored_err_rows_equal": restored == [rows[r["pod"]] for r in b["ranks"]]}
+        log(f"  (b) each rank's restored residuals against its pod's row of step "
+            f"{MESH_EVERY}'s stored ones (sha256): "
+            + ", ".join(f"rank {r['rank']} pod {r['pod']} "
+                        f"{'equal' if r['restored_err'] == rows[r['pod']] else 'DIFFERENT'}"
+                        for r in b["ranks"]))
+        if not out["b"]["restored_err_rows_equal"] or rows[0] == rows[1]:
+            raise Failure("mesh (b): a rank restored other residuals than its pod's row")
+        d_ce = max(abs(x - y) for x, y in zip(b["ce"], a["ce"][MESH_EVERY + 1:]))
+        pa = dict(a["model"].named_parameters())
+        with torch.no_grad():
+            d_p = max(float((p - pa[k]).abs().max()) for k, p in b["model"].named_parameters())
+            finite = all(bool(torch.isfinite(p).all()) for m in (a["model"], b["model"])
+                         for p in m.parameters())
+        tol_p = 2 * 2 * MESH_LR
+        out["b"].update(ce=b["ce"], ce_diff=d_ce, params_max_abs=d_p, finite=finite)
+        log(f"  (b) --mesh 2,1,1 resumed at step {b['start']}: CE {b['ce']} against "
+            f"(a)'s {a['ce'][MESH_EVERY + 1:]} (max |diff| {d_ce:.3e}, tol {TOL_MESH_CE}); "
+            f"parameters max |diff| {d_p:.3e} (tol {tol_p:.3e}); all finite: {finite}; "
+            f"{out['seconds']['b']:.1f} s")
+        if d_ce > TOL_MESH_CE or d_p > tol_p or not finite:
+            raise Failure("mesh (b): the elastic resume parted from (a), or a value is "
+                          "not finite")
+        del a, b, pa
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out
+
+
 def adaptive_path(torch, ops, coala):
     """10a: ``compress_model(adaptive_rank=True)`` on phase 5's trained model
     and calibrator (coala, ratio ``ADAPTIVE_RATIO``, μ 0): kept ratio, more
@@ -5077,7 +5296,7 @@ def run(args) -> int:
     log(f"  kernel shapes noted on the gemma2 path: {json.dumps(gemma_shapes)}")
 
     log("[9 deepseek path] python -m repro_torch.launch.compress " + " ".join(DEEPSEEK_ARGS)
-        + f" --method coala, then --method svd_llm, on deepseek_moe_16b at full width, "
+        + f" --method coala, then svd_llm on its model, on deepseek_moe_16b at full width, "
         f"depth cut to {DEEPSEEK_LAYERS} of 28 layers (the dense-FFN layer and "
         f"{DEEPSEEK_LAYERS - 1} MoE "
         "layers); then the COALA model serves phase 4's trace")
@@ -5191,6 +5410,13 @@ def run(args) -> int:
     finally:
         import shutil
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    log(f"[18 training on the pod and data axes] python -m repro_torch.launch.train "
+        + " ".join(MESH_ARGS) + " --mesh 2,2,1: four gloo ranks "
+        f"on the one card; then --mesh 2,1,1 resumed from its step-{MESH_EVERY} checkpoint")
+    mesh_tr, mesh_counts, peak = path_window(
+        "train-mesh", (), lambda: mesh_train_path(torch, ops, tr["train"]["ce_first"]))
+    mesh_tr["peak_memory_gb_rank0"] = peak
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 18, dtype=torch.float32, device=dev)   # 256 MB
@@ -5344,7 +5570,8 @@ def run(args) -> int:
                 "compression_core": core_counts, "gemma2": gemma_counts,
                 "deepseek": moe_counts, "deepseek_v2_mla": mla_counts,
                 "qwen2_vl": vlm_counts, "xlstm": xl_counts, "whisper": wh_counts,
-                "jamba": jb_counts, "train": tr_counts, "sharded": sh_counts}
+                "jamba": jb_counts, "train": tr_counts, "sharded": sh_counts,
+                "train_mesh": mesh_counts}
     launches = {k: sum(c[k] for c in by_phase.values()) for k in replaces}
     kernels = [{"name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
                 "replaces": replaces[k], "launches": launches[k],
@@ -5365,7 +5592,7 @@ def run(args) -> int:
                                   "deepseek": moe, "deepseek_v2_mla": mla,
                                   "compression_core": core, "qwen2_vl": vlm,
                                   "xlstm": xl, "whisper": wh, "jamba": jb,
-                                  "train": tr, "sharded": sh},
+                                  "train": tr, "sharded": sh, "train_mesh": mesh_tr},
                     "launches": by_phase,
                     "lowrank_backward_launches": backward,
                     "lowrank_adaptive": adaptive_kernels,

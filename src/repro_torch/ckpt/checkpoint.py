@@ -19,8 +19,17 @@ bf16:      a bf16 leaf is written as the reference's numpy writes an
 ``ml_dtypes.bfloat16`` array: its 2-byte bits under the descriptor ``<V2``,
 the manifest saying ``bfloat16``; ``restore`` reads it by that dtype.
 
-A restore onto another mesh (``shardings=``) waits with the distributed
-slice.
+Ranks:     in a process group of several ranks ``save`` and ``restore`` are
+collective. The port's train state is replicated but for the error-feedback
+residuals ``err``, which ``shardings`` (``dist/sharding.py::NamedSharding``
+per residual, over ``pod``) marks: each rank holds its pod's row. ``save``
+gathers those rows on rank 0, which alone writes, the residual whole as
+``(n_pods, ...)`` in the reference's format; the other ranks wait at a
+barrier (after rank 0's host copy for an async save, after its files for a
+blocking one). ``restore(..., shardings=)`` is the reference's elastic
+reshard: every rank reads the files and keeps its shard, so the data axis
+may change between a save and a restore. The pod count may not: a
+residual's rows belong to their pods.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.obs import trace
@@ -61,6 +71,28 @@ def _load_leaf(path: str, dtype: str) -> np.ndarray:
     return a
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _reshard_err(flat: Dict[str, np.ndarray], state_like, shardings) -> None:
+    """Each stored residual ``(n_pods, ...)`` in ``flat`` replaced by this
+    rank's shard of it. The pod count of the store and of the mesh must be
+    the same."""
+    paths = {}
+    for name, path in convert.param_paths(state_like["model"], ("err",)).items():
+        paths.setdefault(path, []).append(name)
+    for path, names in paths.items():
+        sh = shardings[names[0]]
+        n = dict(zip(sh.mesh.mesh_dim_names, sh.mesh.shape))["pod"]
+        if flat[path].shape[0] != n:
+            raise ValueError(
+                f"{path}: the checkpoint holds the residuals of {flat[path].shape[0]} "
+                f"pods, the mesh has {n}: a restore may change the data axis but "
+                "not the pod count (each pod's error-feedback residual is its own)")
+        flat[path] = sh.local(flat[path])
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -73,11 +105,25 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state, *, blocking: bool = True,
-             extra_meta: Optional[Dict[str, Any]] = None):
-        """Save ``state``, a port train state ``{"model", "opt"}`` or
+             extra_meta: Optional[Dict[str, Any]] = None, shardings=None):
+        """Save ``state``, a port train state ``{"model", "opt"[, "err"]}`` or
         ``{"params": model}`` (``convert.state_to_flat``), as step ``step``.
         Returns once the host copy is taken (``blocking=False``) or the files
-        are in place."""
+        are in place. In a group of several ranks every rank calls it:
+        ``shardings`` (``{"err": {name: NamedSharding}}``) names the leaves
+        each rank holds a shard of, gathered on rank 0, which writes."""
+        ranks = _ranks()
+        if shardings is not None and state.get("err") is not None:
+            full = {k: shardings["err"][k].gather(e) for k, e in state["err"].items()}
+            state = dict(state, err=full)
+        if ranks > 1 and dist.get_rank() != 0:
+            dist.barrier()
+            return
+        self._save(step, state, blocking, extra_meta)
+        if ranks > 1:
+            dist.barrier()
+
+    def _save(self, step, state, blocking, extra_meta):
         flat = convert.state_to_flat(state, copy=True)
         paths, host_leaves = list(flat), list(flat.values())
         meta = {"step": int(step), "paths": paths,
@@ -137,11 +183,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, state_like, step: Optional[int] = None):
+    def restore(self, state_like, step: Optional[int] = None, shardings=None):
         """Restore step ``step`` (None: the latest) into ``state_like``, a
         port state as ``save`` takes it, in place: every parameter and moment
         is ``copy_``'d into, so references held to them (an optimizer's, a
-        caller's) stay valid. Returns ``(state_like, manifest)``."""
+        caller's) stay valid. ``shardings`` (``{"err": {name:
+        NamedSharding}}``, as ``save`` takes it) gives each residual this
+        rank's shard of the stored whole, on the mesh it names: the
+        reference's elastic reshard. Returns ``(state_like, manifest)``."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -155,5 +204,7 @@ class CheckpointManager:
             flat = {p: _load_leaf(os.path.join(d, f"leaf_{i}.npy"),
                                   meta["dtypes"][i])
                     for i, p in enumerate(paths)}
+            if shardings is not None and state_like.get("err") is not None:
+                _reshard_err(flat, state_like, shardings["err"])
             convert.load_flat(state_like, flat)
         return state_like, meta

@@ -213,11 +213,33 @@ def _slots(model, tensors: Dict[str, torch.Tensor], root: tuple
     return out
 
 
+def param_paths(model, root: tuple = ()) -> Dict[str, str]:
+    """{parameter name: the ``/``-joined path of its leaf in the reference's
+    tree under ``root``} (stacked parameters share their leaf's path)."""
+    banks = {n for n, m in model.named_modules() if isinstance(m, ExpertBank)}
+    return {name: _path_str(root + _param_path(name, banks)[0])
+            for name, _ in model.named_parameters()}
+
+
+def reference_leaves(model) -> List[List[str]]:
+    """The model's parameter names grouped by the reference's leaf they
+    belong to, a stacked leaf's names in stack order."""
+    banks = {n for n, m in model.named_modules() if isinstance(m, ExpertBank)}
+    groups: Dict[tuple, list] = {}
+    for name, _ in model.named_parameters():
+        path, rep = _param_path(name, banks)
+        groups.setdefault(path, []).append((-1 if rep is None else rep, name))
+    return [[n for _, n in sorted(v)] for v in groups.values()]
+
+
 def _state_slots(state) -> Dict[tuple, list]:
     """The leaves of a port state in the reference's tree: ``{"model",
     "opt"}`` (a train state) is ``{"params", "opt": {"m", "v", "step"}}``,
     and ``{"params": model}`` is ``{"params"}``. ``step`` is a slot of its
-    own, ``[(None, opt)]``."""
+    own, ``[(None, opt)]``. A state's ``err`` (error-feedback residuals
+    keyed as the parameters, each with a leading pod axis) is the
+    reference's ``err`` tree; None, as the reference's single-device state
+    holds it, has no leaves."""
     model = state["model"] if "model" in state else state["params"]
     slots = _slots(model, dict(model.named_parameters()), ("params",))
     if "opt" in state:
@@ -225,7 +247,15 @@ def _state_slots(state) -> Dict[tuple, list]:
         for k in ("m", "v"):
             slots.update(_slots(model, opt[k], ("opt", k)))
         slots[("opt", "step")] = [(None, opt)]
+    if state.get("err") is not None:
+        slots.update(_slots(model, state["err"], ("err",)))
     return dict(sorted(slots.items()))
+
+
+def _stack_axis(path: tuple) -> int:
+    """The axis a stacked leaf stacks its layers on: 1 under ``err`` (after
+    the pod axis), else 0."""
+    return 1 if path[0] == "err" else 0
 
 
 def _path_str(path: tuple) -> str:
@@ -251,7 +281,8 @@ def state_to_flat(state, *, copy: bool = False) -> Dict[str, np.ndarray]:
             out[key] = to_numpy(items[0][1], copy=copy)
         else:
             items.sort(key=lambda it: it[0])
-            out[key] = to_numpy(torch.stack([t.detach() for _, t in items]))
+            out[key] = to_numpy(torch.stack([t.detach() for _, t in items],
+                                            dim=_stack_axis(path)))
     return out
 
 
@@ -267,7 +298,7 @@ def load_flat(state, flat: Dict[str, np.ndarray]) -> None:
             continue
         src = from_numpy(flat[key])
         for rep, t in items:
-            part = src if rep is None else src[rep]
+            part = src if rep is None else src.select(_stack_axis(path), rep)
             if tuple(part.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: leaf has {tuple(part.shape)}, "
                                  f"the state {tuple(t.shape)}")

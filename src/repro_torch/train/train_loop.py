@@ -1,27 +1,44 @@
 """Training step of the port: CE loss, microbatch gradient accumulation,
 global-norm clipping, AdamW, mixed precision and layer rematerialization
-(port of ``repro/train/train_loop.py:22-80`` and ``:154-175``, single
-device), and the adapter-only fine-tuning step of the reference's Table 4
+(port of ``repro/train/train_loop.py:22-80`` and ``:154-175``), on one
+device or on a mesh of ranks over the ``pod`` and ``data`` axes (a model
+axis of 1), and the adapter-only fine-tuning step of the reference's Table 4
 (``examples/finetune_adapters.py:65-72``).
 
-The state is ``{"model": LM, "opt": adamw state}``; the model holds the fp32
-master parameters and the step updates them in place. The forward runs on
-``cast_for_compute``'s copy of them, so under a bf16 ``compute_dtype`` every
-leaf the reference rounds (its ndim >= 2, stacking included) is rounded
-before any module reads it, and autograd carries the gradients back to the
-fp32 master through the cast, as the reference's gradient passes through
-``astype``. The hoisted cast (a sharded compute copy) and cross-pod
-gradient compression wait with the mesh.
+The state is ``{"model": LM, "opt": adamw state[, "err"]}``; the model holds
+the fp32 master parameters and the step updates them in place. The forward
+runs on ``cast_for_compute``'s copy of them, so under a bf16
+``compute_dtype`` every leaf the reference rounds (its ndim >= 2, stacking
+included) is rounded before any module reads it, and autograd carries the
+gradients back to the fp32 master through the cast, as the reference's
+gradient passes through ``astype``.
+
+On a mesh every rank holds the whole state (the parameters and moments
+replicated, the residuals ``err`` the rank's pod row) and runs its rows of
+the global batch; the reduced gradients are the same bits on every rank, so
+clipping and AdamW keep every rank's parameters the same bits. The
+reference's three branches: ``grad_compress_pods`` (int8 error feedback
+across pods, ``train/grad_compress.py``), the plain fp32 mean over every
+rank (the counterpart of the reduction of the reference's FSDP step), and one
+device. A model axis above 1 (tensor parallelism, FSDP's sharded storage),
+an MoE layer on a mesh and the hoisted cast wait with ROADMAP Queue 1, item
+13b-2: they need device collectives at every layer, which one card cannot
+give several ranks.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import TrainConfig
+from repro_torch.convert import reference_leaves
+from repro_torch.dist.sharding import batch_shard
 from repro_torch.models.common import CPU_CTX, ParallelCtx
+from repro_torch.train import grad_compress as gc
 from repro_torch.train.optimizer import (adamw_init, adamw_update,
                                          clip_by_global_norm, reference_ndim)
 
@@ -61,31 +78,67 @@ def compute_parameters(model, dtype):
             mod._parameters[leaf] = p
 
 
-def make_train_state(model, generator: Optional[torch.Generator] = None) -> dict:
+MESH_REFUSED = "ROADMAP Queue 1, item 13b-2"
+
+
+def check_mesh(sizes: Dict[str, int], cfg) -> None:
+    """Raise for what a mesh of axis ``sizes`` does not take in this slice:
+    a model axis above 1, an MoE layer on a mesh of several ranks."""
+    if sizes.get("model", 1) > 1:
+        raise ValueError(f"a model axis of {sizes['model']} (tensor parallelism, FSDP's "
+                         f"sharded storage) is {MESH_REFUSED}")
+    if cfg.uses_moe and math.prod(sizes.values()) > 1:
+        raise ValueError(f"an MoE layer on a mesh (the expert-parallel MoE, and the "
+                         f"MoE over each pod's batch under grad compression) is "
+                         f"{MESH_REFUSED}")
+
+
+def make_train_state(model, generator: Optional[torch.Generator] = None,
+                     tcfg: Optional[TrainConfig] = None) -> dict:
     """Initialize ``model`` from ``generator`` (on the model's device; None
-    keeps the parameters it holds) and attach fresh AdamW state. (The
-    reference also takes the TrainConfig, for the cross-pod error-feedback
-    state, which the single-device port does not keep.)"""
+    keeps the parameters it holds) and attach fresh AdamW state. With
+    ``tcfg.grad_compress_pods`` the state keeps ``err``, None until the
+    launcher knows the pod count (``gc.init_error_state``), as the
+    reference's does."""
     if generator is not None:
         model.init(generator)
-    return {"model": model, "opt": adamw_init(dict(model.named_parameters()))}
+    state = {"model": model, "opt": adamw_init(dict(model.named_parameters()))}
+    if tcfg is not None and tcfg.grad_compress_pods:
+        state["err"] = None
+    return state
 
 
-def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
+def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX,
+                    mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)`` with batch
     ``{"tokens": (B, T) ints}`` and the model's other inputs (a vlm's
-    ``vision_embeds``, an encoder–decoder's ``frames``), split into the
-    microbatches with the tokens. Each microbatch's loss and backward run on
-    ``cast_for_compute(model, tcfg.compute_dtype)`` (``compute_parameters``;
-    the cast is taken per microbatch, as the reference's ``mb_loss`` takes
-    it) with ``tcfg.remat``. ``ctx`` must not select the flash kernel, which has no
-    backward (its wrapper raises under autograd)."""
+    ``vision_embeds``, an encoder–decoder's ``frames``). Each loss and
+    backward runs on ``cast_for_compute(model, tcfg.compute_dtype)``
+    (``compute_parameters``) with ``tcfg.remat``. ``ctx`` must not select
+    the flash kernel, which has no backward (its wrapper raises under
+    autograd).
+
+    ``mesh`` (a ``DeviceMesh`` with ``pod``, ``data`` and ``model`` axes,
+    ``launch/mesh.py``) makes it this rank's step: the batch is the global
+    one and the rank takes its rows (``batch_shard``). With
+    ``grad_compress_pods`` the gradients go through
+    ``gc.make_compressed_grads_fn`` (one pass over the rank's rows, as the
+    reference's compressed branch takes no microbatches; ``state["err"]``
+    the pod's row, the error feedback's local identities in the metrics as
+    ``ef_own``, ``ef_sum`` and ``ef_scale``); without, they are averaged in
+    fp32 over every rank. Either way the metrics are the mean over the ranks
+    and carry ``bytes_sent`` and ``reduce_seconds``. Without a
+    mesh the step splits the batch into ``tcfg.microbatches`` and takes the
+    cast per microbatch, as the reference's ``mb_loss``."""
     compute_dtype = getattr(torch, tcfg.compute_dtype)
-    mb = tcfg.microbatches
+    if mesh is not None:
+        check_mesh(dict(zip(mesh.mesh_dim_names, mesh.shape)), model.cfg)
+    use_compress = bool(tcfg.grad_compress_pods) and mesh is not None \
+        and "pod" in mesh.mesh_dim_names
 
-
-    def train_step(state, batch):
-        model_ = state["model"]
+    def loss_and_grad(model_, batch, mb):
+        """(ce, aux, {name: gradient}) of the mean loss over ``batch``,
+        accumulated over ``mb`` microbatches."""
         params = dict(model_.named_parameters())
         tokens = batch["tokens"]
         b = tokens.shape[0]
@@ -107,13 +160,47 @@ def make_train_step(model, tcfg: TrainConfig, ctx: ParallelCtx = CPU_CTX):
             ce = ce + metrics["ce"].detach() / mb
             aux = aux + metrics["aux"].detach() / mb
         grads = {k: p.grad for k, p in params.items()}
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        _, opt, lr = adamw_update(tcfg, params, grads, state["opt"])
         for p in params.values():
             p.grad = None
+        return ce, aux, grads
+
+    if use_compress:
+        def pod_loss_and_grad(params, batch):
+            ce, aux, grads = loss_and_grad(model, batch, 1)
+            return (ce + aux, {"ce": ce, "aux": aux}), grads
+
+        compressed = gc.make_compressed_grads_fn(
+            pod_loss_and_grad, mesh, leaves=reference_leaves(model))
+
+    def mesh_mean(model_, batch):
+        """The plain branch on a mesh: the fp32 mean over every rank."""
+        ce, aux, grads = loss_and_grad(model_, batch_shard(batch, mesh),
+                                       tcfg.microbatches)
+        t0 = gc.synced_clock(ce.device)
+        flat, sent = gc.mean_over(gc.pack(grads), dist.group.WORLD)
+        scalars, sent_m = gc.mean_over(torch.stack([ce, aux]), dist.group.WORLD)
+        return (scalars[0], scalars[1], gc.unpack(flat, grads),
+                {"bytes_sent": sent + sent_m,
+                 "reduce_seconds": gc.synced_clock(ce.device) - t0})
+
+    def train_step(state, batch):
+        model_ = state["model"]
+        params = dict(model_.named_parameters())
+        new_err, stats = state.get("err"), {}
+        if use_compress:
+            _, metrics, grads, new_err, stats = compressed(params, batch, state["err"])
+            ce, aux = metrics["ce"], metrics["aux"]
+        elif mesh is not None:
+            ce, aux, grads, stats = mesh_mean(model_, batch)
+        else:
+            ce, aux, grads = loss_and_grad(model_, batch, tcfg.microbatches)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        _, opt, lr = adamw_update(tcfg, params, grads, state["opt"])
         new_state = {"model": model_, "opt": opt}
+        if "err" in state:
+            new_state["err"] = new_err
         return new_state, {"ce": ce, "aux": aux, "loss": ce + aux,
-                           "grad_norm": gnorm, "lr": lr}
+                           "grad_norm": gnorm, "lr": lr, **stats}
 
     return train_step
 

@@ -273,8 +273,57 @@ def test_compress_launcher_report_and_trace(launched):
     assert f"wrote {n} trace events" in text
 
 
-def test_train_launcher_refuses_a_mesh():
-    for extra in (["--mesh", "2,1,1"], ["--coordinator", "localhost:1234"]):
-        with pytest.raises(SystemExit):
-            launch_train.main(["--smoke", "--device", "cpu", "--steps", "1"]
-                              + extra)
+REFUSED_MESHES = [
+    (["--mesh", "1,1,2"], "a model axis of 2"),
+    (["--mesh", "2,2,2", "--grad-compress"], "a model axis of 2"),
+    (["--arch", "deepseek_moe_16b", "--mesh", "1,2,1"], "an MoE layer on a mesh"),
+    (["--arch", "jamba_v0_1_52b", "--mesh", "2,1,1", "--grad-compress"],
+     "an MoE layer on a mesh"),
+]
+
+
+def test_train_launcher_refuses_a_mesh(capsys):
+    """What the pod and data axes do not cover still exits with an error
+    naming ROADMAP item 13b-2, before any rank starts."""
+    for extra, message in REFUSED_MESHES:
+        with pytest.raises(SystemExit) as e:
+            launch_train.main(["--smoke", "--device", "cpu", "--steps", "1"] + extra)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert message in err and "ROADMAP Queue 1, item 13b-2" in err, err
+
+
+@pytest.mark.parametrize("extra, message", [
+    (["--mesh", "2,1"], "expected pod,data,model sizes"),
+    (["--mesh", "1,2,1", "--coordinator", "127.0.0.1:1", "--num-processes", "3"],
+     "--num-processes 3 must equal the mesh's 2 ranks"),
+    (["--mesh", "1,2,1", "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+      "--process-id", "2"], "--process-id 2 not in 0..1"),
+    (["--num-processes", "2"], "--num-processes and --process-id need --coordinator"),
+    (["--mesh", "1,2,1", "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+      "--process-id", "-1"], "--process-id -1 not in 0..1"),
+] + REFUSED_MESHES)
+def test_train_launcher_refusals(capsys, extra, message):
+    with pytest.raises(SystemExit) as e:
+        launch_train.main(["--smoke", "--device", "cpu", "--steps", "1"] + extra)
+    assert e.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+def test_train_step_refuses_what_waits_for_item_13b_2():
+    """The library step refuses the same, for callers past the launcher."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.train_loop import make_train_step
+
+    class Mesh:
+        mesh_dim_names = ("pod", "data", "model")
+
+        def __init__(self, shape):
+            self.shape = shape
+
+    dense = build_model(get_smoke_config("smollm_135m"), device="cpu")
+    moe = build_model(get_smoke_config("deepseek_moe_16b"), device="cpu")
+    for model, shape, message in ((dense, (1, 2, 2), "a model axis of 2"),
+                                  (moe, (2, 1, 1), "an MoE layer on a mesh")):
+        with pytest.raises(ValueError, match=f"{message}.*item 13b-2"):
+            make_train_step(model, TrainConfig(), mesh=Mesh(shape))
